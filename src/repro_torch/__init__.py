@@ -1,0 +1,19 @@
+"""PGBJ kNN joins (Lu et al., "Efficient Processing of k Nearest Neighbor
+Joins using MapReduce") in PyTorch, on hand-written CUDA kernels for
+NVIDIA Hopper.
+
+A port of the JAX package ``repro``, which stays as the reference. It
+imports torch and numpy only. Entry points take ``device=`` and default
+to ``"cuda"``; pass ``device="cpu"`` to run the kernels' plain PyTorch
+versions.
+"""
+from . import core, kernels, obs
+from .core import (JoinConfig, JoinResult, JoinStats, MegastepEngine,
+                   SIndex, StreamJoinEngine, brute_force_knn, build_index,
+                   knn_join_batched, sindex_from_arrays)
+from .data import forest_like
+
+__all__ = ["core", "kernels", "obs", "JoinConfig", "JoinResult", "JoinStats",
+           "MegastepEngine", "SIndex", "StreamJoinEngine", "brute_force_knn",
+           "build_index", "forest_like", "knn_join_batched",
+           "sindex_from_arrays"]

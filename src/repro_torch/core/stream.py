@@ -1,0 +1,216 @@
+"""Streaming R micro-batch engine over a resident ``SIndex`` — PyTorch
+port of the JAX package's ``core.stream`` (the megastep route).
+
+R arrives in micro-batches of any size; each batch runs one fused
+megastep (``core.megastep``) against the build-once index. A query's
+result depends only on (query row, index), so ``knn_join_batched``
+over any split of R gives the same results as one batch.
+
+The port serves a static ``SIndex`` through the megastep only: the
+host-planned route, ``MutableIndex``, the quantized tier and sharding
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Optional, Union
+
+import numpy as np
+import torch
+
+from ..kernels.sorted_merge import merge_sorted_runs_unique, next_pow2
+from .index import SIndex, not_ported, build_index
+from .megastep import MegastepEngine
+from .types import JoinConfig, JoinResult, JoinStats
+
+__all__ = ["StreamJoinEngine", "StreamJoinState", "knn_join_batched"]
+
+
+@dataclasses.dataclass
+class StreamJoinState:
+    """Running top-k per query slot, kept as ascending sorted runs.
+
+    ``update`` merges a batch's (dists, ids) runs into the named slots
+    with ``merge_sorted_runs_unique`` — a plain store for slots seen
+    once, a dedup merge when a slot is revisited (the smaller distance of
+    a repeated id survives, and it occupies one slot). Ids are int64.
+    """
+
+    n: int
+    k: int
+    distances: np.ndarray = dataclasses.field(init=False)
+    indices: np.ndarray = dataclasses.field(init=False)
+    _seen: np.ndarray = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.distances = np.full((self.n, self.k), np.inf, np.float32)
+        self.indices = np.full((self.n, self.k), -1, np.int64)
+        self._seen = np.zeros((self.n,), bool)
+
+    def update(self, rows: np.ndarray, d: np.ndarray, i: np.ndarray) -> None:
+        """Merge ascending (|rows|, k) runs into the tracked slots."""
+        rows = np.asarray(rows)
+        d = np.asarray(d, np.float32)
+        i = np.asarray(i, np.int64)
+        # first touch of a slot is a plain store: merging an ascending
+        # k-run with the all-(+inf, -1) initial run is the identity
+        fresh = ~self._seen[rows]
+        if fresh.any():
+            fr = rows[fresh]
+            self.distances[fr] = d[fresh]
+            self.indices[fr] = i[fresh]
+            self._seen[fr] = True
+            if fresh.all():
+                return
+            rows, d, i = rows[~fresh], d[~fresh], i[~fresh]
+        pad = ((0, 0), (0, next_pow2(self.k) - self.k))
+        md, mi = merge_sorted_runs_unique(
+            torch.from_numpy(np.pad(self.distances[rows], pad,
+                                    constant_values=np.inf)),
+            torch.from_numpy(np.pad(self.indices[rows], pad,
+                                    constant_values=-1)),
+            torch.from_numpy(np.pad(d, pad, constant_values=np.inf)),
+            torch.from_numpy(np.pad(i, pad, constant_values=-1)))
+        self.distances[rows] = md[:, :self.k].numpy()
+        self.indices[rows] = mi[:, :self.k].numpy()
+
+
+class StreamJoinEngine:
+    """Join every incoming R micro-batch against one resident index,
+    each batch one fused megastep on the index's device.
+
+    ``megastep``: ``True`` | ``"auto"`` (both: the megastep, L2 only);
+    ``False`` asks for the host-planned route, which is not ported yet.
+    """
+
+    def __init__(self, index: SIndex, config: Optional[JoinConfig] = None,
+                 *, megastep: object = True, quantized: Optional[bool] = None,
+                 n_shards: Optional[int] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        self.index = index
+        self.config = config or index.config
+        if quantized or (quantized is None and self.config.quantize != "none"):
+            raise not_ported("the quantized tier", "A4")
+        if n_shards is not None:
+            raise not_ported("the sharded megastep", "A5")
+        if megastep == "auto":
+            megastep = self.config.metric == "l2"
+        if not megastep:
+            raise not_ported("the host-planned route (megastep=False)",
+                               "A1")
+        self._megastep = MegastepEngine(index, self.config, device=device)
+
+    @property
+    def megastep_engine(self) -> MegastepEngine:
+        """The fused-path engine — exposes the device-level ``enqueue`` /
+        ``join_batch_device`` API."""
+        return self._megastep
+
+    can_dispatch = True
+
+    def join_batch(self, queries: np.ndarray, *,
+                   stats: Optional[JoinStats] = None
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        """(dists, ids) for one micro-batch — true distances ascending,
+        global S row indices."""
+        queries = np.ascontiguousarray(queries, np.float32)
+        if stats is not None:
+            stats.n_batches += 1
+        return self._megastep.join_batch(queries, stats=stats)
+
+    def dispatch(self, queries: np.ndarray, *,
+                 stats: Optional[JoinStats] = None):
+        """Asynchronous half of ``join_batch``: launch one micro-batch and
+        return a ``JoinHandle`` without waiting. Pair with
+        :meth:`finalize`."""
+        queries = np.ascontiguousarray(queries, np.float32)
+        if stats is not None:
+            stats.n_batches += 1
+        return self._megastep.dispatch(queries, stats=stats)
+
+    def finalize(self, handle, *, stats: Optional[JoinStats] = None
+                 ) -> tuple[np.ndarray, np.ndarray]:
+        """Blocking half of ``join_batch``."""
+        return self._megastep.finalize(handle, stats=stats)
+
+
+def _iter_batches(r, batch_size: int):
+    if isinstance(r, np.ndarray):
+        for lo in range(0, r.shape[0], batch_size):
+            yield r[lo:lo + batch_size]
+    else:
+        yield from r
+
+
+def knn_join_batched(
+    r: Union[np.ndarray, Iterable[np.ndarray]],
+    s: Optional[np.ndarray] = None,
+    k: int | None = None,
+    config: Optional[JoinConfig] = None,
+    *,
+    index: Optional[SIndex] = None,
+    batch_size: int = 0,
+    megastep: object = True,
+    quantized: Optional[bool] = None,
+    n_shards: Optional[int] = None,
+    device: Union[str, torch.device] = "cuda",
+) -> JoinResult:
+    """Streaming PGBJ join: R in micro-batches against a build-once index.
+
+    ``r`` is one array (split into ``batch_size`` chunks; 0 =
+    ``config.batch_size`` or one batch) or an iterable of micro-batch
+    arrays. ``index=`` reuses a prebuilt ``SIndex``; otherwise the index
+    is built here from ``s`` on ``device`` (pivots sampled from S).
+    Equals one batch for any split. Row ``j`` of the output is the
+    ``j``-th query row seen across the batches.
+    """
+    if index is not None:
+        config = config or index.config
+    config = config or JoinConfig(k=k or 10)
+    if k is not None and k != config.k:
+        config = dataclasses.replace(config, k=k)
+    built_here = index is None
+    n_s = None if s is None else len(s)
+    if index is None:
+        if s is None:
+            raise ValueError("knn_join_batched needs s= or a prebuilt index")
+        if config.k > n_s:
+            raise ValueError(f"k={config.k} > |S|={n_s}")
+        index = build_index(s, config, device=device)
+    else:
+        if n_s is not None and n_s != index.n_s:
+            raise ValueError(
+                f"s has {n_s} rows but the prebuilt index holds "
+                f"{index.n_s}; results would index the wrong dataset")
+        if config.k > index.n_s:
+            raise ValueError(f"k={config.k} > |S|={index.n_s}")
+
+    if batch_size <= 0:
+        batch_size = config.batch_size
+    if batch_size <= 0:
+        batch_size = r.shape[0] if isinstance(r, np.ndarray) else 1 << 62
+    batch_size = max(1, batch_size)   # |R| = 0 must not zero the stride
+
+    engine = StreamJoinEngine(index, config, megastep=megastep,
+                              quantized=quantized, n_shards=n_shards,
+                              device=device)
+    stats = JoinStats(n_s=index.n_s)
+    if built_here:   # a reused index's S phase 1 was paid at build time
+        stats.pivot_pairs_computed += index.n_s * index.n_pivots
+    chunks_d, chunks_i, seen = [], [], 0
+    for batch in _iter_batches(r, batch_size):
+        batch = np.ascontiguousarray(batch, np.float32)
+        if batch.shape[0] == 0:
+            continue
+        bd, bi = engine.join_batch(batch, stats=stats)
+        chunks_d.append(bd)
+        chunks_i.append(bi)
+        seen += batch.shape[0]
+    stats.n_r = seen
+    state = StreamJoinState(n=seen, k=config.k)
+    lo = 0
+    for bd, bi in zip(chunks_d, chunks_i):
+        state.update(np.arange(lo, lo + bd.shape[0]), bd, bi)
+        lo += bd.shape[0]
+    return JoinResult(indices=state.indices, distances=state.distances,
+                      stats=stats)

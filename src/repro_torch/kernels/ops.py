@@ -1,0 +1,50 @@
+"""Backend dispatch for the port's kernels.
+
+A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor
+goes to the hand-written CUDA kernel, whose wrapper launches it or
+raises — there is no fallback from the kernel to the plain version.
+Each kernel counts its launches (a plain int on its module), which a
+run reads to show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from . import assign as _assign
+from . import distance_topk as _gather
+
+__all__ = ["assign", "distance_topk_gather", "launch_counts",
+           "reset_launch_counts"]
+
+
+def assign(x: torch.Tensor, pivots: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest pivot per row: (part_id int32, true distance float32)."""
+    if x.is_cuda:
+        return _assign.assign_cuda(x, pivots)
+    return _assign.assign_plain(x, pivots)
+
+
+def distance_topk_gather(
+    r: torch.Tensor, s: torch.Tensor, k: int, schedule: torch.Tensor,
+    counts: torch.Tensor, *, alive: Optional[torch.Tensor] = None,
+    bm: int = 128, bn: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """k nearest scheduled rows of ``s`` per row of ``r``: ascending
+    (√d² float32, int32 positions), (+inf, -1) for empty slots."""
+    fn = (_gather.distance_topk_gather_cuda if r.is_cuda
+          else _gather.distance_topk_gather_plain)
+    return fn(r, s, k, schedule, counts, alive=alive, bm=bm, bn=bn)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches in this process since the last reset."""
+    return {"assign": _assign.launches,
+            "distance_topk_gather": _gather.launches}
+
+
+def reset_launch_counts() -> None:
+    _assign.launches = 0
+    _gather.launches = 0

@@ -1,0 +1,93 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips where no NVIDIA GPU is present (the
+kernels have no CPU mode). On a machine with a card run
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``;
+``python3 chip_smoke.py`` does the same at the serving path's real
+shapes."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch as rt  # noqa: E402
+from repro_torch.kernels import assign as ka  # noqa: E402
+from repro_torch.kernels import distance_topk as kg  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n,m,dim", [(1000, 16, 6), (2570, 300, 12),
+                                     (64, 7, 40)])
+def test_assign_kernel_matches_plain(cuda, n, m, dim):
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rng.normal(size=(n, dim)).astype(np.float32),
+                        device=cuda)
+    p = torch.as_tensor(rng.normal(size=(m, dim)).astype(np.float32),
+                        device=cuda)
+    pid, dist = ka.assign_cuda(x, p)
+    rpid, rdist = ka.assign_plain(x, p)
+    assert (pid == rpid).float().mean() > 0.999
+    torch.testing.assert_close(dist, rdist, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("k,dim,dead", [(5, 6, 0.0), (16, 12, 0.3),
+                                        (10, 70, 0.9)])
+def test_gather_kernel_matches_plain(cuda, k, dim, dead):
+    rng = np.random.default_rng(k)
+    nr, ns, bm, bn = 200, 1500, 32, 128
+    r = torch.as_tensor(rng.normal(size=(nr, dim)).astype(np.float32),
+                        device=cuda)
+    s = torch.as_tensor(rng.normal(size=(ns, dim)).astype(np.float32),
+                        device=cuda)
+    alive = torch.as_tensor((rng.random(ns) >= dead).astype(np.float32),
+                            device=cuda)
+    nr_t, ns_t = -(-nr // bm), -(-ns // bn)
+    counts = rng.integers(1, ns_t + 1, nr_t)
+    sched = np.zeros((nr_t, ns_t), np.int32)
+    for t in range(nr_t):
+        picks = np.sort(rng.choice(ns_t, counts[t], replace=False))
+        sched[t, :counts[t]], sched[t, counts[t]:] = picks, picks[-1]
+    sched = torch.as_tensor(sched, device=cuda)
+    counts = torch.as_tensor(counts.astype(np.int32), device=cuda)
+    d, i = kg.distance_topk_gather_cuda(r, s, k, sched, counts, alive=alive,
+                                        bm=bm, bn=bn)
+    rd, ri = kg.distance_topk_gather_plain(r, s, k, sched, counts,
+                                           alive=alive, bm=bm, bn=bn)
+    fin = torch.isfinite(rd)
+    assert torch.equal(torch.isfinite(d), fin)
+    torch.testing.assert_close(d[fin], rd[fin], atol=1e-4, rtol=1e-5)
+    assert (i == ri)[fin].float().mean() > 0.999
+    assert bool((i[~fin] == -1).all())
+
+
+def test_canonical_chain_is_the_same_bits_on_cpu_and_card(cuda):
+    from repro_torch.core.metrics import canonical_gathered
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy((rng.normal(size=(300, 10)) * 300).astype(np.float32))
+    nb = torch.from_numpy((rng.normal(size=(300, 16, 10)) * 300)
+                          .astype(np.float32))
+    assert torch.equal(canonical_gathered(q.to(cuda), nb.to(cuda)).cpu(),
+                       canonical_gathered(q, nb))
+
+
+def test_megastep_on_the_card_is_exact(cuda):
+    s = rt.forest_like(20000, 10, seed=0)
+    r = rt.forest_like(3000, 10, seed=1)
+    cfg = rt.JoinConfig(k=10, n_pivots=64, tile_r=128, tile_s=512)
+    ops.reset_launch_counts()
+    got = rt.knn_join_batched(r, s, config=cfg, batch_size=1024,
+                              device=cuda)
+    counts = ops.launch_counts()
+    assert counts["assign"] == 1 and counts["distance_topk_gather"] == 3
+    bd, bi = rt.brute_force_knn(r, s, 10, device=cuda)
+    np.testing.assert_array_equal(got.distances, bd)

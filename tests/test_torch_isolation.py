@@ -1,0 +1,106 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, its entry points run on the card unless asked for the CPU, and
+the routes it has not ported yet refuse loudly."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch as rt  # noqa: E402
+from repro_torch.core import MegastepEngine, StreamJoinEngine  # noqa: E402
+from repro_torch.kernels import assign as ka  # noqa: E402
+from repro_torch.kernels import distance_topk as kg  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+
+
+def test_import_loads_neither_jax_nor_repro():
+    code = (
+        "import sys, repro_torch, repro_torch.core, repro_torch.kernels\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_sources_import_no_jax_or_repro():
+    pat = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_torch)"
+                     r"|from\s+(jax|jaxlib|repro)\b(?!_torch))", re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 15
+    offenders = [str(p.relative_to(ROOT)) for p in files
+                 if pat.search(p.read_text())]
+    assert not offenders, offenders
+
+
+def _small():
+    rng = np.random.default_rng(0)
+    return (rng.normal(size=(300, 4)).astype(np.float32),
+            rng.normal(size=(40, 4)).astype(np.float32))
+
+
+@pytest.mark.parametrize("entry", [
+    "build_index", "knn_join_batched", "MegastepEngine", "StreamJoinEngine",
+    "sindex_from_arrays", "brute_force_knn"])
+def test_entry_points_default_to_cuda(monkeypatch, entry):
+    """Without a card, an entry point called without device="cpu" raises;
+    it never carries on silently on the CPU."""
+    s, r = _small()
+    cfg = rt.JoinConfig(k=3, n_pivots=8, tile_r=16, tile_s=32)
+    idx = rt.build_index(s, cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "build_index": lambda: rt.build_index(s, cfg),
+        "knn_join_batched": lambda: rt.knn_join_batched(r, s, config=cfg),
+        "MegastepEngine": lambda: MegastepEngine(idx, cfg),
+        "StreamJoinEngine": lambda: StreamJoinEngine(idx, cfg),
+        "sindex_from_arrays": lambda: rt.sindex_from_arrays(
+            {}, cfg),
+        "brute_force_knn": lambda: rt.brute_force_knn(r, s, 3),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(megastep=False), "A1"), (dict(quantized=True), "A4"),
+    (dict(n_shards=2), "A5")])
+def test_unported_routes_raise(kwargs, item):
+    s, _ = _small()
+    cfg = rt.JoinConfig(k=3, n_pivots=8, tile_r=16, tile_s=32)
+    idx = rt.build_index(s, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=f"Queue {item}"):
+        StreamJoinEngine(idx, cfg, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("field", [
+    "n_groups", "grouping", "use_tile_pruning", "reducer", "quant_slack"])
+def test_config_refuses_knobs_it_does_not_read(field):
+    """The JAX config's grouping, reducer and shortlist knobs are not
+    fields here: setting one fails at once instead of being ignored."""
+    with pytest.raises(TypeError, match=field):
+        rt.JoinConfig(**{field: 1})
+
+
+def test_kernel_wrappers_take_no_cpu_tensor():
+    """The CUDA wrappers launch their kernel or raise: a CPU tensor is
+    refused, not routed to the plain version."""
+    s, r = _small()
+    with pytest.raises(ValueError, match="CUDA"):
+        ka.assign_cuda(torch.from_numpy(r), torch.from_numpy(s[:8]))
+    sched = torch.zeros((3, 1), dtype=torch.int32)
+    cnt = torch.ones((3,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kg.distance_topk_gather_cuda(torch.from_numpy(r),
+                                     torch.from_numpy(s), 4, sched, cnt,
+                                     bm=16, bn=32)
