@@ -1,24 +1,48 @@
-"""PGBJ kNN join, PyTorch port — the serving path of the JAX package's
-``core`` (build-once ``SIndex`` → fused megastep → batched join)."""
+"""PGBJ kNN join, PyTorch port — the JAX package's ``core``: the
+build-once ``SIndex``, the per-batch planner (``plan_queries``), the
+host-planned join (``knn_join`` → ``execute_join``), the fused megastep
+and the streaming engine."""
 from .types import JoinConfig, JoinResult, JoinStats, SummaryTable
 from .pivots import select_pivots
-from .partition import assign_to_pivots, assign_and_summarize
-from .bounds import pad_theta, pivot_distance_matrix
-from .schedule import compact_visits, segment_tile_stats, visit_mask
-from .index import SIndex, as_float32_rows, build_index, sindex_from_arrays
+from .partition import assign_to_pivots, assign_and_summarize, build_summary
+from .bounds import (compute_theta, group_lower_bounds, hyperplane_distances,
+                     pad_theta, pivot_distance_matrix,
+                     replication_lower_bounds, ring_bounds, theta_and_lb)
+from .grouping import (geometric_grouping, greedy_grouping, group_partitions,
+                       replication_count_exact, replication_count_partitions)
+from .schedule import (TileSchedule, build_tile_schedule, compact_visit_mask,
+                       compact_visits, schedule_for_group, segment_tile_stats,
+                       visit_mask)
+from .index import (QueryPlan, SIndex, as_float32_rows, build_index,
+                    plan_queries, sindex_from_arrays)
+from .join import (join_group, join_group_dense, join_group_gather,
+                   join_group_pruned, topk_merge)
+from .api import JoinPlan, execute_join, knn_join, plan_join
 from .megastep import JoinHandle, MegastepEngine
 from .stream import StreamJoinEngine, StreamJoinState, knn_join_batched
-from .metrics import canonical_gathered, canonical_topk, gathered_dist
+from .metrics import (canonical_gathered, canonical_topk, from_cmp,
+                      gathered_dist)
 from .baselines import brute_force_knn
 
 __all__ = [
     "JoinConfig", "JoinResult", "JoinStats", "SummaryTable",
     "select_pivots", "assign_to_pivots", "assign_and_summarize",
-    "pad_theta", "pivot_distance_matrix",
-    "compact_visits", "segment_tile_stats", "visit_mask",
-    "SIndex", "as_float32_rows", "build_index", "sindex_from_arrays",
+    "build_summary",
+    "compute_theta", "group_lower_bounds", "hyperplane_distances",
+    "pad_theta", "pivot_distance_matrix", "replication_lower_bounds",
+    "ring_bounds", "theta_and_lb",
+    "geometric_grouping", "greedy_grouping", "group_partitions",
+    "replication_count_exact", "replication_count_partitions",
+    "TileSchedule", "build_tile_schedule", "compact_visit_mask",
+    "compact_visits", "schedule_for_group", "segment_tile_stats",
+    "visit_mask",
+    "QueryPlan", "SIndex", "as_float32_rows", "build_index", "plan_queries",
+    "sindex_from_arrays",
+    "join_group", "join_group_dense", "join_group_gather",
+    "join_group_pruned", "topk_merge",
+    "JoinPlan", "execute_join", "knn_join", "plan_join",
     "JoinHandle", "MegastepEngine",
     "StreamJoinEngine", "StreamJoinState", "knn_join_batched",
-    "canonical_gathered", "canonical_topk", "gathered_dist",
+    "canonical_gathered", "canonical_topk", "from_cmp", "gathered_dist",
     "brute_force_knn",
 ]

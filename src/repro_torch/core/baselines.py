@@ -1,6 +1,7 @@
 """Brute-force oracle (paper §3, §6) — PyTorch port of the JAX package's
-``core.baselines.brute_force_knn``. H-BRJ and PBJ come with the
-host-planned slice (ROADMAP Queue A)."""
+``core.baselines.brute_force_knn``. The paper's competitor baselines
+H-BRJ and PBJ, and the L1/L∞ oracle, are the rest of ROADMAP Queue A1
+and raise until ported."""
 from __future__ import annotations
 
 from typing import Tuple, Union
@@ -9,9 +10,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .index import not_ported
 from .metrics import canonical_topk
 
-__all__ = ["brute_force_knn"]
+__all__ = ["brute_force_knn", "hbrj_join", "pbj_join"]
 
 
 def brute_force_knn(
@@ -27,10 +29,7 @@ def brute_force_knn(
     engines emit, so oracle and engine outputs compare directly.
     """
     if metric != "l2":
-        raise NotImplementedError(
-            f"brute_force_knn(metric={metric!r}) comes with the "
-            f"host-planned slice (ROADMAP Queue A); the port's oracle is "
-            f"L2 only")
+        raise not_ported(f"brute_force_knn(metric={metric!r})", "A1")
     dev = resolve_device(device)
     r32 = torch.as_tensor(np.asarray(r, np.float32), device=dev)
     s32 = torch.as_tensor(np.asarray(s, np.float32), device=dev)
@@ -46,3 +45,13 @@ def brute_force_knn(
     neigh = s32[out_i.clamp(0, s32.shape[0] - 1)]
     out_d, out_i = canonical_topk(r32, out_i, neigh, metric)
     return out_d.cpu().numpy(), out_i.cpu().numpy()
+
+
+def hbrj_join(*args, **kwargs):
+    """H-BRJ (Zhang et al., EDBT'12), the paper's §6 competitor."""
+    raise not_ported("hbrj_join (the paper's H-BRJ baseline)", "A1")
+
+
+def pbj_join(*args, **kwargs):
+    """PBJ: PGBJ's bounds without grouping, the paper's §6 competitor."""
+    raise not_ported("pbj_join (the paper's PBJ baseline)", "A1")

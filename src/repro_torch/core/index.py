@@ -1,13 +1,18 @@
-"""Build-once S-index — PyTorch port of the JAX package's
-``core.index`` (the static ``SIndex`` and ``build_index``).
+"""Build-once S-index + per-batch query planner — PyTorch port of the JAX
+package's ``core.index``.
 
-``SIndex`` holds everything derivable from S alone, as tensors on one
-device: pivots, the pivot-distance matrix, S's partition assignment
-and summary table T_S, and the S rows packed in pivot-sorted
-(partition, pivot distance) order, so every tile cut from the packed
-rows is partition-coherent. The per-batch query planner
-(``plan_queries``), shard packing and the quantized tier come with later
-slices (ROADMAP Queue A).
+* ``SIndex`` — built once per dataset S by :func:`build_index`: pivots,
+  the pivot-distance matrix, S's partition assignment and summary table
+  T_S, and the S rows packed in pivot-sorted (partition, pivot
+  distance) order, so every tile cut from the packed rows is
+  partition-coherent; optionally the packed rows' int8 twin
+  (:meth:`SIndex.ensure_quant`). Tensors on one device.
+* ``QueryPlan`` — built per R batch by :func:`plan_queries`: the batch's
+  assignment, T_R, θ (Alg. 1 / Thm 3), the replication lower-bound
+  matrix (Cor. 2) and the §5 grouping. Assignment and bounds are
+  device ops; grouping is a host numpy loop.
+
+Shard packing comes with the mesh slice (ROADMAP Queue A5).
 """
 from __future__ import annotations
 
@@ -18,13 +23,16 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .bounds import pivot_distance_matrix
-from .partition import assign_and_summarize
+from ..quant.quantize import QuantizedRows, quantize_rows
+from . import bounds as B
+from . import grouping as G
+from .partition import assign_and_summarize, assign_to_pivots, build_summary
 from .pivots import select_pivots
 from .schedule import segment_tile_stats
 from .types import JoinConfig, SummaryTable
 
-__all__ = ["SIndex", "build_index", "sindex_from_arrays", "as_float32_rows"]
+__all__ = ["SIndex", "QueryPlan", "build_index", "plan_queries",
+           "sindex_from_arrays", "as_float32_rows"]
 
 _FLOAT_DTYPES = {"float32", "float64", "float16", "bfloat16"}
 
@@ -46,8 +54,7 @@ def not_ported(feature: str, item: str) -> NotImplementedError:
     """The error for a route of the JAX package the port does not have
     yet, naming the ROADMAP Queue A item that brings it."""
     return NotImplementedError(
-        f"{feature} is not ported yet (ROADMAP Queue {item}); the port "
-        f"serves a static SIndex through the megastep")
+        f"{feature} is not ported yet (ROADMAP Queue {item})")
 
 
 @dataclasses.dataclass
@@ -75,6 +82,10 @@ class SIndex:
     s_inv: torch.Tensor          # (|S|,) int64 original row -> sorted position
     _tile_stats: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
+    _quant: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    _center: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -101,6 +112,46 @@ class SIndex:
                 self.s_part_sorted, self.s_dist_sorted, self.n_pivots, bn)
         return self._tile_stats[bn]
 
+    def center(self) -> torch.Tensor:
+        """The mean of the rows (float64 mean rounded to float32),
+        cached: selection in expanded d² runs on rows relative to it, so
+        the ‖x‖²·eps cancellation noise shrinks to O(spread²·eps)."""
+        if self._center is None:
+            self._center = (
+                self.s_sorted.to(torch.float64).mean(0).to(torch.float32)
+                if self.n_s else torch.zeros(self.dim, device=self.device))
+        return self._center
+
+    def ensure_quant(self, bn: Optional[int] = None) -> QuantizedRows:
+        """The packed rows' int8 representation at tile size ``bn``
+        (default ``config.tile_s``): per-tile symmetric codes + scales +
+        per-row error bounds ε (``quant.quantize``), host numpy arrays.
+        Built on first use and cached for the index's lifetime."""
+        bn = int(self.config.tile_s if bn is None else bn)
+        if bn not in self._quant:
+            self._quant[bn] = quantize_rows(self.s_sorted.cpu().numpy(), bn)
+        return self._quant[bn]
+
+    def nbytes_resident(self, *, quantized: Optional[bool] = None,
+                        n_shards: Optional[int] = None) -> int:
+        """Device-resident bytes of the index's row payload: the fp32
+        packed rows, or — quantized — the int8 codes + per-tile scales +
+        per-row ε. The default mode follows ``config.quantize``."""
+        if n_shards is not None:
+            raise not_ported("nbytes_resident(n_shards=...)", "A5")
+        if quantized is None:
+            quantized = self.config.quantize != "none"
+        if not quantized:
+            return int(self.s_sorted.numel() * self.s_sorted.element_size())
+        return int(self.ensure_quant().nbytes())
+
+    def replica_mask_sorted(self, lb_group: torch.Tensor,
+                            g: int) -> torch.Tensor:
+        """Theorem 6 membership over the packed row layout: which S rows
+        ship to group ``g`` under a query plan's ``lb_group``."""
+        return self.s_dist_sorted >= lb_group[
+            self.s_part_sorted.to(torch.int64), g]
+
     def rows_for_ids(self, ids: torch.Tensor) -> torch.Tensor:
         """Gather S rows by original (global) row id from the packed
         layout; negative ids yield arbitrary rows (callers mask them)."""
@@ -115,23 +166,27 @@ def build_index(
     pivot_data: Optional[np.ndarray] = None,
     pivots: Optional[np.ndarray] = None,
     pivot_strategy: Optional[str] = None,
+    quantize: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> SIndex:
     """S-side phase 1, once: pivot selection, Voronoi assignment, T_S,
     and the pivot-sorted row packing, on ``device``.
 
-    ``pivot_data`` chooses where pivots are sampled from (default: S);
+    ``pivot_data`` chooses where pivots are sampled from (default: S;
+    the one-shot ``knn_join`` passes its R, the paper's preprocessing);
     ``pivots`` overrides selection entirely. ``pivot_strategy``
     overrides the config's §4.1 strategy. Selection draws from numpy
     ``default_rng(config.seed)`` in the JAX package's order, so both
     packages pick the same pivots from the same data.
+    ``quantize="int8"`` also attaches the packed rows' int8 twin
+    (:meth:`SIndex.ensure_quant`) and stamps the mode into the config.
     """
     dev = resolve_device(device)
     config = config or JoinConfig()
-    if config.quantize != "none":
-        raise not_ported(f"quantize={config.quantize!r}", "A4")
     if pivot_strategy is not None and pivot_strategy != config.pivot_strategy:
         config = dataclasses.replace(config, pivot_strategy=pivot_strategy)
+    if quantize is not None and quantize != config.quantize:
+        config = dataclasses.replace(config, quantize=quantize)
     s_t = as_float32_rows(s, what="S rows").to(dev)
     if pivots is None:
         src = (s_t.cpu().numpy() if pivot_data is None
@@ -147,14 +202,17 @@ def build_index(
         s_t, piv, k=config.k, metric=config.metric, return_order=True)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.shape[0], device=dev)
-    return SIndex(
+    index = SIndex(
         config=config, pivots=piv,
-        pivd=pivot_distance_matrix(piv, config.metric),
+        pivd=B.pivot_distance_matrix(piv, config.metric),
         s_part=s_part, s_dist=s_dist, t_s=t_s, s_order=order,
         s_sorted=s_t[order].contiguous(),
         s_part_sorted=s_part[order].contiguous(),
         s_dist_sorted=s_dist[order].contiguous(),
         s_ids_sorted=order.clone(), s_inv=inv)
+    if config.quantize == "int8":
+        index.ensure_quant(config.tile_s)
+    return index
 
 
 _ARRAY_DTYPES = {
@@ -175,16 +233,17 @@ def sindex_from_arrays(arrays: Dict[str, np.ndarray], config: JoinConfig,
     ``s_part``, ``s_dist``, ``t_s.counts/lower/upper/knn_dists``,
     ``s_order``, ``s_sorted``, ``s_part_sorted``, ``s_dist_sorted``,
     ``s_ids_sorted``, ``s_inv``) — the index-state counterpart of
-    carrying weights across, so both packages serve from one index."""
+    carrying weights across, so both packages serve from one index.
+    A quantized index also carries its ``QuantizedRows`` fields as
+    ``quant.q``, ``quant.scales``, ``quant.eps`` (tile size
+    ``config.tile_s``)."""
     dev = resolve_device(device)
     missing = sorted(set(_ARRAY_DTYPES) - set(arrays))
     if missing:
         raise KeyError(f"sindex_from_arrays: missing fields {missing}")
-    if config.quantize != "none":
-        raise not_ported(f"quantize={config.quantize!r}", "A4")
     t = {name: torch.tensor(np.asarray(arrays[name]), device=dev).to(dtype)
          for name, dtype in _ARRAY_DTYPES.items()}
-    return SIndex(
+    index = SIndex(
         config=config, pivots=t["pivots"], pivd=t["pivd"],
         s_part=t["s_part"], s_dist=t["s_dist"],
         t_s=SummaryTable(counts=t["t_s.counts"], lower=t["t_s.lower"],
@@ -193,3 +252,76 @@ def sindex_from_arrays(arrays: Dict[str, np.ndarray], config: JoinConfig,
         s_order=t["s_order"], s_sorted=t["s_sorted"],
         s_part_sorted=t["s_part_sorted"], s_dist_sorted=t["s_dist_sorted"],
         s_ids_sorted=t["s_ids_sorted"], s_inv=t["s_inv"])
+    if "quant.q" in arrays:
+        bn = int(config.tile_s)
+        qr = QuantizedRows(
+            q=np.ascontiguousarray(arrays["quant.q"], np.int8),
+            scales=np.ascontiguousarray(arrays["quant.scales"], np.float32),
+            eps=np.ascontiguousarray(arrays["quant.eps"], np.float16),
+            bn=bn, n_rows=index.n_s)
+        if (qr.q.shape != (max(1, -(-index.n_s // bn)) * bn, index.dim)
+                or qr.q.shape[0] != qr.n_tiles * bn
+                or qr.eps.shape != (qr.q.shape[0],)):
+            raise ValueError(
+                f"sindex_from_arrays: quant.q {qr.q.shape}, quant.scales "
+                f"{qr.scales.shape}, quant.eps {qr.eps.shape} are not a "
+                f"quantization of {index.n_s} rows at tile_s={bn}")
+        index._quant[bn] = qr
+    elif config.quantize == "int8":
+        index.ensure_quant(config.tile_s)
+    return index
+
+
+@dataclasses.dataclass
+class QueryPlan:
+    """Everything the join needs that depends on the query batch (paper
+    §4.3/§5): assignment, θ, the LB matrices and the grouping — tensors
+    on the index's device."""
+
+    config: JoinConfig
+    r_part: torch.Tensor         # (|R|,) int32
+    r_dist: torch.Tensor         # (|R|,) float32
+    t_r: SummaryTable
+    theta: torch.Tensor          # (M,)       Eq. 6 / Algorithm 1
+    lb: torch.Tensor             # (M_s, M_r) Cor. 2
+    groups: torch.Tensor         # (M,) int32 group id per R-partition
+    lb_group: torch.Tensor       # (M_s, N)   Thm 6
+
+    @property
+    def n_r(self) -> int:
+        return int(self.r_part.shape[0])
+
+    @property
+    def n_groups(self) -> int:
+        return int(self.lb_group.shape[1])
+
+    def group_of_r(self) -> torch.Tensor:
+        return self.groups[self.r_part.to(torch.int64)]
+
+
+def plan_queries(r, index: SIndex,
+                 config: Optional[JoinConfig] = None) -> QueryPlan:
+    """R-side planning for one query batch against a resident index:
+    assignment (the nearest-pivot kernel on the card), θ and the LB
+    matrix as device ops, grouping on the host."""
+    config = config or index.config
+    if config.metric != index.config.metric:
+        raise ValueError(
+            f"metric={config.metric!r} but the index was built with "
+            f"{index.config.metric!r}; pivd/T_S bounds do not transfer "
+            f"between metrics — rebuild the index")
+    r = as_float32_rows(r, what="R rows").to(index.device)
+    m = index.n_pivots
+    if index.t_s.knn_dists is None:
+        raise ValueError("index was built without T_S pivot-kNN lists")
+    r_part, r_dist = assign_to_pivots(r, index.pivots, metric=config.metric)
+    t_r = build_summary(r_part, r_dist, m)
+    theta, lb = B.theta_and_lb(index.pivd, t_r, index.t_s, config.k)
+    n_groups = min(config.n_groups, m)
+    groups = torch.as_tensor(G.group_partitions(
+        config.grouping, index.pivd, t_r, n_groups, lb=lb, t_s=index.t_s),
+        device=index.device)
+    return QueryPlan(
+        config=config, r_part=r_part, r_dist=r_dist, t_r=t_r, theta=theta,
+        lb=lb, groups=groups,
+        lb_group=B.group_lower_bounds(lb, groups, n_groups))

@@ -66,8 +66,9 @@ class _Payload:
     sd_min: torch.Tensor     # (ns_tiles, M) Thm-2 tile stats
     sd_max: torch.Tensor
     present: torch.Tensor
-    s: torch.Tensor          # (ns_tiles·bn, dim) packed rows, zero padded
-    s_c: torch.Tensor        # the same rows centered (selection only)
+    s: Optional[torch.Tensor]    # (ns_tiles·bn, dim) packed rows, zero
+    s_c: Optional[torch.Tensor]  # padded, and centered (selection only);
+                                 # None when the rows stay off the device
     gids: torch.Tensor       # (ns_tiles·bn,) int64 global ids, -1 padding
     alive: torch.Tensor      # (ns_tiles·bn,) float32, 0 on padding
     dead_total: int          # tombstones (0 for a static index)
@@ -79,10 +80,12 @@ def assign_bounds_schedule(q: torch.Tensor, n_valid: int, pl: _Payload,
     """Stages 1–3 (assign → θ → compacted tile schedule) for one
     bucket-padded batch ``q`` (B, dim).
 
-    Returns ``(qs, qcs, inv, sched, cnt)``: the home-partition-sorted
-    queries (raw and centered), the inverse of that sort, and the
-    compacted schedule (int32 (B // bm, ns_tiles)) with its per-R-tile
-    counts (int32).
+    Returns ``(qs, qcs, inv, th_q, sched, cnt)``: the
+    home-partition-sorted queries (raw and centered), the inverse of
+    that sort, the per-query θ in sorted order (−inf on padding rows),
+    and the compacted schedule (int32 (B // bm, ns_tiles)) with its
+    per-R-tile counts (int32). The quantized tier's coarse pass runs on
+    the same stages.
     """
     dev = q.device
     b = q.shape[0]
@@ -121,7 +124,7 @@ def assign_bounds_schedule(q: torch.Tensor, n_valid: int, pl: _Payload,
     visit = visit_mask(qp, home, th_q, valid_s, pl.pivd, pl.sd_min,
                        pl.sd_max, pl.present, bm=bm)
     sched, cnt = compact_visits(visit)
-    return qs, qcs, inv, sched, cnt
+    return qs, qcs, inv, th_q, sched, cnt
 
 
 def _megastep(q: torch.Tensor, n_valid: int, pl: _Payload, *, k: int,
@@ -130,8 +133,8 @@ def _megastep(q: torch.Tensor, n_valid: int, pl: _Payload, *, k: int,
     bucket-padded batch ``q`` (B, dim). Returns device (dists, ids)."""
     kp = next_pow2(k)
     inf = float("inf")
-    qs, qcs, inv, sched, cnt = assign_bounds_schedule(q, n_valid, pl, k=k,
-                                                      bm=bm)
+    qs, qcs, inv, _, sched, cnt = assign_bounds_schedule(q, n_valid, pl,
+                                                         k=k, bm=bm)
 
     # ---- 4. gather top-kp over the schedule, in centered coordinates
     _, pos = ops.distance_topk_gather(qcs, pl.s_c, kp, sched, cnt,
@@ -169,6 +172,7 @@ class JoinHandle:
     kind: str
     n: int
     dev: tuple = ()
+    q: Optional[np.ndarray] = None   # the host queries (quantized tier)
 
 
 class MegastepEngine:
@@ -223,24 +227,24 @@ class MegastepEngine:
                 self._payload = self._build_payload()
         return self._payload
 
-    def _build_payload(self) -> _Payload:
+    def _build_payload(self, *, rows_on_device: bool = True) -> _Payload:
         si, bn, k = self.index, self._bn, self.config.k
-        dev = si.device
         ns_tiles = max(1, -(-si.n_s // bn))
         pad = ns_tiles * bn - si.n_s
-        s = torch.nn.functional.pad(si.s_sorted, (0, 0, 0, pad)).contiguous()
+        s = (torch.nn.functional.pad(si.s_sorted, (0, 0, 0, pad)).contiguous()
+             if rows_on_device else None)
         gids = torch.nn.functional.pad(si.s_ids_sorted, (0, pad), value=-1)
         # one center for the selection math: the ‖x‖²·eps cancellation
         # noise shrinks to O(spread²·eps) (see metrics.cmp_dist)
-        center = (si.s_sorted.to(torch.float64).mean(0).to(torch.float32)
-                  if si.n_s else torch.zeros(si.dim, device=dev))
+        center = si.center()
         kk = min(k, si.t_s.knn_dists.shape[1])
         knn = si.t_s.knn_dists[:, :kk].contiguous()
         sd_min, sd_max, present = si.tile_stats(bn)
         return _Payload(
             center=center, pivots_c=(si.pivots - center).contiguous(),
             pivd=si.pivd, knn=knn, sd_min=sd_min, sd_max=sd_max,
-            present=present, s=s, s_c=(s - center).contiguous(), gids=gids,
+            present=present, s=s,
+            s_c=None if s is None else (s - center).contiguous(), gids=gids,
             alive=(gids >= 0).to(torch.float32), dead_total=0,
             n_finite_total=int(torch.isfinite(knn).sum()))
 

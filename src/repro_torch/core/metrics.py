@@ -13,8 +13,8 @@ import torch
 
 METRICS = ("l2", "l1", "linf")
 
-__all__ = ["METRICS", "pairwise_dist", "cmp_dist", "canonical_gathered",
-           "gathered_dist", "canonical_topk"]
+__all__ = ["METRICS", "pairwise_dist", "cmp_dist", "from_cmp",
+           "canonical_gathered", "gathered_dist", "canonical_topk"]
 
 
 def pairwise_dist(a: torch.Tensor, b: torch.Tensor, metric: str = "l2",
@@ -57,6 +57,15 @@ def cmp_dist(a: torch.Tensor, b: torch.Tensor, metric: str = "l2",
     d2 = ((a * a).sum(-1)[:, None] + (b * b).sum(-1)[None, :]
           - 2.0 * (a @ b.T))
     return torch.clamp(d2, min=0.0)
+
+
+def from_cmp(d: torch.Tensor, metric: str) -> torch.Tensor:
+    """Comparable space → true distance. The L2 √ is taken in float64
+    and rounded once: the correctly rounded float32 √ on every backend,
+    as numpy's is."""
+    if metric != "l2":
+        return d
+    return torch.sqrt(d.to(torch.float64)).to(d.dtype)
 
 
 def canonical_gathered(q: torch.Tensor, neigh: torch.Tensor,

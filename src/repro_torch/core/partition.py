@@ -18,7 +18,7 @@ from ..kernels import ops
 from .metrics import pairwise_dist
 from .types import SummaryTable
 
-__all__ = ["assign_to_pivots", "assign_and_summarize"]
+__all__ = ["assign_to_pivots", "assign_and_summarize", "build_summary"]
 
 
 def assign_to_pivots(
@@ -78,6 +78,13 @@ def _summarize(part_ids: torch.Tensor, dists: torch.Tensor, m: int,
         knn = knn[:m * k].reshape(m, k)
     return SummaryTable(counts=counts, lower=lower, upper=upper,
                         knn_dists=knn)
+
+
+def build_summary(part_ids: torch.Tensor, dists: torch.Tensor,
+                  m: int) -> SummaryTable:
+    """T_R for one query batch: counts, L and U per partition (no
+    pivot-kNN lists)."""
+    return _summarize(part_ids, dists, m, None, None)
 
 
 def assign_and_summarize(

@@ -7,23 +7,32 @@ and its prefix compaction into a dense ``(nr_tiles, T)`` int32 schedule
 plus per-row counts (:func:`compact_visits`). The last two are device
 ops with static shapes and no host sync (cumsum ranks + ``scatter_``),
 so the megastep builds its schedule on the card between enqueue and
-fetch. The scheduled gather kernel (`kernels.distance_topk`) walks the
-result; pruned tiles are never read.
+fetch. The host-planned path builds its per-group schedule with
+:func:`build_tile_schedule` (Cor. 1 + Thm 2 per query, θ tightened per
+query from T_S's pivot-kNN lists) and compacts it with
+:func:`compact_visit_mask` into a :class:`TileSchedule`. The scheduled
+gather kernel (`kernels.distance_topk`) walks either result; pruned
+tiles are never read.
 
 Tile-granular bound evaluation takes the loosest bound over a tile's
 queries, so the scheduled candidate set is a superset of the per-query
-Algorithm-3 set and the join stays exact. The host-planned schedule
-(``build_tile_schedule``) comes with the host-planned slice.
+Algorithm-3 set and the join stays exact. Rows with ``part < 0`` are
+padding on either side.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 from .bounds import pad_theta
+from .metrics import cmp_dist, from_cmp
+from .types import JoinStats
 
-__all__ = ["segment_tile_stats", "visit_mask", "compact_visits"]
+__all__ = ["segment_tile_stats", "visit_mask", "compact_visits",
+           "TileSchedule", "build_tile_schedule", "compact_visit_mask",
+           "schedule_for_group"]
 
 
 def segment_tile_stats(
@@ -119,3 +128,164 @@ def compact_visits(visit: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     slot = torch.arange(t, dtype=torch.int32, device=dev)[None, :]
     sched = torch.where(slot < counts[:, None], sched, last)
     return sched.contiguous(), counts
+
+
+@dataclasses.dataclass
+class TileSchedule:
+    """Compacted per-R-tile visit list over S tiles (tensors)."""
+
+    schedule: torch.Tensor    # (nr_tiles, max_visits) int32, pad = last entry
+    counts: torch.Tensor      # (nr_tiles,) int32, >= 1
+    visit_mask: torch.Tensor  # (nr_tiles, ns_tiles) bool — the dense view
+    bm: int
+    bn: int
+
+    @property
+    def nr_tiles(self) -> int:
+        return int(self.visit_mask.shape[0])
+
+    @property
+    def ns_tiles(self) -> int:
+        return int(self.visit_mask.shape[1])
+
+    @property
+    def n_visits(self) -> int:
+        """Total scheduled (R tile, S tile) steps."""
+        return int(self.counts.sum())
+
+    @property
+    def density(self) -> float:
+        """Visited fraction of the dense grid (1.0 = no pruning)."""
+        total = self.nr_tiles * self.ns_tiles
+        return self.n_visits / total if total else 0.0
+
+
+def compact_visit_mask(visit: torch.Tensor, *,
+                       max_visits: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nr_tiles, ns_tiles) bool → (schedule int32, counts int32),
+    ascending per row. Every row must have at least one visited tile;
+    padding slots repeat the row's last valid entry."""
+    counts = visit.sum(dim=1, dtype=torch.int32)
+    if bool((counts == 0).any()):
+        raise ValueError("visit mask has empty rows; add a fallback tile")
+    widest = int(counts.max())
+    width = widest if max_visits is None else int(max_visits)
+    if width < widest:
+        raise ValueError(f"max_visits={width} < widest row {widest}")
+    # a stable sort of ~visit puts the visited tile indices first,
+    # ascending; slots past a row's count re-select its last entry
+    order = torch.argsort((~visit).to(torch.int8), dim=1, stable=True)
+    slot = torch.minimum(
+        torch.arange(width, device=visit.device)[None, :],
+        (counts.to(torch.int64) - 1)[:, None])
+    schedule = torch.gather(order, 1, slot).to(torch.int32)
+    return schedule.contiguous(), counts
+
+
+def build_tile_schedule(
+    r: torch.Tensor, r_part: torch.Tensor, s_part: torch.Tensor,
+    s_dist: torch.Tensor, pivots: torch.Tensor, pivd: torch.Tensor,
+    theta: torch.Tensor, *, bm: int, bn: int, metric: str = "l2",
+    knn_dists: Optional[torch.Tensor] = None, k: Optional[int] = None,
+    stats: Optional[JoinStats] = None, theta_block: int = 8192,
+    tile_block: int = 64,
+) -> TileSchedule:
+    """Lower Cor. 1 + Thm 2 to an (R tile × S tile) visit schedule.
+
+    ``r``/``r_part`` are the reducer's queries in their kernel layout;
+    ``s_part``/``s_dist`` the S rows in theirs (pivot-sorted for tight
+    tiles; any layout is correct). With T_S's pivot-kNN lists
+    (``knn_dists`` + ``k``) θ is tightened per query to the k-th
+    smallest ``|q,p_j| + p_j.d_i`` — Thm 3 at the query, a sound
+    radius bound computable before any join. ``tile_block`` R tiles are
+    intersected with all S tiles at a time (bounded memory).
+    """
+    dev = r.device
+    n_r, n_s = r_part.shape[0], s_part.shape[0]
+    m = pivots.shape[0]
+    nr_tiles = max(1, -(-n_r // bm))
+    inf = float("inf")
+
+    valid_q = r_part >= 0
+    home = torch.clamp(r_part.to(torch.int64), 0, m - 1)
+    th_q = torch.where(valid_q, theta[home], -inf)
+
+    # |q, p_j| for every pivot — the job-2 mapper's pivot distances
+    qp = from_cmp(cmp_dist(r, pivots, metric), metric)      # (n_r, M)
+    if stats is not None:
+        stats.pivot_pairs_computed += int(valid_q.sum()) * m
+
+    kk = 0 if knn_dists is None or k is None else min(k, knn_dists.shape[1])
+    if kk and m * kk >= k:
+        knn = knn_dists[:, :kk]
+        knn = torch.where(torch.isfinite(knn), knn, inf)
+        for lo in range(0, n_r, theta_block):
+            hi = min(lo + theta_block, n_r)
+            ub = (qp[lo:hi, :, None] + knn[None, :, :]).reshape(hi - lo, -1)
+            kth = torch.kthvalue(ub, k, dim=1).values
+            th_q[lo:hi] = torch.where(valid_q[lo:hi],
+                                      torch.minimum(th_q[lo:hi], kth), -inf)
+
+    # Cor. 1 per (query, partition); home column never pruned. All θ
+    # comparisons use the ulp-padded θ so neighbors at exactly θ survive
+    # fp discrepancies between the qp and θ graphs
+    thp = pad_theta(th_q)
+    if metric == "l2":
+        q2 = qp.to(torch.float64) ** 2
+        home_sq = torch.gather(q2, 1, home[:, None])
+        denom = torch.clamp(2.0 * pivd[home], min=float(1e-30))
+        alive = (q2 - home_sq) / denom.to(torch.float64) <= thp[:, None]
+    else:
+        alive = torch.ones((n_r, m), dtype=torch.bool, device=dev)
+    alive[torch.arange(n_r, device=dev), home] = True
+    alive &= valid_q[:, None]
+
+    # reduce to R-tile granularity: any-alive, loosest ring per partition
+    tile_of_r = (torch.arange(n_r, device=dev) // bm)[:, None].expand(-1, m)
+    alive_t = torch.zeros((nr_tiles, m), dtype=torch.int32, device=dev)
+    alive_t = alive_t.scatter_add_(0, tile_of_r, alive.to(torch.int32)) > 0
+    lo_q = torch.where(alive, qp - thp[:, None], inf)
+    hi_q = torch.where(alive, qp + thp[:, None], -inf)
+    lo_t = torch.full((nr_tiles, m), inf, device=dev).scatter_reduce_(
+        0, tile_of_r, lo_q, reduce="amin")
+    hi_t = torch.full((nr_tiles, m), -inf, device=dev).scatter_reduce_(
+        0, tile_of_r, hi_q, reduce="amax")
+
+    # S-tile × partition |p_j, s| ranges (Thm 2's L/U at tile resolution)
+    sd_min, sd_max, present = segment_tile_stats(s_part, s_dist, m, bn)
+
+    # visit[t, u] = ∃ partition j present in u with ring overlap
+    visit = torch.cat([
+        (alive_t[a:a + tile_block, None, :] & present[None, :, :]
+         & (sd_max[None, :, :] >= lo_t[a:a + tile_block, None, :])
+         & (sd_min[None, :, :] <= hi_t[a:a + tile_block, None, :])
+         ).any(dim=2)
+        for a in range(0, nr_tiles, tile_block)])
+
+    # fallback: an R tile with no visit (all-padding, or everything
+    # pruned) gets one visit of the first non-empty S tile, so every R
+    # tile's output flush runs
+    any_s = present.any(dim=1)
+    fallback = int(torch.argmax(any_s.to(torch.int8))) if bool(
+        any_s.any()) else 0
+    empty = ~visit.any(dim=1)
+    visit[empty, fallback] = True
+    schedule, counts = compact_visit_mask(visit)
+    return TileSchedule(schedule=schedule, counts=counts, visit_mask=visit,
+                        bm=bm, bn=bn)
+
+
+def schedule_for_group(index, qplan, rr: torch.Tensor, rp: torch.Tensor,
+                       sp: torch.Tensor, sd: torch.Tensor, *,
+                       stats: Optional[JoinStats] = None) -> TileSchedule:
+    """:func:`build_tile_schedule` driven by the split planner: the
+    ``SIndex`` supplies the geometry (pivots, ``pivd``, T_S pivot-kNN
+    lists), the ``QueryPlan`` θ and the tile sizes. ``rr``/``rp`` are
+    the group's queries in kernel layout; ``sp``/``sd`` its S replicas
+    (pivot-sorted by the index packing)."""
+    cfg = qplan.config
+    return build_tile_schedule(
+        rr, rp, sp, sd, index.pivots, index.pivd, qplan.theta,
+        bm=cfg.tile_r, bn=cfg.tile_s, metric=cfg.metric,
+        knn_dists=index.t_s.knn_dists, k=cfg.k, stats=stats)

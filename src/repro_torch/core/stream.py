@@ -1,14 +1,16 @@
 """Streaming R micro-batch engine over a resident ``SIndex`` — PyTorch
-port of the JAX package's ``core.stream`` (the megastep route).
+port of the JAX package's ``core.stream``.
 
-R arrives in micro-batches of any size; each batch runs one fused
-megastep (``core.megastep``) against the build-once index. A query's
+R arrives in micro-batches of any size; each batch is planned and
+joined against the build-once index by one of three routes: the
+host-planned path (``plan_queries`` + ``execute_join``, the default),
+the fused megastep (``megastep=True``, ``core.megastep``) or the int8
+two-tier engine (``quantized=True``, ``quant.engine``). A query's
 result depends only on (query row, index), so ``knn_join_batched``
 over any split of R gives the same results as one batch.
 
-The port serves a static ``SIndex`` through the megastep only: the
-host-planned route, ``MutableIndex``, the quantized tier and sharding
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+``MutableIndex`` and sharding raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -18,8 +20,11 @@ from typing import Iterable, Optional, Union
 import numpy as np
 import torch
 
+from .. import obs
+from ..device import resolve_device
 from ..kernels.sorted_merge import merge_sorted_runs_unique, next_pow2
-from .index import SIndex, not_ported, build_index
+from .api import execute_join
+from .index import SIndex, build_index, not_ported, plan_queries
 from .megastep import MegastepEngine
 from .types import JoinConfig, JoinResult, JoinStats
 
@@ -76,37 +81,55 @@ class StreamJoinState:
 
 
 class StreamJoinEngine:
-    """Join every incoming R micro-batch against one resident index,
-    each batch one fused megastep on the index's device.
+    """Join every incoming R micro-batch against one resident index.
 
-    ``megastep``: ``True`` | ``"auto"`` (both: the megastep, L2 only);
-    ``False`` asks for the host-planned route, which is not ported yet.
+    ``megastep``: ``False`` (default: the host-planned path) | ``True``
+    | ``"auto"`` (the megastep when the metric is L2). ``quantized``:
+    ``True`` routes every batch through the int8 two-tier engine
+    (``quant.engine.QuantMegastepEngine``, L2 only) and takes
+    precedence over ``megastep``; ``None`` follows ``config.quantize``.
     """
 
     def __init__(self, index: SIndex, config: Optional[JoinConfig] = None,
-                 *, megastep: object = True, quantized: Optional[bool] = None,
+                 *, megastep: object = False,
+                 quantized: Optional[bool] = None,
                  n_shards: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda"):
+        if not isinstance(index, SIndex):
+            raise not_ported(f"streaming over {type(index).__name__} "
+                             f"(segments / MutableIndex)", "A2")
         self.index = index
         self.config = config or index.config
-        if quantized or (quantized is None and self.config.quantize != "none"):
-            raise not_ported("the quantized tier", "A4")
         if n_shards is not None:
             raise not_ported("the sharded megastep", "A5")
+        if quantized is None:
+            quantized = self.config.quantize != "none"
         if megastep == "auto":
             megastep = self.config.metric == "l2"
-        if not megastep:
-            raise not_ported("the host-planned route (megastep=False)",
-                               "A1")
-        self._megastep = MegastepEngine(index, self.config, device=device)
+        self._megastep = None
+        if quantized:
+            from ..quant.engine import QuantMegastepEngine
+            self._megastep = QuantMegastepEngine(index, self.config,
+                                                 device=device)
+        elif megastep:
+            self._megastep = MegastepEngine(index, self.config,
+                                            device=device)
+        elif index.device.type != resolve_device(device).type:
+            raise ValueError(f"the index lives on {index.device}, the "
+                             f"engine was asked for {device}")
 
     @property
-    def megastep_engine(self) -> MegastepEngine:
-        """The fused-path engine — exposes the device-level ``enqueue`` /
-        ``join_batch_device`` API."""
+    def megastep_engine(self):
+        """The fused-path engine when enabled (None on the host path) —
+        exposes the device-level ``enqueue`` / ``join_batch_device``
+        API."""
         return self._megastep
 
-    can_dispatch = True
+    @property
+    def can_dispatch(self) -> bool:
+        """True when a batch can split into ``dispatch`` + ``finalize``
+        (the megastep-backed routes)."""
+        return self._megastep is not None
 
     def join_batch(self, queries: np.ndarray, *,
                    stats: Optional[JoinStats] = None
@@ -116,13 +139,20 @@ class StreamJoinEngine:
         queries = np.ascontiguousarray(queries, np.float32)
         if stats is not None:
             stats.n_batches += 1
-        return self._megastep.join_batch(queries, stats=stats)
+        if self._megastep is not None:
+            return self._megastep.join_batch(queries, stats=stats)
+        return self._join_batch_host(queries, stats=stats)
 
     def dispatch(self, queries: np.ndarray, *,
                  stats: Optional[JoinStats] = None):
         """Asynchronous half of ``join_batch``: launch one micro-batch and
         return a ``JoinHandle`` without waiting. Pair with
-        :meth:`finalize`."""
+        :meth:`finalize`. The host-planned route has no async half."""
+        if self._megastep is None:
+            raise RuntimeError(
+                "dispatch() needs a megastep-backed engine; the "
+                "host-planned path has no async device half (use "
+                "join_batch)")
         queries = np.ascontiguousarray(queries, np.float32)
         if stats is not None:
             stats.n_batches += 1
@@ -131,7 +161,30 @@ class StreamJoinEngine:
     def finalize(self, handle, *, stats: Optional[JoinStats] = None
                  ) -> tuple[np.ndarray, np.ndarray]:
         """Blocking half of ``join_batch``."""
+        if self._megastep is None:
+            raise RuntimeError("finalize() needs a megastep-backed engine")
         return self._megastep.finalize(handle, stats=stats)
+
+    def join_batch_host(self, queries: np.ndarray, *,
+                        stats: Optional[JoinStats] = None
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """The host-planned path for one micro-batch, whatever route this
+        engine was built with — the same results as ``join_batch``."""
+        queries = np.ascontiguousarray(queries, np.float32)
+        if stats is not None:
+            stats.n_batches += 1
+        with obs.span("stream.host_join", rows=queries.shape[0]):
+            return self._join_batch_host(queries, stats=stats)
+
+    def _join_batch_host(self, queries, *, stats=None):
+        if stats is not None:
+            stats.n_r += queries.shape[0]
+            stats.n_s = max(stats.n_s, self.index.n_s)
+        qplan = plan_queries(queries, self.index, self.config)
+        if stats is not None:
+            stats.pivot_pairs_computed += (
+                queries.shape[0] * self.index.n_pivots)
+        return execute_join(queries, self.index, qplan, stats=stats)
 
 
 def _iter_batches(r, batch_size: int):
@@ -150,7 +203,7 @@ def knn_join_batched(
     *,
     index: Optional[SIndex] = None,
     batch_size: int = 0,
-    megastep: object = True,
+    megastep: object = False,
     quantized: Optional[bool] = None,
     n_shards: Optional[int] = None,
     device: Union[str, torch.device] = "cuda",
@@ -161,8 +214,11 @@ def knn_join_batched(
     ``config.batch_size`` or one batch) or an iterable of micro-batch
     arrays. ``index=`` reuses a prebuilt ``SIndex``; otherwise the index
     is built here from ``s`` on ``device`` (pivots sampled from S).
-    Equals one batch for any split. Row ``j`` of the output is the
-    ``j``-th query row seen across the batches.
+    ``megastep=True`` runs each batch through the fused megastep,
+    ``quantized=True`` through the int8 two-tier engine; the default is
+    the host-planned path. Every route equals one batch for any split.
+    Row ``j`` of the output is the ``j``-th query row seen across the
+    batches.
     """
     if index is not None:
         config = config or index.config
@@ -207,6 +263,10 @@ def knn_join_batched(
         chunks_i.append(bi)
         seen += batch.shape[0]
     stats.n_r = seen
+    if seen == 0:
+        return JoinResult(indices=np.zeros((0, config.k), np.int64),
+                          distances=np.zeros((0, config.k), np.float32),
+                          stats=stats)
     state = StreamJoinState(n=seen, k=config.k)
     lo = 0
     for bd, bi in zip(chunks_d, chunks_i):

@@ -1,9 +1,7 @@
 """Shared types for the PGBJ kNN-join core (PyTorch port).
 
-The same dataclasses as the JAX package's ``core.types``, so a stats
-record reads the same in both packages; ``JoinConfig`` holds only the
-knobs this package reads (a field of the JAX config that is missing here
-is a feature not ported yet). Results stay numpy:
+The same dataclasses as the JAX package's ``core.types``, so a config or
+a stats record reads the same in both packages. Results stay numpy:
 ``JoinResult`` holds ``(int64 ids, float32 distances)`` arrays.
 
 Conventions
@@ -34,21 +32,39 @@ class JoinConfig:
     pivot_strategy: str = "random"  # random | farthest | kmeans
     pivot_sample: int = 4096        # sample size for farthest/kmeans selection
     pivot_candidate_sets: int = 8   # T random sets for random selection
-    # megastep tiles (the JAX package's §5 grouping, reducer choice and
-    # quant shortlist knobs come with the slices that read them: ROADMAP
-    # A1, A4)
+    # §5 grouping
+    n_groups: int = 8
+    grouping: str = "geometric"     # geometric | greedy | none
+    # reducer engine
     tile_r: int = 128               # R rows per distance tile
     tile_s: int = 512               # S rows per distance tile
+    use_tile_pruning: bool = True   # Cor. 1 / Thm 2 adapted to tile masking
+    # auto → "pruned"/"dense" per use_tile_pruning; "gather" runs the
+    # compacted schedule (core.schedule) through the scheduled gather
+    # kernel on the card, its plain version on the CPU
+    reducer: str = "auto"           # auto | dense | pruned | gather
     # streaming engine (core.stream): R micro-batch rows per plan+join
     # round; 0 = one-shot (whole query set in a single batch)
     batch_size: int = 0
-    # quantized tier: "int8" is rejected until ROADMAP A4 ports it
+    # quantized tier (repro_torch.quant): "int8" attaches per-tile
+    # symmetric int8 codes + per-row error bounds ε to every built index
+    # and routes knn_join(quantized=True) & friends through the two-tier
+    # coarse-scan → exact-re-rank engine (L2 only, results bitwise the
+    # fp32 oracle's)
     quantize: str = "none"          # none | int8
+    # coarse shortlist over-fetch: k + quant_slack candidates survive
+    # the int8 pass into the exact fp32 re-rank (rounded up to a power
+    # of two); -1 = auto (shortlist max(pow2(4k), 128))
+    quant_slack: int = -1
     seed: int = 0
 
     def __post_init__(self):
         if self.pivot_strategy not in ("random", "farthest", "kmeans"):
             raise ValueError(f"unknown pivot strategy {self.pivot_strategy!r}")
+        if self.grouping not in ("geometric", "greedy", "none"):
+            raise ValueError(f"unknown grouping {self.grouping!r}")
+        if self.reducer not in ("auto", "dense", "pruned", "gather"):
+            raise ValueError(f"unknown reducer {self.reducer!r}")
         if self.k < 1:
             raise ValueError("k must be >= 1")
         if self.batch_size < 0:
@@ -63,6 +79,15 @@ class JoinConfig:
                 f"int8 coarse kernel is the Euclidean lowering); got "
                 f"{self.metric!r} — drop quantize or use the fp32 host "
                 f"engines")
+        if self.quant_slack < -1:
+            raise ValueError("quant_slack must be >= 0, or -1 for auto")
+
+    @property
+    def resolved_reducer(self) -> str:
+        """The engine "auto" selects (back-compat with use_tile_pruning)."""
+        if self.reducer != "auto":
+            return self.reducer
+        return "pruned" if self.use_tile_pruning else "dense"
 
 
 @dataclasses.dataclass

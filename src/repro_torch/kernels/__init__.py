@@ -2,8 +2,11 @@
 by ``nvcc`` at first use and bound with ``ctypes``), each with its plain
 PyTorch version beside it:
 
-- ``distance_topk``: the megastep's scheduled gather top-k (stage 4)
-- ``assign``: phase-1 nearest-pivot map (``build_index``)
+- ``distance_topk``: the scheduled gather top-k (megastep stage 4 and
+  the host-planned gather reducer)
+- ``assign``: phase-1 nearest-pivot map (``build_index``,
+  ``plan_queries``)
+- ``quant_topk``: the quantized tier's int8 coarse scan
 
 ``ops`` dispatches on the tensors' device and reads the launch counts.
 """

@@ -25,7 +25,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "library"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
-SOURCES = {"assign": "assign.cu", "gather_topk": "gather_topk.cu"}
+SOURCES = {"assign": "assign.cu", "gather_topk": "gather_topk.cu",
+           "quant_coarse": "quant_coarse.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600

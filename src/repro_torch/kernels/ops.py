@@ -14,9 +14,10 @@ import torch
 
 from . import assign as _assign
 from . import distance_topk as _gather
+from . import quant_topk as _quant
 
-__all__ = ["assign", "distance_topk_gather", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["assign", "distance_topk_gather", "quant_coarse_topk",
+           "launch_counts", "reset_launch_counts"]
 
 
 def assign(x: torch.Tensor, pivots: torch.Tensor
@@ -39,12 +40,31 @@ def distance_topk_gather(
     return fn(r, s, k, schedule, counts, alive=alive, bm=bm, bn=bn)
 
 
+def quant_coarse_topk(
+    qi: torch.Tensor, qscale: torch.Tensor, qeps: torch.Tensor,
+    theta: torch.Tensor, si: torch.Tensor, sscale: torch.Tensor,
+    seps: torch.Tensor, alive: torch.Tensor, mp: int,
+    schedule: torch.Tensor, counts: torch.Tensor, *, bm: int = 128,
+    bn: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Int8 coarse shortlist of the quantized tier over the scheduled
+    tiles: ascending certified lower bounds (float32) and int32 row
+    positions, (n, mp); (+inf, -1) for empty slots. Not a result: the
+    caller re-ranks and certifies it (``quant.engine``)."""
+    fn = (_quant.quant_coarse_gather_cuda if qi.is_cuda
+          else _quant.quant_coarse_sched_plain)
+    return fn(qi, qscale, qeps, theta, si, sscale, seps, alive, mp,
+              schedule, counts, bm=bm, bn=bn)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches in this process since the last reset."""
     return {"assign": _assign.launches,
-            "distance_topk_gather": _gather.launches}
+            "distance_topk_gather": _gather.launches,
+            "quant_coarse_gather": _quant.launches}
 
 
 def reset_launch_counts() -> None:
     _assign.launches = 0
     _gather.launches = 0
+    _quant.launches = 0

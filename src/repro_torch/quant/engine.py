@@ -1,0 +1,355 @@
+"""Two-tier quantized query engine: int8 coarse scan → exact fp32
+re-rank, bitwise the fp32 oracle's distances — PyTorch port of the JAX
+package's ``quant.engine`` (single device, static ``SIndex``).
+
+Per batch:
+
+1. **plan** — stages 1–3 of the fp32 megastep
+   (``core.megastep.assign_bounds_schedule``): assignment, θ and the
+   compacted Cor. 1 / Thm 2 tile schedule, on exact pivot geometry.
+2. **coarse int8 scan** — the queries are quantized in the step
+   (:func:`quantize_queries`) and ``kernels.ops.quant_coarse_topk``
+   (the CUDA kernel K-Q on the card, its plain version on the CPU)
+   keeps, over the scheduled tiles only, the ``mp`` smallest certified
+   lower bounds ``lb = max(d_coarse − ε_total, 0)`` with ``lb ≤ θ`` —
+   θ effectively inflated by ε, so a true neighbor is never pruned.
+3. **exact re-rank** — the shortlisted rows' canonical fp32 distances
+   (``metrics.canonical_gathered``), stable-sorted, first k: either
+   **resident** (fp32 rows on the device beside the codes, the re-rank
+   fused into the step, no host sync) or **host-gather** (the rows stay
+   on the host and the shortlist round-trips through
+   ``metrics.canonical_topk``).
+4. **certification** — with L = the shortlist's largest lb (+inf if it
+   was not filled) and τ̂ = the k-th exact distance, every excluded row
+   has lb ≥ L, so ``L ≥ τ̂`` proves the result. Queries that fail re-run
+   through the fp32 host-planned path (``JoinStats.n_quant_fallback``
+   counts them): exactness is unconditional.
+
+Construction resolves ``mode`` (``"int8"``, or ``"fp32"`` when a tuning
+table entry measured int8 as a loss; an explicit slack pins int8),
+``mp`` (explicit slack, else the tuned value, else max(pow2(4k), 128))
+and ``resident`` (fits ``REPRO_QUANT_RESIDENT_MAX_BYTES``, default
+1 GiB). The port's tuning table starts empty (``quant.autotune``).
+
+Soundness (the ε lemma): with ŝ = code·scale and q̂ the quantized query,
+|d(q̂, ŝ) − d(q, s)| ≤ ε_q + ε_s, and ε_num dominates the float32
+rounding of d(q̂, ŝ) itself (``kernels.quant_topk``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from .. import obs
+from ..core.bounds import pad_theta
+from ..core.index import not_ported
+from ..core.megastep import (JoinHandle, MegastepEngine, _Payload,
+                             assign_bounds_schedule)
+from ..core.metrics import canonical_gathered, canonical_topk
+from ..core.types import JoinConfig, JoinStats
+from ..kernels import ops
+from ..kernels.sorted_merge import next_pow2
+from . import autotune
+from .autotune import TunedConfig
+from .quantize import resident_extra_bytes
+
+__all__ = ["QuantMegastepEngine", "quantize_queries"]
+
+# resident re-rank auto-threshold: keep the fp32 rows + ids on the device
+# only while they fit comfortably
+_RESIDENT_MAX_BYTES = int(os.environ.get(
+    "REPRO_QUANT_RESIDENT_MAX_BYTES", 1 << 30))
+
+_EPS_REL = float(np.float32(1.0 + 1e-5))
+_EPS_ABS = float(np.float32(1e-7))
+
+
+def quantize_queries(q: torch.Tensor):
+    """Per-row symmetric int8 query quantization, in the step: returns
+    ``(codes int8, scales f32, eps f32)`` with eps an upper bound on
+    ‖q − q̂‖₂ — the float32 norm (an unrolled left-to-right sum and a
+    correctly rounded √, the same bits on every device) inflated by a
+    relative + absolute margin that dwarfs its own rounding."""
+    amax = q.abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    codes = torch.clamp(torch.round(q / scale[:, None]), -127, 127)
+    diff = q - codes * scale[:, None]
+    acc = diff[:, 0] * diff[:, 0]
+    for t in range(1, q.shape[1]):
+        acc = acc + diff[:, t] * diff[:, t]
+    err = torch.sqrt(acc.to(torch.float64)).to(torch.float32)
+    return codes.to(torch.int8), scale, err * _EPS_REL + _EPS_ABS
+
+
+@dataclasses.dataclass
+class _QuantPayload(_Payload):
+    """The megastep payload plus the int8 twin of the packed rows."""
+
+    sq: torch.Tensor                     # (ns_tiles·bn, dim) int8 codes
+    sscale: torch.Tensor                 # (ns_tiles,) float32
+    seps: torch.Tensor                   # (ns_tiles·bn,) float16 ε_s
+    rows_host: Optional[torch.Tensor]    # host-gather: padded fp32 rows
+    gids_host: torch.Tensor              # (ns_tiles·bn,) int64 on the CPU
+
+
+def _quant_coarse(q, n_valid, pl: _QuantPayload, *, mp, k, bm, bn):
+    """Stages 1–3 of the megastep → in-step query quantization → the
+    int8 coarse shortlist. Returns ``(lb (B, mp), pos (B, mp) int32)``
+    in the original query order; empty slots are (+inf, -1). θ is
+    ulp-padded like every prune site: the certified lb can equal the
+    true distance, and θ's float value may round below the Thm-3
+    bound."""
+    qs, _, inv, th_q, sched, cnt = assign_bounds_schedule(q, n_valid, pl,
+                                                          k=k, bm=bm)
+    qi, qscale, qeps = quantize_queries(qs)
+    lb, pos = ops.quant_coarse_topk(
+        qi, qscale, qeps, pad_theta(th_q).contiguous(), pl.sq, pl.sscale,
+        pl.seps, pl.alive, mp, sched, cnt, bm=bm, bn=bn)
+    return lb[inv], pos[inv]
+
+
+def _quant_megastep(q, n_valid, pl: _QuantPayload, *, mp, k, bm, bn):
+    """The fused resident step: coarse shortlist → on-device fp32 gather
+    → canonical exact re-rank (stage 5 of the fp32 megastep). Returns
+    device ``(d (B, k), ids (B, k) int64, lm (B,))`` with ``lm`` the
+    per-query exclusion bound (the shortlist's largest lb)."""
+    lb, pos = _quant_coarse(q, n_valid, pl, mp=mp, k=k, bm=bm, bn=bn)
+    # pos ≥ 0 ⇔ a live row: the coarse pass masks dead and padding rows
+    valid = pos >= 0
+    pos_c = torch.clamp(pos.to(torch.int64), 0, pl.s.shape[0] - 1)
+    d_can = torch.where(valid, canonical_gathered(q, pl.s[pos_c]),
+                        float("inf"))
+    ids = torch.where(valid, pl.gids[pos_c], -1)
+    d_can, order = torch.sort(d_can, dim=1, stable=True)
+    ids = torch.take_along_dim(ids, order, dim=1)
+    return d_can[:, :k], ids[:, :k], lb[:, -1]
+
+
+class QuantMegastepEngine(MegastepEngine):
+    """Memory-lean drop-in for ``MegastepEngine`` over a static
+    ``SIndex``: the same exact results from an int8-resident coarse
+    pass. Reached via ``knn_join(..., quantized=True)``,
+    ``knn_join_batched(..., quantized=True)`` and
+    ``StreamJoinEngine(..., quantized=True)``. L2 only.
+
+    ``slack`` (default ``config.quant_slack``; ≥ 0 pins int8 with
+    ``mp = pow2(k + slack)``), ``resident`` (None = auto-size),
+    ``tune`` (``"auto"`` looks the shape up in the tuning table, a
+    ``TunedConfig`` is used as given, anything else skips the table),
+    ``tune_bn`` (S-tile rows override).
+    """
+
+    def __init__(self, index, config: Optional[JoinConfig] = None, *,
+                 slack: Optional[int] = None, bucket_min: int = 16,
+                 resident: Optional[bool] = None, tune="auto",
+                 tune_bn: Optional[int] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        cfg = config or index.config
+        if cfg.metric != "l2":
+            raise ValueError(
+                f"the quantized tier supports metric='l2' only, got "
+                f"{cfg.metric!r}; use the fp32 host engines")
+        super().__init__(index, config, bucket_min=bucket_min,
+                         device=device)
+        k = self.config.k
+        if slack is None:
+            slack = self.config.quant_slack
+        explicit = slack is not None and slack >= 0
+
+        # ---- tuning-table lookup (measured mode / mp / tile shapes)
+        tuned: Optional[TunedConfig] = None
+        if isinstance(tune, TunedConfig):
+            tuned = tune
+        elif tune == "auto" and not explicit:
+            tuned = autotune.lookup(index.dim, index.n_s, k,
+                                    self.device.type)
+        self.tuned = tuned
+        self.autotuned = tuned is not None
+        self.mode = ("fp32" if tuned is not None and tuned.mode == "fp32"
+                     and not explicit else "int8")
+        if explicit:
+            self.mp = next_pow2(max(k + int(slack), k, 1))
+        elif tuned is not None and tuned.mp:
+            self.mp = max(next_pow2(tuned.mp), next_pow2(k))
+        else:
+            # certification needs the shortlist boundary to clear the
+            # k-th neighbor by ~2·(ε_s + ε_q): a rank gap of ~10×k
+            self.mp = max(next_pow2(4 * k), 128)
+        if tune_bn:
+            self._bn = int(tune_bn)
+        elif self.mode == "int8" and tuned is not None and tuned.bn:
+            self._bn = int(tuned.bn)
+        if self.mode == "int8" and tuned is not None and tuned.bm:
+            self._bm_cap = int(tuned.bm)
+        if self.mode == "fp32":
+            self.resident = False      # the plain megastep
+        elif resident is not None:
+            self.resident = bool(resident)
+        else:
+            self.resident = (resident_extra_bytes(index.n_s, index.dim)
+                             <= _RESIDENT_MAX_BYTES)
+
+    # ---- device payload: int8 codes + scales + ε (+ fp32 rows when the
+    # re-rank is resident)
+
+    def _build_payload(self, **kw) -> _Payload:
+        if self.mode == "fp32":
+            return super()._build_payload()
+        base = super()._build_payload(rows_on_device=self.resident)
+        qr = self.index.ensure_quant(self._bn)
+        dev = self.device
+        rows_host = None
+        if not self.resident:
+            pad = qr.q.shape[0] - self.index.n_s
+            rows_host = torch.nn.functional.pad(
+                self.index.s_sorted, (0, 0, 0, pad)).cpu()
+        return _QuantPayload(
+            **{f.name: getattr(base, f.name)
+               for f in dataclasses.fields(_Payload)},
+            sq=torch.as_tensor(qr.q, device=dev),
+            sscale=torch.as_tensor(qr.scales, device=dev),
+            seps=torch.as_tensor(qr.eps, device=dev),
+            rows_host=rows_host, gids_host=base.gids.cpu())
+
+    def _step_args(self, q_dev: torch.Tensor) -> dict:
+        bucket = int(q_dev.shape[0])
+        return dict(mp=self.mp, k=self.config.k,
+                    bm=min(bucket, self._bm_cap), bn=self._bn)
+
+    # ---- two-tier query path
+
+    def coarse_shortlist(self, queries: np.ndarray):
+        """The int8 pass alone: numpy ``(lb, pos, ids)`` for one batch —
+        ascending certified lower bounds, packed-row positions and their
+        global ids (−1 on empty slots)."""
+        if self.mode == "fp32":
+            raise RuntimeError(
+                "this engine was tuned to mode='fp32' — there is no coarse "
+                "pass; force int8 with an explicit slack=")
+        q = self._validated_queries(queries)
+        n = q.shape[0]
+        qd, nv = self.enqueue(q)
+        pl = self.payload()
+        with obs.span("quant.coarse", rows=n, mp=self.mp, mode=self.mode):
+            lb, pos = _quant_coarse(qd, nv, pl, **self._step_args(qd))
+            lb = lb[:n].cpu().numpy()
+            pos = pos[:n].cpu().numpy()
+        gids = pl.gids_host.numpy()
+        ids = np.where(pos >= 0, gids[np.clip(pos, 0, gids.shape[0] - 1)],
+                       -1)
+        return lb, pos, ids
+
+    def join_batch_device(self, q_dev, n_valid: int, *, state=None):
+        """Resident mode's steady-state call: device ``(dists, ids,
+        lm)`` out of one fused step, no host sync (note the extra ``lm``
+        certification bound next to the fp32 parent's pair). fp32 mode
+        delegates to the parent. The host-gather variant has no
+        device-only form."""
+        if self.mode == "fp32":
+            return super().join_batch_device(q_dev, n_valid, state=state)
+        if not self.resident:
+            raise NotImplementedError(
+                "the host-gather quantized variant re-ranks on the host; "
+                "use join_batch, or resident=True for the fused device "
+                "path")
+        if state is not None:
+            raise NotImplementedError(
+                "carried-state merge is the fp32 megastep's API; the quant "
+                "megastep emits a fresh certified run per batch")
+        pl = self.payload()
+        kw = self._step_args(q_dev)
+        with obs.span("quant.device_step", bucket=int(q_dev.shape[0]),
+                      bm=kw["bm"], bn=kw["bn"], mp=self.mp) as sp:
+            out = _quant_megastep(q_dev, n_valid, pl, **kw)
+            sp.set(outcome="launched")
+        self.step_count += 1
+        return out
+
+    def dispatch(self, queries: np.ndarray, *,
+                 stats: Optional[JoinStats] = None) -> JoinHandle:
+        q = self._validated_queries(queries)
+        n = q.shape[0]
+        if stats is not None:
+            stats.quant_mode = self.mode
+            stats.quant_mp = self.mp if self.mode == "int8" else 0
+            stats.quant_autotuned = self.tuned is not None
+        if self.mode == "fp32":
+            return super().dispatch(q, stats=stats)
+        if n == 0:
+            return JoinHandle(kind="empty", n=0)
+        pl = self.payload()
+        if stats is not None:
+            stats.n_r += n
+            stats.n_s = max(stats.n_s, self.index.n_s)
+            stats.n_segments = 1
+            stats.n_tombstones = pl.dead_total
+            stats.pivot_pairs_computed += n * self.index.n_pivots
+        qd, nv = self.enqueue(q)
+        if self.resident:
+            return JoinHandle(kind="quant_resident", n=n,
+                              dev=self.join_batch_device(qd, nv), q=q)
+        lb, pos = _quant_coarse(qd, nv, pl, **self._step_args(qd))
+        self.step_count += 1
+        return JoinHandle(kind="quant_host", n=n, dev=(lb, pos), q=q)
+
+    def finalize(self, handle: JoinHandle, *,
+                 stats: Optional[JoinStats] = None
+                 ) -> tuple[np.ndarray, np.ndarray]:
+        if handle.kind in ("empty", "mega"):
+            return super().finalize(handle, stats=stats)
+        k = self.config.k
+        if handle.kind == "quant_resident":
+            d, ids, lm = (x[:handle.n].cpu().numpy() for x in handle.dev)
+            if stats is not None:
+                stats.n_resident_rerank += handle.n
+        elif handle.kind == "quant_host":
+            d, ids, lm = self._finalize_host_shortlist(handle)
+            if stats is not None:
+                stats.n_host_rerank += handle.n
+        else:
+            raise ValueError(f"cannot finalize handle kind {handle.kind!r}")
+        # certification: excluded coarse candidates all carry lb ≥ the
+        # run's largest slot (+inf: nothing was excluded); τ̂ is the
+        # exact reported k-th distance
+        bad = ~(lm >= d[:, k - 1])           # NaN-safe: fail on weirdness
+        if bad.any():
+            n_bad = int(bad.sum())
+            with obs.span("quant.fallback", rows=n_bad, mode=self.mode,
+                          mp=self.mp):
+                d[bad], ids[bad] = self._oracle_join(handle.q[bad])
+            obs.metrics.REGISTRY.counter("quant_fallback_total").inc(n_bad)
+            if stats is not None:
+                stats.n_quant_fallback += n_bad
+        return np.ascontiguousarray(d), np.ascontiguousarray(ids)
+
+    def _finalize_host_shortlist(self, handle: JoinHandle):
+        """Host half of the host-gather variant: fetch the shortlist,
+        gather the fp32 rows on the host, canonical re-rank. Returns
+        numpy ``(d, ids, lm)``."""
+        n, k = handle.n, self.config.k
+        pl = self.payload()
+        lb = handle.dev[0][:n].cpu()
+        pos = handle.dev[1][:n].cpu().to(torch.int64)
+        pos_c = torch.clamp(pos, 0, pl.gids_host.shape[0] - 1)
+        ids = torch.where(pos >= 0, pl.gids_host[pos_c], -1)
+        d, ids = canonical_topk(torch.from_numpy(handle.q), ids,
+                                pl.rows_host[pos_c])
+        return d[:, :k].numpy(), ids[:, :k].numpy(), lb[:, -1].numpy()
+
+    def join_batch_approx(self, queries, *, stats=None):
+        """The serving scheduler's certified-approximate rung."""
+        raise not_ported("join_batch_approx (the scheduler's degraded "
+                         "rung)", "A3")
+
+    def _oracle_join(self, q: np.ndarray):
+        """The fp32 host-planned path for certification failures — it
+        reports through the same canonical chain, so patched rows are
+        what a full oracle run would emit."""
+        from ..core.api import execute_join
+        from ..core.index import plan_queries
+        return execute_join(q, self.index,
+                            plan_queries(q, self.index, self.config))

@@ -86,8 +86,91 @@ def test_megastep_on_the_card_is_exact(cuda):
     cfg = rt.JoinConfig(k=10, n_pivots=64, tile_r=128, tile_s=512)
     ops.reset_launch_counts()
     got = rt.knn_join_batched(r, s, config=cfg, batch_size=1024,
-                              device=cuda)
+                              megastep=True, device=cuda)
     counts = ops.launch_counts()
     assert counts["assign"] == 1 and counts["distance_topk_gather"] == 3
     bd, bi = rt.brute_force_knn(r, s, 10, device=cuda)
     np.testing.assert_array_equal(got.distances, bd)
+
+
+def _quant_case(rng, n_r, n_s, dim, bm, bn, dead, scale=3.0, offset=0.0):
+    """Codes, scales, ε and a schedule for the coarse kernel, from numpy."""
+    from repro_torch.quant import quantize_queries_np, quantize_rows
+    s = (rng.normal(size=(n_s, dim)) * scale + offset).astype(np.float32)
+    q = (rng.normal(size=(n_r, dim)) * scale + offset).astype(np.float32)
+    qr = quantize_rows(s, bn)
+    qi, qsc, qe = quantize_queries_np(q)
+    ns_t = qr.n_tiles
+    alive = (np.arange(ns_t * bn) < n_s) & (rng.random(ns_t * bn) >= dead)
+    d_true = np.sqrt(((q[:, None].astype(np.float64) - s[None]) ** 2).sum(-1))
+    theta = np.quantile(d_true, 0.2, axis=1).astype(np.float32)
+    nr_t = -(-n_r // bm)
+    counts = rng.integers(1, ns_t + 1, nr_t)
+    sched = np.zeros((nr_t, ns_t), np.int32)
+    for t in range(nr_t):
+        picks = np.sort(rng.choice(ns_t, counts[t], replace=False))
+        sched[t, :counts[t]], sched[t, counts[t]:] = picks, picks[-1]
+    return [torch.from_numpy(x) for x in (
+        qi, qsc, qe, theta, qr.q, qr.scales, qr.eps,
+        alive.astype(np.float32), sched, counts.astype(np.int32))]
+
+
+@pytest.mark.parametrize("mp,dim,dead,offset", [
+    (16, 10, 0.0, 0.0), (128, 10, 0.05, 500.0), (64, 33, 0.3, 0.0),
+    (512, 4, 0.0, -20.0)])
+def test_quant_coarse_kernel_matches_plain(cuda, mp, dim, dead, offset):
+    """K-Q against its plain version: lb bit-equal, positions equal."""
+    from repro_torch.kernels import quant_topk as kq
+    rng = np.random.default_rng(mp + dim)
+    bm, bn = 32, 128
+    args = [t.to(cuda) for t in _quant_case(rng, 300, 2000, dim, bm, bn,
+                                            dead, offset=offset)]
+    sched, counts = args[8], args[9]
+    lb, pos = kq.quant_coarse_gather_cuda(*args[:8], mp, sched, counts,
+                                          bm=bm, bn=bn)
+    rlb, rpos = kq.quant_coarse_sched_plain(*args[:8], mp, sched, counts,
+                                            bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert torch.equal(lb.view(torch.int32), rlb.view(torch.int32))
+    assert torch.equal(pos, rpos)
+    assert bool(torch.isfinite(lb).any())
+
+
+def test_quant_path_cpu_equals_card(cuda):
+    """The quantized tier on the card (K-Q, resident re-rank, fallbacks
+    through the host path's K-G) and on the CPU (plain versions): the
+    same canonical distances, both exact. θ and the schedule come from
+    float32 matrix products summed in another order on each device, so
+    the shortlists themselves may differ at the prune boundary."""
+    s = rt.forest_like(20000, 10, seed=0)
+    r = rt.forest_like(2000, 10, seed=1)
+    cfg = rt.JoinConfig(k=10, n_pivots=64, tile_r=128, tile_s=512,
+                        quant_slack=118, reducer="gather")
+    out = {}
+    for dev in ("cpu", cuda):
+        idx = rt.build_index(s, cfg, quantize="int8", device=dev)
+        eng = rt.QuantMegastepEngine(idx, cfg, device=dev)
+        ops.reset_launch_counts()
+        stats = rt.JoinStats()
+        d, i = eng.join_batch(r, stats=stats)
+        out[str(dev)] = (d, i, stats, ops.launch_counts())
+    d_c, i_c, st_c, n_c = out["cpu"]
+    d_g, i_g, st_g, n_g = out[str(cuda)]
+    np.testing.assert_array_equal(d_c, d_g)
+    np.testing.assert_array_equal(d_c[i_c != i_g], d_g[i_c != i_g])
+    assert set(n_c.values()) == {0} and n_g["quant_coarse_gather"] == 1
+    assert st_g.n_quant_fallback == 0 or n_g["distance_topk_gather"] > 0
+    bd, _ = rt.brute_force_knn(r, s, 10, device=cuda)
+    np.testing.assert_array_equal(d_g, bd)
+
+
+def test_host_path_on_the_card_is_exact(cuda):
+    s = rt.forest_like(20000, 10, seed=0)
+    r = rt.forest_like(3000, 10, seed=1)
+    ops.reset_launch_counts()
+    res = rt.knn_join(r, s, config=rt.JoinConfig(
+        k=10, n_pivots=64, n_groups=4, reducer="gather"), device=cuda)
+    counts = ops.launch_counts()
+    assert counts["assign"] == 2 and 1 <= counts["distance_topk_gather"] <= 4
+    bd, _ = rt.brute_force_knn(r, s, 10, device=cuda)
+    np.testing.assert_array_equal(res.distances, bd)

@@ -16,6 +16,7 @@ import repro_torch as rt  # noqa: E402
 from repro_torch.core import MegastepEngine, StreamJoinEngine  # noqa: E402
 from repro_torch.kernels import assign as ka  # noqa: E402
 from repro_torch.kernels import distance_topk as kg  # noqa: E402
+from repro_torch.kernels import quant_topk as kq  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
@@ -51,7 +52,8 @@ def _small():
 
 @pytest.mark.parametrize("entry", [
     "build_index", "knn_join_batched", "MegastepEngine", "StreamJoinEngine",
-    "sindex_from_arrays", "brute_force_knn"])
+    "sindex_from_arrays", "brute_force_knn", "knn_join",
+    "QuantMegastepEngine"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises;
     it never carries on silently on the CPU."""
@@ -67,29 +69,66 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         "sindex_from_arrays": lambda: rt.sindex_from_arrays(
             {}, cfg),
         "brute_force_knn": lambda: rt.brute_force_knn(r, s, 3),
+        "knn_join": lambda: rt.knn_join(r, s, config=cfg),
+        "QuantMegastepEngine": lambda: rt.QuantMegastepEngine(idx, cfg),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(megastep=False), "A1"), (dict(quantized=True), "A4"),
-    (dict(n_shards=2), "A5")])
-def test_unported_routes_raise(kwargs, item):
-    s, _ = _small()
+@pytest.mark.parametrize("route,item", [
+    ("sharded stream", "A5"), ("sharded batched", "A5"),
+    ("mutable knn_join", "A2"), ("mutable stream", "A2"),
+    ("mutable megastep", "A2"), ("join_batch_approx", "A3"),
+    ("nbytes per shard", "A5"), ("hbrj_join", "A1"), ("pbj_join", "A1"),
+    ("l1 oracle", "A1")])
+def test_unported_routes_raise(route, item):
+    s, r = _small()
     cfg = rt.JoinConfig(k=3, n_pivots=8, tile_r=16, tile_s=32)
     idx = rt.build_index(s, cfg, device="cpu")
+
+    class MutableIndex:     # stands in for the JAX package's segmented index
+        config = cfg
+    calls = {
+        "sharded stream": lambda: StreamJoinEngine(idx, cfg, n_shards=2,
+                                                   device="cpu"),
+        "sharded batched": lambda: rt.knn_join_batched(
+            r, index=idx, n_shards=2, megastep=True, device="cpu"),
+        "mutable knn_join": lambda: rt.knn_join(r, index=MutableIndex(),
+                                                device="cpu"),
+        "mutable stream": lambda: StreamJoinEngine(MutableIndex(), cfg,
+                                                   device="cpu"),
+        "mutable megastep": lambda: MegastepEngine(MutableIndex(), cfg,
+                                                   device="cpu"),
+        "join_batch_approx": lambda: rt.QuantMegastepEngine(
+            idx, cfg, device="cpu").join_batch_approx(r),
+        "nbytes per shard": lambda: idx.nbytes_resident(n_shards=2),
+        "hbrj_join": lambda: rt.core.baselines.hbrj_join(r, s, cfg),
+        "pbj_join": lambda: rt.core.baselines.pbj_join(r, s, cfg),
+        "l1 oracle": lambda: rt.brute_force_knn(r, s, 3, metric="l1",
+                                                device="cpu"),
+    }
     with pytest.raises(NotImplementedError, match=f"Queue {item}"):
-        StreamJoinEngine(idx, cfg, device="cpu", **kwargs)
+        calls[route]()
 
 
-@pytest.mark.parametrize("field", [
-    "n_groups", "grouping", "use_tile_pruning", "reducer", "quant_slack"])
-def test_config_refuses_knobs_it_does_not_read(field):
-    """The JAX config's grouping, reducer and shortlist knobs are not
-    fields here: setting one fails at once instead of being ignored."""
-    with pytest.raises(TypeError, match=field):
-        rt.JoinConfig(**{field: 1})
+@pytest.mark.parametrize("field,bad,message", [
+    ("n_groups", None, None), ("grouping", "spectral", "unknown grouping"),
+    ("use_tile_pruning", None, None), ("reducer", "tree", "unknown reducer"),
+    ("quant_slack", -2, "quant_slack must be")])
+def test_config_validates_restored_fields(field, bad, message):
+    """The §5 grouping, reducer and shortlist knobs take the JAX
+    package's defaults and are validated as it validates them (None:
+    neither package validates the field)."""
+    from repro.core import JoinConfig as JConfig
+    assert getattr(rt.JoinConfig(), field) == getattr(JConfig(), field)
+    for cls in (rt.JoinConfig, JConfig):
+        if bad is not None:
+            with pytest.raises(ValueError, match=message):
+                cls(**{field: bad})
+    cfg = rt.JoinConfig(reducer="auto", use_tile_pruning=False)
+    assert cfg.resolved_reducer == JConfig(
+        reducer="auto", use_tile_pruning=False).resolved_reducer == "dense"
 
 
 def test_kernel_wrappers_take_no_cpu_tensor():
@@ -104,3 +143,11 @@ def test_kernel_wrappers_take_no_cpu_tensor():
         kg.distance_topk_gather_cuda(torch.from_numpy(r),
                                      torch.from_numpy(s), 4, sched, cnt,
                                      bm=16, bn=32)
+    qi = torch.zeros((40, 4), dtype=torch.int8)
+    v = torch.ones((40,))
+    si = torch.zeros((64, 4), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kq.quant_coarse_gather_cuda(
+            qi, v, v, v, si, torch.ones((2,)),
+            torch.zeros((64,), dtype=torch.float16), torch.ones((64,)), 16,
+            sched, cnt, bm=16, bn=32)

@@ -111,7 +111,7 @@ def test_obs_registry_is_the_ports_own():
     idx = rt.build_index(s, cfg, device="cpu")
     with obs.metrics.scoped() as reg, jobs.metrics.scoped() as jreg, \
             obs.capture() as tr:
-        rt.knn_join_batched(s[:40], index=idx, device="cpu")
+        rt.knn_join_batched(s[:40], index=idx, megastep=True, device="cpu")
     names = {sp.name for sp in tr.spans()}
     assert {"megastep.refresh", "megastep.device_step",
             "megastep.fetch"} <= names
