@@ -5,14 +5,15 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 first use), holds each against its plain PyTorch version at the shapes
-its path gives it, then drives three paths at the paper's data scale —
+its path gives it, then drives the port's paths at the paper's data scale —
 Forest CoverType's 581,012 rows × 10 attributes: the fused megastep
 (``build_index`` → ``knn_join_batched(megastep=True)``), the int8
 quantized tier (``build_index(quantize="int8")`` →
 ``knn_join_batched(quantized=True)``), both over all of R in 4096-query
-batches, and the paper's host-planned one-shot ``knn_join`` on a sample
-of R — and checks each against a float64 brute force and against each
-other. Phases:
+batches, the paper's host-planned one-shot ``knn_join`` on a sample
+of R, the mutable segmented index, and kNN-LM retrieval over a mutable
+``Datastore`` — and checks each against a float64 brute force and
+against each other. Phases:
 
 1. card, versions, kernel build;
 2. K-A (nearest pivot) vs its plain version, n = 581,012, M = 256, d = 10;
@@ -37,7 +38,24 @@ other. Phases:
 9. the host-planned ``knn_join`` (pivots from R, gather reducer) on
    ``HOST_ROWS`` queries, counted (K-A and K-G must launch), and the
    pruned and dense reducers on smaller samples, each against the brute
-   force and bitwise against the megastep on the same index.
+   force and bitwise against the megastep on the same index;
+10. K-D (dense top-k) vs its plain version: 4,096 centered queries over
+   the 522,911 base rows (d = 10, k = 10), the same with a seeded 50 %
+   visit mask, and 256 queries over 262,144 Gaussian keys of d = 1,024
+   (k = 8), with ``torch.topk(torch.cdist(...))`` timed beside it;
+11. the mutable index: ``MutableIndex.build`` over the base rows, the
+   other 58,101 rows inserted in waves of 4,096 (16 segments), then 48
+   deletes (θ finite), 5,810 (θ = +inf) and ``compact``; in each stage
+   the megastep join of all of R, counted (one K-G launch per batch),
+   exact against the float64 brute force over the live rows and bitwise
+   equal to a megastep over a fresh index of the survivors; in the
+   first stage also the host route and the quantized route, bitwise
+   equal to it, and a 16-segment step under the sync debug mode;
+12. kNN-LM retrieval: a ``Datastore`` over the base rows, 16 decode
+   steps of 4,096 queries through both ``knn_logits`` routes (K-D
+   launched once a step), with 1,024 entries added and 16 removed
+   between steps and a ``compact`` after step 8; each step's join route
+   exact, the routes' distances and log-probabilities in agreement.
 
 Every time printed stands beside the card's name and power limit. The
 line before the last two is one JSON object with each kernel's launches,
@@ -60,7 +78,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 N_ROWS = 581_012          # UCI Covertype
+N_BASE = 522_911          # the mutable index's and datastore's base (90 %)
 DIM = 10
+DEAD_A, DEAD_TOTAL = 48, N_ROWS // 100    # phase 11's stages A and B
+LM_QUERIES, LM_KEYS, LM_DIM = 256, 262_144, 1024   # phase 10 (c)
+DECODE_STEPS, ADD_ROWS, REMOVE_IDS = 16, 1024, 16  # phase 12
 BUCKET = 4096
 HOST_ROWS = 65_536        # R sample of the host-planned gather path
 PRUNED_ROWS = 512         # R samples of the pruned and dense reducers
@@ -121,6 +143,41 @@ def pair_tol(a2, b2, d: int):
     (2d+4)·u·(a2+b2) (u = 2⁻²⁴), and its √ output rounds d² by at most
     4u·(a2+b2) more; the limit is the sum of both versions' bounds."""
     return (a2 + b2) * (2 * (2 * d + 8)) * 2.0 ** -24
+
+
+def check_runs(torch, what: str, q, s, d_k, p_k, d_p, p_p):
+    """A kernel's top-k run against its plain version's on the same
+    (queries ``q``, rows ``s``): empty slots equal, each slot's d² within
+    its pair's limit (:func:`pair_tol`), and positions equal except at
+    near-ties — each position's exact d² sits at its rank's order
+    statistic within the limit, in both runs (the kernel's exact d² is
+    off its own d² by half of the limit, and that off the plain
+    version's by the limit). Returns ``(share of the limit used, share
+    of equal positions, max |dist err|, the limits of the full slots)``.
+    """
+    full = p_p >= 0
+    check(bool((full == (p_k >= 0)).all()),
+          f"{what}: empty slots differ from the plain version")
+    pk, pp = p_k.long().clamp(min=0), p_p.long().clamp(min=0)
+    q64 = q.double()
+    sk, sp = s[pk].double(), s[pp].double()              # (n, k, d)
+    tol = pair_tol((q64 * q64).sum(1)[:, None],
+                   torch.maximum((sk * sk).sum(-1), (sp * sp).sum(-1)),
+                   q.shape[1])
+    d2_k, d2_p = d_k.double() ** 2, d_p.double() ** 2
+    used = float(torch.where(full, (d2_k - d2_p).abs() / tol, 0.0).max())
+    check(used <= 1.0, f"{what}: run distances disagree with the plain "
+          f"version")
+    ex_k = ((q64[:, None, :] - sk) ** 2).sum(-1)
+    ex_p = ((q64[:, None, :] - sp) ** 2).sum(-1)
+    check(bool((((ex_k - d2_p).abs() <= 1.5 * tol)
+                & ((ex_p - d2_p).abs() <= 0.5 * tol) | ~full).all()),
+          f"{what}: positions differ beyond near-ties")
+    same = float((p_k == p_p).double().mean())
+    fin = torch.isfinite(d_p)
+    err = float((d_k[fin] - d_p[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
+    return used, same, err, tol[full]
 
 
 def tol_text(tol) -> str:
@@ -198,30 +255,10 @@ def phase_gather(card, torch, rt, s_np, r_np, cfg):
     d_p, p_p = kg.distance_topk_gather_plain(*args, **kw)
     torch.cuda.synchronize()
     full = p_p >= 0
-    check(bool((full == (p_k >= 0)).all()),
-          "K-G: empty slots differ from the plain version")
-    pk, pp = p_k.long().clamp(min=0), p_p.long().clamp(min=0)
-    check(not bool(((alive[pk] <= 0) & full).any()),
+    check(not bool(((alive[p_k.long().clamp(min=0)] <= 0) & full).any()),
           "K-G: a dead row entered the kernel's runs")
-    q64 = qcs.double()
-    s64 = s_c.double()
-    s2 = (s64 * s64).sum(1)
-    tol = pair_tol((q64 * q64).sum(1)[:, None],
-                   torch.maximum(s2[pk], s2[pp]), q64.shape[1])
-    d2_k, d2_p = d_k.double() ** 2, d_p.double() ** 2
-    used = float(torch.where(full, (d2_k - d2_p).abs() / tol, 0.0).max())
-    check(used <= 1.0, "K-G: run distances disagree with the plain version")
-    # tie-aware positions: each position's exact d² sits at its rank's
-    # order statistic within tolerance, in both runs (the kernel's exact
-    # d² is off its own d² by half of ``tol``, and that off the plain
-    # version's by ``tol``)
-    ex_k = ((q64[:, None, :] - s64[pk]) ** 2).sum(-1)
-    ex_p = ((q64[:, None, :] - s64[pp]) ** 2).sum(-1)
-    check(bool(((((ex_k - d2_p).abs() <= 1.5 * tol)
-                 & ((ex_p - d2_p).abs() <= 0.5 * tol)) | ~full).all()),
-          "K-G: positions differ beyond near-ties")
-    same = float((p_k == p_p).double().mean())
-    err = float((d_k - d_p).abs().max())
+    used, same, err, tol = check_runs(torch, "K-G", qcs, s_c, d_k, p_k,
+                                      d_p, p_p)
     ms = time_ms(lambda: kg.distance_topk_gather_cuda(*args, **kw), iters=20)
     plain_ms = time_ms(lambda: kg.distance_topk_gather_plain(*args, **kw),
                        warmup=1, iters=3)
@@ -241,7 +278,7 @@ def phase_gather(card, torch, rt, s_np, r_np, cfg):
           f"bn={bn}: visited-tile fraction {frac:.4f}, positions equal "
           f"{same:.6f} (rest near-ties), max |dist err| {err:.3e}, max "
           f"|d² err| {used:.3e} of its pair's tolerance "
-          f"({tol_text(tol[full])}); kernel "
+          f"({tol_text(tol)}); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
           f"({b_by})", flush=True)
     return dict(name="distance_topk_gather", route="cuda",
@@ -328,16 +365,18 @@ def phase_quant(card, torch, rt, idx, r_np, cfg):
                 bound_by=b_by, library_ms=None)
 
 
-def check_exact(card, rt, what: str, r_np, s_np, d, i, k: int) -> None:
-    """A join result against the float64 brute force on 2048 sampled
-    queries (all of them when fewer), tie-aware: distances within 4 ulp (equal bits
-    expected: both report the canonical chain), every reported id's
-    true distance within the true k-th, no duplicate ids."""
+def check_exact(card, rt, what: str, r_np, s_np, d, i, k: int, *,
+                n_sample: int = 2048, report: bool = True) -> None:
+    """A join result against the float64 brute force on ``n_sample``
+    sampled queries (all of them when fewer), tie-aware: distances
+    within 4 ulp (equal bits expected: both report the canonical chain),
+    every reported id's true distance within the true k-th, no
+    duplicate ids."""
     import numpy as np
     check(d.shape == (r_np.shape[0], k) and bool(np.isfinite(d).all())
           and bool((i >= 0).all()), f"{what}: malformed result")
     n = r_np.shape[0]
-    sample = np.random.default_rng(3).choice(n, min(2048, n),
+    sample = np.random.default_rng(3).choice(n, min(n_sample, n),
                                              replace=False)
     bd, bi = rt.brute_force_knn(r_np[sample], s_np, k, device=DEV)
     got_d, got_i = d[sample], i[sample]
@@ -352,10 +391,31 @@ def check_exact(card, rt, what: str, r_np, s_np, d, i, k: int) -> None:
           f"{what}: a reported id lies beyond the true k-th distance")
     check(all(len(set(row)) == k for row in got_i.tolist()),
           f"{what}: duplicate ids in a row")
-    print(f"[{card}] {what} vs brute force (fp64) on {len(sample)} "
-          f"queries: max |dist diff| {float(np.abs(got_d - bd).max()):.3e}, "
-          f"ids equal {float((got_i == bi).mean()):.6f} (rest exact ties)",
-          flush=True)
+    if report:
+        print(f"[{card}] {what} vs brute force (fp64) on {len(sample)} "
+              f"queries: max |dist diff| "
+              f"{float(np.abs(got_d - bd).max()):.3e}, ids equal "
+              f"{float((got_i == bi).mean()):.6f} (rest exact ties)",
+              flush=True)
+
+
+def live_positions(what: str, gids, ids):
+    """Global ids → positions in the ascending live-id table ``gids``;
+    fails if an id is not live (dead, or never allocated)."""
+    import numpy as np
+    pos = np.clip(np.searchsorted(gids, ids), 0, gids.shape[0] - 1)
+    check(bool((gids[pos] == ids).all()), f"{what}: an id is not live")
+    return pos
+
+
+def check_exact_live(card, rt, what: str, r_np, mi, d, i, k: int,
+                     **kw):
+    """:func:`check_exact` against the live rows of a ``MutableIndex``
+    (global ids mapped to live-row positions). Returns (rows, gids)."""
+    rows, gids = mi.live_rows()
+    check_exact(card, rt, what, r_np, rows, d,
+                live_positions(what, gids, i), k, **kw)
+    return rows, gids
 
 
 def check_same_distances(what: str, d, ref_d, i, ref_i) -> None:
@@ -367,6 +427,324 @@ def check_same_distances(what: str, d, ref_d, i, ref_i) -> None:
     mism = i != ref_i
     check(np.array_equal(d[mism], ref_d[mism]),
           f"{what}: ids differ beyond ties")
+
+
+def dense_case(card, torch, kd, what: str, q, s, k: int, mask, *,
+               library: bool, bm: int = 128, bn: int = 512) -> dict:
+    """K-D against its plain version on one shape; times both, and one
+    ``torch.topk(torch.cdist(q, s))`` (two library calls, never used by
+    the port) where no mask applies."""
+    kw = dict(visit_mask=mask, bm=bm, bn=bn)
+    d_k, p_k = kd.distance_topk_cuda(q, s, k, **kw)
+    d_p, p_p = kd.distance_topk_plain(q, s, k, **kw)
+    torch.cuda.synchronize()
+    used, same, err, tol = check_runs(torch, f"K-D ({what})", q, s, d_k,
+                                      p_k, d_p, p_p)
+    ms = time_ms(lambda: kd.distance_topk_cuda(q, s, k, **kw), iters=10)
+    plain_ms = time_ms(lambda: kd.distance_topk_plain(q, s, k, **kw),
+                       warmup=1, iters=2)
+    lib_ms = (time_ms(lambda: torch.topk(torch.cdist(q, s), k,
+                                         largest=False),
+                      warmup=1, iters=3) if library else None)
+    # the work of these inputs: each (query, row) pair of a visited
+    # (R tile, S tile); each input read once, each output written once
+    n_r, d = q.shape
+    n_s = s.shape[0]
+    q_per = torch.full((-(-n_r // bm),), bm, dtype=torch.float64,
+                       device=DEV)
+    q_per[-1] = n_r - bm * (q_per.shape[0] - 1)
+    s_per = torch.full((-(-n_s // bn),), bn, dtype=torch.float64,
+                       device=DEV)
+    s_per[-1] = n_s - bn * (s_per.shape[0] - 1)
+    vis = (torch.ones((q_per.shape[0], s_per.shape[0]), dtype=torch.float64,
+                      device=DEV) if mask is None else (mask != 0).double())
+    pairs = float(q_per @ vis @ s_per)
+    rows_read = float(s_per[vis.amax(0) > 0].sum())
+    n_bytes = (4.0 * d * (n_r + rows_read) + 8.0 * n_r * k
+               + (0 if mask is None else mask.numel()))
+    b_ms, b_by = bound(n_bytes, pairs * (2 * d + 3))
+    print(f"[{card}] K-D dense top-k ({what}) n_r={n_r} n_s={n_s} d={d} "
+          f"k={k}" + ("" if mask is None else
+                      f", visited-tile fraction {float(vis.mean()):.4f}")
+          + f": ids equal {same:.6f} (rest near-ties), max |dist err| "
+          f"{err:.3e}, max |d² err| {used:.3e} of its pair's tolerance "
+          f"({tol_text(tol)}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"cdist+topk (two library calls) "
+          + ("none (masked)" if lib_ms is None else f"{lib_ms:.4f} ms")
+          + f", bound {b_ms:.4f} ms ({b_by}: {pairs:.4e} pairs x (2d+3) "
+          f"fp32 operations, {n_bytes:.4e} bytes)", flush=True)
+    return dict(shape=what, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def phase_dense(card, torch, rt, s_np, r_np) -> dict:
+    """K-D vs its plain version: (a) the retrieval shape — 4,096
+    queries over the 522,911 base rows, centered, d = 10, k = 10; (b)
+    the same with a seeded 50 % visit mask; (c) a kNN-LM width — 256
+    queries over 262,144 Gaussian keys of d = 1,024 (1 GiB), k = 8."""
+    import numpy as np
+    from repro_torch.kernels import distance_topk as kd
+    base = torch.as_tensor(s_np[:N_BASE], device=DEV)
+    center = base.double().mean(0).float()
+    s_c = (base - center).contiguous()
+    q_c = (torch.as_tensor(r_np[:BUCKET], device=DEV) - center).contiguous()
+    a = dense_case(card, torch, kd, "a: retrieval shape", q_c, s_c, 10,
+                   None, library=True)
+    rng = np.random.default_rng(10)
+    mask = torch.as_tensor(
+        (rng.random((BUCKET // 128, -(-N_BASE // 512))) < 0.5)
+        .astype(np.int8), device=DEV)
+    b = dense_case(card, torch, kd, "b: 50 % visit mask", q_c, s_c, 10,
+                   mask, library=False)
+    del base, s_c
+    g = torch.Generator(device=DEV).manual_seed(4)
+    keys = torch.randn((LM_KEYS, LM_DIM), generator=g, device=DEV)
+    qw = torch.randn((LM_QUERIES, LM_DIM), generator=g, device=DEV)
+    c = dense_case(card, torch, kd, "c: kNN-LM width", qw, keys, 8, None,
+                   library=True)
+    del keys
+    torch.cuda.empty_cache()
+    row = dict(name="distance_topk", route="cuda",
+               source="src/repro_torch/csrc/dense_topk.cu",
+               replaces="src/repro/kernels/distance_topk.py:71")
+    row.update({key: a[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")})
+    row["other_shapes"] = [b, c]
+    return row
+
+
+def phase_mutable(card, torch, rt, s_np, r_np, cfg, launches,
+                  out_dir: Path) -> None:
+    """The mutable index at Forest scale: a base of 522,911 rows, the
+    other 58,101 inserted in waves of 4,096 (14 sealed deltas and 757
+    buffered rows: 16 segments), then stage A (48 seeded deletes, θ
+    finite), stage B (5,810 in all, 1 %: θ = +inf) and stage C
+    (``compact``). Each stage: the megastep join of all of R, exact
+    against the float64 brute force over the live rows, bitwise equal
+    to a megastep over a fresh ``build_index`` of the survivors, one
+    K-G launch per batch; in stage A also the host route and the
+    quantized route on ``HOST_ROWS`` queries, and one multi-segment
+    ``join_batch_device`` under the sync debug mode."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    refreshes = rt.obs.metrics.REGISTRY.counter(
+        "megastep_payload_refresh_total")
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    mi, t_build = synced(lambda: rt.MutableIndex.build(
+        s_np[:N_BASE], cfg, seal_threshold=BUCKET, device=DEV))
+    eng = rt.MegastepEngine(mi, cfg, device=DEV)
+    qd, nv = eng.enqueue(r_np[:BUCKET])
+    steps = {"1 segment, 0 tombstones":
+             time_ms(lambda: eng.join_batch_device(qd, nv), iters=10)}
+    held = s_np[N_BASE:]
+    _, t_insert = synced(lambda: [mi.insert(held[lo:lo + BUCKET])
+                                  for lo in range(0, held.shape[0], BUCKET)])
+    n_sealed, n_buf = divmod(held.shape[0], BUCKET)
+    n_segs = 1 + n_sealed + (n_buf > 0)
+    check(len(mi.segments) == 1 + n_sealed and mi.n_buffered == n_buf
+          and mi.n_segments == n_segs,
+          f"mutable index: expected {n_sealed} sealed deltas + {n_buf} "
+          f"buffered rows, got {mi!r}")
+    _, t_ref_struct = synced(eng.payload)
+    steps[f"{n_segs} segments, 0 tombstones"] = time_ms(
+        lambda: eng.join_batch_device(qd, nv), iters=10)
+    print(f"[{card}] mutable index: build {t_build:.3f} s over {N_BASE} "
+          f"rows; {held.shape[0]} rows inserted in {t_insert:.3f} s "
+          f"({len(mi.segments) - 1} seals, {mi.n_buffered} buffered); "
+          f"payload refresh after the inserts {t_ref_struct * 1e3:.3f} ms",
+          flush=True)
+
+    rng = np.random.default_rng(11)
+    dead_a = rng.choice(N_ROWS, DEAD_A, replace=False)
+    dead_b = rng.choice(np.setdiff1d(np.arange(N_ROWS), dead_a),
+                        DEAD_TOTAL - DEAD_A, replace=False)
+    stages = (("A", lambda: mi.delete(dead_a), n_segs, DEAD_A),
+              ("B", lambda: mi.delete(dead_b), n_segs, DEAD_TOTAL),
+              ("C", mi.compact, 1, 0))
+    for name, mutate, n_segs, n_dead in stages:
+        _, t_mut = synced(mutate)
+        before = refreshes.value
+        _, t_refresh = synced(eng.payload)
+        n_rebuilt = refreshes.value - before
+        key = (f"{n_segs} segment{'s' * (n_segs > 1)}, {n_dead} tombstones"
+               + (", compacted" if name == "C" else ""))
+        steps[key] = time_ms(lambda: eng.join_batch_device(qd, nv), iters=10)
+        ops.reset_launch_counts()
+        res, t_join = synced(lambda: rt.knn_join_batched(
+            r_np, index=mi, batch_size=BUCKET, megastep=True, device=DEV))
+        counts = launches[f"mutable_{name}"] = ops.launch_counts()
+        st = res.stats
+        check(st.n_segments == n_segs and st.n_tombstones == n_dead
+              and mi.n_tombstones == n_dead,
+              f"stage {name}: {st.n_segments} segments / {st.n_tombstones} "
+              f"tombstones, expected {n_segs} / {n_dead}")
+        check(counts["distance_topk_gather"] == st.n_batches,
+              f"stage {name}: K-G launched {counts['distance_topk_gather']} "
+              f"times for {st.n_batches} batches")
+        rows, gids = check_exact_live(card, rt, f"mutable megastep stage "
+                                      f"{name}", r_np, mi, res.distances,
+                                      res.indices, cfg.k)
+        fresh = rt.build_index(rows, cfg, device=DEV)
+        ref = rt.knn_join_batched(r_np, index=fresh, batch_size=BUCKET,
+                                  megastep=True, device=DEV)
+        check_same_distances(f"stage {name}: mutable vs fresh index",
+                             res.distances, ref.distances, res.indices,
+                             gids[ref.indices])
+        print(f"[{card}] stage {name} ({key}): mutation {t_mut:.3f} s"
+              + (f" (compact {mi.last_compact_s:.3f} s)" if name == "C"
+                 else "")
+              + f", payload refresh {t_refresh * 1e3:.3f} ms "
+              f"({n_rebuilt:.0f} rebuild), step "
+              f"{steps[key]:.4f} ms, join {t_join:.3f} s over {N_ROWS} "
+              f"queries = {N_ROWS / t_join:.1f} queries/s, {st.n_batches} "
+              f"batches, launches {counts}; bitwise equal to a fresh index "
+              f"of the {rows.shape[0]} survivors", flush=True)
+        if name != "A":
+            continue
+        profile_device(card, torch, lambda: eng.join_batch_device(qd, nv),
+                       f"steady-state megastep over {n_segs} segments, "
+                       f"{n_dead} tombstones (per step, {BUCKET} queries)",
+                       out_dir / "mutable_profile.txt", runs=5)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = eng.join_batch_device(qd, nv)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        check(torch.equal(out[0][:BUCKET].cpu(), torch.as_tensor(
+            res.distances[:BUCKET])), "stage A: the steady step differs")
+        r_h = r_np[:HOST_ROWS]
+        cfg_h = dataclasses.replace(cfg, n_groups=8, reducer="gather")
+        host, t_host = synced(lambda: rt.knn_join(r_h, index=mi,
+                                                  config=cfg_h, device=DEV))
+        check_same_distances("stage A: host route vs megastep",
+                             host.distances, res.distances[:HOST_ROWS],
+                             host.indices, res.indices[:HOST_ROWS])
+        cfg_q = dataclasses.replace(cfg_h, quant_slack=118)
+        quant, t_quant = synced(lambda: rt.knn_join_batched(
+            r_h, index=mi, config=cfg_q, batch_size=BUCKET, quantized=True,
+            device=DEV))
+        check_same_distances("stage A: quantized route vs megastep",
+                             quant.distances, res.distances[:HOST_ROWS],
+                             quant.indices, res.indices[:HOST_ROWS])
+        fb = quant.stats.n_quant_fallback
+        print(f"[{card}] stage A: one {n_segs}-segment join_batch_device with "
+              f"no host sync under set_sync_debug_mode('error'); host route "
+              f"(gather reducer) over {HOST_ROWS} queries {t_host:.3f} s, "
+              f"quantized route {t_quant:.3f} s (certification fallbacks "
+              f"{fb} = {fb / HOST_ROWS:.4%}), both bitwise equal to the "
+              f"megastep", flush=True)
+    print(f"[{card}] mutable megastep step ms ({BUCKET}-query bucket): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in steps.items()), flush=True)
+
+
+def phase_retrieval(card, torch, rt, s_np, r_np, launches) -> None:
+    """kNN-LM retrieval over a ``Datastore`` of the 522,911 base rows
+    (values: seeded labels 0..6): 16 decode steps of 4,096 queries,
+    each through both ``knn_logits`` routes; between steps 1,024
+    held-out rows are added and 16 seeded live ids removed, and the
+    store is compacted after step 8."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Datastore, KnnLMConfig, knn_logits
+    vocab, k, n_steps = 7, 10, DECODE_STEPS
+    labels = np.random.default_rng(12).integers(0, vocab, N_ROWS) \
+        .astype(np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = Datastore.build(s_np[:N_BASE], labels[:N_BASE], k=k,
+                            n_pivots=256, device=DEV)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    d0, _, _ = store.retrieve(r_np[:BUCKET], k)
+    tau = float(np.median(d0[:, -1].astype(np.float64) ** 2))
+    kcfg = KnnLMConfig(k=k, tau=tau)
+    print(f"[{card}] retrieval: Datastore.build {t_build:.3f} s over "
+          f"{N_BASE} keys; tau = median k-th d² of step 0 = {tau:.6g}",
+          flush=True)
+    rng = np.random.default_rng(13)
+    next_add = N_BASE
+    ms = {"join": [], "kernel": []}
+    n_lp, n_swapped, lp_used = 0, 0, 0.0
+    ops.reset_launch_counts()
+    for step in range(n_steps):
+        q = r_np[step * BUCKET:(step + 1) * BUCKET]
+        out = {}
+        for route, use_kernel in (("join", False), ("kernel", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[route] = knn_logits(q, store, kcfg, vocab,
+                                    use_kernel=use_kernel,
+                                    return_neighbors=True)
+            torch.cuda.synchronize()
+            ms[route].append((time.perf_counter() - t0) * 1e3)
+        lg_j, (d_j, i_j) = out["join"]
+        lg_k, (d_k, i_k) = out["kernel"]
+        what = f"retrieval step {step}"
+        rows, gids = check_exact_live(card, rt, f"{what} join route", q,
+                                      store.index, d_j, i_j, k,
+                                      n_sample=256, report=False)
+        # the routes against each other, on the rows K-D saw (centered)
+        rows_c, center, _ = store.index.live_device_centered()
+        q_c = torch.as_tensor(q, device=DEV) - center
+        _, _, _, tol = check_runs(
+            torch, f"{what}: kernel route vs join route", q_c, rows_c,
+            torch.as_tensor(d_k, device=DEV),
+            torch.as_tensor(live_positions(what, gids, i_k), device=DEV),
+            torch.as_tensor(d_j, device=DEV),
+            torch.as_tensor(live_positions(what, gids, i_j), device=DEV))
+        # log-probs: a d² moved by at most δ moves each softmax logit by
+        # δ/τ and a log-probability by at most 2·max δ/τ; allow 2·δ per
+        # id (each route off the exact d² by up to the limit) plus 2⁻¹⁵
+        # for float32 rounding of d², exp, the sums and log over the
+        # range the 1e-9 floor leaves. Rows whose id sets differ (ties
+        # at the k-th distance, checked above) are left out and counted.
+        lp_tol = 4.0 * float(tol.max()) / tau + 2.0 ** -15
+        same_set = (np.sort(i_j, axis=1) == np.sort(i_k, axis=1)).all(1)
+        diff = (float(np.abs(lg_j[same_set] - lg_k[same_set]).max())
+                if same_set.any() else 0.0)
+        check(diff <= lp_tol, f"{what}: log-probs differ by {diff:.3e} > "
+              f"{lp_tol:.3e}")
+        n_lp += int(same_set.sum())
+        n_swapped += int((~same_set).sum())
+        lp_used = max(lp_used, diff / lp_tol)
+        if step == n_steps - 1:
+            break
+        ids = store.add_entries(s_np[next_add:next_add + ADD_ROWS],
+                                labels[next_add:next_add + ADD_ROWS])
+        next_add += ADD_ROWS
+        tomb = set(store.index.tombstones_sorted().tolist())
+        live = np.setdiff1d(np.arange(int(ids[-1]) + 1),
+                            np.fromiter(tomb, np.int64, len(tomb)))
+        store.remove_entries(rng.choice(live, REMOVE_IDS, replace=False))
+        if step == 8:
+            store.compact()
+            print(f"[{card}] retrieval: compact after step 8 took "
+                  f"{store.index.last_compact_s:.3f} s", flush=True)
+    counts = launches["retrieval"] = ops.launch_counts()
+    check(counts["distance_topk"] == n_steps
+          and counts["distance_topk_gather"] >= n_steps,
+          f"retrieval: expected {n_steps} K-D launches and at least as "
+          f"many K-G launches, got {counts}")
+    print(f"[{card}] retrieval: {n_steps} decode steps x {BUCKET} queries, "
+          f"vocab {vocab}; join route exact vs fp64 brute force (256 "
+          f"sampled queries a step), routes' distances within the pair "
+          f"limit; log-probs agree on {n_lp} rows (max {lp_used:.3e} of the "
+          f"limit 4·max δ/τ + 2^-15), {n_swapped} rows with tie-swapped "
+          f"ids; launches {counts}", flush=True)
+    for route in ("join", "kernel"):
+        print(f"[{card}] retrieval {route} route ms per step (refresh "
+              f"included): " + ", ".join(f"{x:.3f}" for x in ms[route]),
+              flush=True)
 
 
 def profile_device(card, torch, fn, what: str, out_file: Path,
@@ -611,8 +989,17 @@ def main(argv=None) -> int:
                              got.distances, mega_h.distances[:n],
                              got.indices, mega_h.indices[:n])
 
+    # ---- 10. K-D against its plain version (retrieval and LM shapes)
+    rows.append(phase_dense(card, torch, rt, s_np, r_np))
+
+    # ---- 11. the mutable index: 16 segments, tombstones, compaction
+    phase_mutable(card, torch, rt, s_np, r_np, cfg, launches, out_dir)
+
+    # ---- 12. kNN-LM retrieval through both knn_logits routes
+    phase_retrieval(card, torch, rt, s_np, r_np, launches)
+
     owner = {"assign": "megastep", "distance_topk_gather": "megastep",
-             "quant_coarse_gather": "quantized"}
+             "quant_coarse_gather": "quantized", "distance_topk": "retrieval"}
     for row in rows:
         row["launches"] = launches[owner[row["name"]]][row["name"]]
         row["launches_by_path"] = {path: n[row["name"]]

@@ -7,16 +7,16 @@ imports torch and numpy only. Entry points take ``device=`` and default
 to ``"cuda"``; pass ``device="cpu"`` to run the kernels' plain PyTorch
 versions.
 """
-from . import core, kernels, obs, quant
+from . import core, kernels, obs, quant, serve
 from .core import (JoinConfig, JoinResult, JoinStats, MegastepEngine,
-                   SIndex, StreamJoinEngine, brute_force_knn, build_index,
-                   knn_join, knn_join_batched, plan_queries,
-                   sindex_from_arrays)
+                   MutableIndex, Segment, SIndex, StreamJoinEngine,
+                   brute_force_knn, build_index, knn_join, knn_join_batched,
+                   plan_queries, sindex_from_arrays)
 from .data import forest_like
 from .quant.engine import QuantMegastepEngine
 
-__all__ = ["core", "kernels", "obs", "quant", "JoinConfig", "JoinResult",
-           "JoinStats", "MegastepEngine", "QuantMegastepEngine", "SIndex",
-           "StreamJoinEngine", "brute_force_knn", "build_index",
-           "forest_like", "knn_join", "knn_join_batched", "plan_queries",
-           "sindex_from_arrays"]
+__all__ = ["core", "kernels", "obs", "quant", "serve", "JoinConfig",
+           "JoinResult", "JoinStats", "MegastepEngine", "MutableIndex",
+           "QuantMegastepEngine", "Segment", "SIndex", "StreamJoinEngine",
+           "brute_force_knn", "build_index", "forest_like", "knn_join",
+           "knn_join_batched", "plan_queries", "sindex_from_arrays"]

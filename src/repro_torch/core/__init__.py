@@ -1,7 +1,8 @@
 """PGBJ kNN join, PyTorch port — the JAX package's ``core``: the
-build-once ``SIndex``, the per-batch planner (``plan_queries``), the
-host-planned join (``knn_join`` → ``execute_join``), the fused megastep
-and the streaming engine."""
+build-once ``SIndex``, the mutable segmented ``MutableIndex``, the
+per-batch planner (``plan_queries``), the host-planned join
+(``knn_join`` → ``execute_join``), the fused megastep and the streaming
+engine."""
 from .types import JoinConfig, JoinResult, JoinStats, SummaryTable
 from .pivots import select_pivots
 from .partition import assign_to_pivots, assign_and_summarize, build_summary
@@ -20,6 +21,7 @@ from .join import (join_group, join_group_dense, join_group_gather,
 from .api import JoinPlan, execute_join, knn_join, plan_join
 from .megastep import JoinHandle, MegastepEngine
 from .stream import StreamJoinEngine, StreamJoinState, knn_join_batched
+from .segments import MutableIndex, Segment
 from .metrics import (canonical_gathered, canonical_topk, from_cmp,
                       gathered_dist)
 from .baselines import brute_force_knn
@@ -43,6 +45,7 @@ __all__ = [
     "JoinPlan", "execute_join", "knn_join", "plan_join",
     "JoinHandle", "MegastepEngine",
     "StreamJoinEngine", "StreamJoinState", "knn_join_batched",
+    "MutableIndex", "Segment",
     "canonical_gathered", "canonical_topk", "from_cmp", "gathered_dist",
     "brute_force_knn",
 ]

@@ -19,7 +19,7 @@ import torch
 
 from ..device import resolve_device
 from .index import (QueryPlan, SIndex, as_float32_rows, build_index,
-                    not_ported, plan_queries)
+                    plan_queries)
 from .join import join_group
 from .metrics import canonical_topk
 from .types import JoinConfig, JoinResult, JoinStats
@@ -77,6 +77,14 @@ def _check_s(s, index: SIndex, k: int) -> None:
         raise ValueError(f"k={k} > |S|={index.n_s}")
 
 
+def _engine_cls(quantized: bool):
+    if quantized:
+        from ..quant.engine import QuantMegastepEngine
+        return QuantMegastepEngine
+    from .megastep import MegastepEngine
+    return MegastepEngine
+
+
 def knn_join(
     r, s=None, k: int | None = None, config: Optional[JoinConfig] = None,
     *, plan: Optional[JoinPlan] = None, index=None, megastep: bool = False,
@@ -86,21 +94,22 @@ def knn_join(
     """PGBJ kNN join: for every row of ``r``, the k nearest rows of ``s``
     — global S row ids (int64) and true distances, ascending per query.
 
-    ``index=`` joins against a prebuilt ``SIndex`` (S-side phase 1 is
-    not re-run; ``s`` may be omitted); ``plan=`` also reuses a query
-    plan. Otherwise the index is built from ``s`` on ``device`` with
-    pivots selected from ``r`` — the paper's one-shot pipeline.
+    ``index=`` joins against a prebuilt ``SIndex`` or a
+    ``MutableIndex`` (S-side phase 1 is not re-run; ``s`` may be
+    omitted; a mutable index fans the batch over every live segment);
+    ``plan=`` also reuses a query plan. Otherwise the index is built
+    from ``s`` on ``device`` with pivots selected from ``r`` — the
+    paper's one-shot pipeline.
     ``megastep=True`` runs the fused device megastep (L2);
     ``quantized=True`` (default: on when ``config.quantize != "none"``)
     the int8 coarse scan + exact fp32 re-rank (L2). Every route reports
     the same canonical distances.
     """
+    from .segments import MutableIndex
+
     if plan is not None:
         index = plan.index
     if index is not None:
-        if not isinstance(index, SIndex):
-            raise not_ported(f"knn_join over {type(index).__name__} "
-                             f"(segments / MutableIndex)", "A2")
         config = config or index.config
     config = config or JoinConfig(k=k or 10)
     if k is not None and k != config.k:
@@ -112,6 +121,24 @@ def knn_join(
             "megastep=True / quantized=True plan on the device and cannot "
             "reuse plan=; pass index= instead")
     r_np = as_float32_rows(r, what="R rows").cpu().numpy()
+    if isinstance(index, MutableIndex):
+        resolve_device(device)
+        if s is not None and len(s) != index.n_s:
+            raise ValueError(
+                f"s has {len(s)} rows but the mutable index holds "
+                f"{index.n_s} live; results would index the wrong dataset")
+        if config.k > index.n_s:
+            raise ValueError(f"k={config.k} > live |S|={index.n_s}")
+        stats = JoinStats(n_s=index.n_s)
+        if quantized or megastep:
+            out_d, out_i = _engine_cls(quantized)(
+                index, config, device=index.device).join_batch(
+                    r_np, stats=stats)
+        else:
+            stats.n_r = r_np.shape[0]
+            out_d, out_i = index.join_batch(r_np, config=config,
+                                            stats=stats)
+        return JoinResult(indices=out_i, distances=out_d, stats=stats)
     built_here = index is None
     if index is None:
         if s is None:
@@ -130,12 +157,8 @@ def knn_join(
     if built_here:
         stats.pivot_pairs_computed += index.n_s * index.n_pivots
     if quantized or megastep:
-        if quantized:
-            from ..quant.engine import QuantMegastepEngine as engine_cls
-        else:
-            from .megastep import MegastepEngine as engine_cls
-        out_d, out_i = engine_cls(index, config, device=index.device) \
-            .join_batch(r_np, stats=stats)
+        out_d, out_i = _engine_cls(quantized)(
+            index, config, device=index.device).join_batch(r_np, stats=stats)
         return JoinResult(indices=out_i, distances=out_d, stats=stats)
     if plan is not None:
         qplan = plan.query

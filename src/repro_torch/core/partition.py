@@ -80,11 +80,13 @@ def _summarize(part_ids: torch.Tensor, dists: torch.Tensor, m: int,
                         knn_dists=knn)
 
 
-def build_summary(part_ids: torch.Tensor, dists: torch.Tensor,
-                  m: int) -> SummaryTable:
-    """T_R for one query batch: counts, L and U per partition (no
-    pivot-kNN lists)."""
-    return _summarize(part_ids, dists, m, None, None)
+def build_summary(part_ids: torch.Tensor, dists: torch.Tensor, m: int,
+                  k: int | None = None) -> SummaryTable:
+    """T_R (``k=None``: counts, L and U per partition) or T_S (also the
+    k smallest object→pivot distances per partition) from phase-1
+    output."""
+    order = None if k is None else lexsort_part_dist(part_ids, dists)
+    return _summarize(part_ids, dists, m, k, order)
 
 
 def assign_and_summarize(

@@ -1,16 +1,18 @@
-"""Streaming R micro-batch engine over a resident ``SIndex`` — PyTorch
-port of the JAX package's ``core.stream``.
+"""Streaming R micro-batch engine over a resident index — PyTorch port
+of the JAX package's ``core.stream``.
 
 R arrives in micro-batches of any size; each batch is planned and
-joined against the build-once index by one of three routes: the
-host-planned path (``plan_queries`` + ``execute_join``, the default),
-the fused megastep (``megastep=True``, ``core.megastep``) or the int8
-two-tier engine (``quantized=True``, ``quant.engine``). A query's
-result depends only on (query row, index), so ``knn_join_batched``
-over any split of R gives the same results as one batch.
+joined against a build-once ``SIndex`` or a ``MutableIndex`` by one of
+three routes: the host-planned path (``plan_queries`` +
+``execute_join``, or ``MutableIndex.join_batch`` over the segments; the
+default), the fused megastep (``megastep=True``, ``core.megastep``) or
+the int8 two-tier engine (``quantized=True``, ``quant.engine``). A
+query's result depends only on (query row, live rows), so
+``knn_join_batched`` over any split of R gives the same results as one
+batch.
 
-``MutableIndex`` and sharding raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+Sharding raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from .. import obs
 from ..device import resolve_device
 from ..kernels.sorted_merge import merge_sorted_runs_unique, next_pow2
 from .api import execute_join
-from .index import SIndex, build_index, not_ported, plan_queries
+from .index import build_index, not_ported, plan_queries
 from .megastep import MegastepEngine
 from .types import JoinConfig, JoinResult, JoinStats
 
@@ -81,7 +83,9 @@ class StreamJoinState:
 
 
 class StreamJoinEngine:
-    """Join every incoming R micro-batch against one resident index.
+    """Join every incoming R micro-batch against one resident index — an
+    ``SIndex`` or a ``MutableIndex``, whose batch fans over every live
+    segment (base, deltas, write buffer).
 
     ``megastep``: ``False`` (default: the host-planned path) | ``True``
     | ``"auto"`` (the megastep when the metric is L2). ``quantized``:
@@ -90,14 +94,11 @@ class StreamJoinEngine:
     precedence over ``megastep``; ``None`` follows ``config.quantize``.
     """
 
-    def __init__(self, index: SIndex, config: Optional[JoinConfig] = None,
+    def __init__(self, index, config: Optional[JoinConfig] = None,
                  *, megastep: object = False,
                  quantized: Optional[bool] = None,
                  n_shards: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda"):
-        if not isinstance(index, SIndex):
-            raise not_ported(f"streaming over {type(index).__name__} "
-                             f"(segments / MutableIndex)", "A2")
         self.index = index
         self.config = config or index.config
         if n_shards is not None:
@@ -177,9 +178,14 @@ class StreamJoinEngine:
             return self._join_batch_host(queries, stats=stats)
 
     def _join_batch_host(self, queries, *, stats=None):
+        from .segments import MutableIndex
+
         if stats is not None:
             stats.n_r += queries.shape[0]
             stats.n_s = max(stats.n_s, self.index.n_s)
+        if isinstance(self.index, MutableIndex):
+            return self.index.join_batch(queries, config=self.config,
+                                         stats=stats)
         qplan = plan_queries(queries, self.index, self.config)
         if stats is not None:
             stats.pivot_pairs_computed += (
@@ -201,7 +207,7 @@ def knn_join_batched(
     k: int | None = None,
     config: Optional[JoinConfig] = None,
     *,
-    index: Optional[SIndex] = None,
+    index=None,
     batch_size: int = 0,
     megastep: object = False,
     quantized: Optional[bool] = None,
@@ -212,8 +218,9 @@ def knn_join_batched(
 
     ``r`` is one array (split into ``batch_size`` chunks; 0 =
     ``config.batch_size`` or one batch) or an iterable of micro-batch
-    arrays. ``index=`` reuses a prebuilt ``SIndex``; otherwise the index
-    is built here from ``s`` on ``device`` (pivots sampled from S).
+    arrays. ``index=`` reuses a prebuilt ``SIndex`` or a
+    ``MutableIndex``; otherwise the index is built here from ``s`` on
+    ``device`` (pivots sampled from S).
     ``megastep=True`` runs each batch through the fused megastep,
     ``quantized=True`` through the int8 two-tier engine; the default is
     the host-planned path. Every route equals one batch for any split.

@@ -1,7 +1,8 @@
-"""Scheduled gather top-k: the CUDA kernel ``csrc/gather_topk.cu`` and
-its plain PyTorch version.
+"""Top-k kernels over S tiles: the scheduled gather top-k
+(``csrc/gather_topk.cu``, K-G) and the dense top-k
+(``csrc/dense_topk.cu``, K-D), each with its plain PyTorch version.
 
-The kernel replaces the JAX package's Pallas
+K-G replaces the JAX package's Pallas
 ``distance_topk_gather_alive_kernel`` / ``distance_topk_gather_kernel``
 (``kernels/distance_topk.py:189`` / ``:154``, wrapper
 ``distance_topk_gather_pallas``) with one kernel and an optional alive
@@ -18,6 +19,16 @@ and folds each slot's tile into the carried run with one stable sort.
 Its candidates of a slot all lie past the run's positions because
 schedule rows are ascending (``core.schedule.compact_visits``), so the
 stable sort is what sends ties to the lower position.
+
+K-D replaces the Pallas ``distance_topk_kernel``
+(``kernels/distance_topk.py:71``, wrapper ``distance_topk_pallas``):
+the same function over every (R tile, S tile) pair whose
+``visit_mask`` entry is non-zero (every pair without a mask), for any
+width d. Its plain version walks S in groups of whole tiles for all
+queries at once (memory bounded by ``_PLAIN_STEP_ELEMS`` distances) and
+folds each group into the run with one stable sort; √ is taken in
+float64 and rounded once (the correctly rounded float32 √, as the
+kernel's).
 """
 from __future__ import annotations
 
@@ -31,14 +42,23 @@ from . import build
 from .sorted_merge import next_pow2
 
 __all__ = ["distance_topk_gather_plain", "distance_topk_gather_cuda",
-           "launches", "MAX_K", "MAX_DIM"]
+           "distance_topk_plain", "distance_topk_cuda", "launches",
+           "dense_launches", "MAX_K", "MAX_DIM"]
 
-MAX_K = 64       # widest run the kernel keeps in registers
-MAX_DIM = 128
+MAX_K = 64       # widest run either kernel keeps in registers
+MAX_DIM = 128    # K-G holds the query in registers; K-D takes any width
 
-# launches of the CUDA kernel in this process (read and reset through
+# launches of K-G and of K-D in this process (read and reset through
 # ``kernels.ops``)
 launches = 0
+dense_launches = 0
+
+# distances the plain dense version holds at once (128 MB of float32)
+_PLAIN_STEP_ELEMS = 1 << 25
+# K-D: queries per block, and the blocks its S-axis split aims for
+# (~4 per SM of an H100's 132)
+_DENSE_BQ = 32
+_DENSE_TARGET_BLOCKS = 4 * 132
 
 
 def distance_topk_gather_plain(
@@ -102,7 +122,7 @@ def _check(name, t, dtype, dim, device):
     if t.device != device or t.dtype != dtype or t.dim() != dim \
             or not t.is_contiguous():
         raise ValueError(
-            f"gather kernel: {name} must be a contiguous {dim}-D {dtype} "
+            f"kernel argument {name} must be a contiguous {dim}-D {dtype} "
             f"tensor on {device}, got {t.dtype} {tuple(t.shape)} on "
             f"{t.device}")
 
@@ -155,4 +175,107 @@ def distance_topk_gather_cuda(
     if err != 0:
         raise RuntimeError(f"gather kernel launch failed: CUDA error {err}")
     launches += 1
+    return out_d, out_p
+
+
+def distance_topk_plain(
+    r: torch.Tensor, s: torch.Tensor, k: int, *,
+    visit_mask: Optional[torch.Tensor] = None, bm: int = 128, bn: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """k nearest rows of ``s`` per row of ``r`` over the visited (R tile,
+    S tile) pairs: ascending (√d² float32, int32 row ids), (+inf, -1)
+    for empty slots, ties to the lower id."""
+    n_r = r.shape[0]
+    n_s = s.shape[0]
+    dev = r.device
+    r = r.to(torch.float32)
+    s = s.to(torch.float32)
+    ns_tiles = -(-n_s // bn)
+    rn = (r * r).sum(1)
+    run_d = torch.full((n_r, k), float("inf"), device=dev)
+    run_p = torch.full((n_r, k), -1, dtype=torch.int64, device=dev)
+    row_mask = None
+    if visit_mask is not None:
+        tile_of_row = torch.arange(n_r, device=dev) // bm
+        row_mask = visit_mask.to(dev)[tile_of_row] != 0     # (n_r, ns_tiles)
+    step = max(1, _PLAIN_STEP_ELEMS // (max(n_r, 1) * bn))
+    for t0 in range(0, ns_tiles, step):
+        lo, hi = t0 * bn, min(n_s, (t0 + step) * bn)
+        sc = s[lo:hi]
+        d2 = torch.clamp(rn[:, None] + (sc * sc).sum(1)[None, :]
+                         - 2.0 * (r @ sc.T), min=0.0)
+        cols = torch.arange(lo, hi, device=dev)
+        if row_mask is not None:
+            d2 = torch.where(row_mask[:, cols // bn], d2, float("inf"))
+        cand_d = torch.cat([run_d, d2], dim=1)
+        cand_p = torch.cat([run_p, cols[None, :].expand(n_r, -1)], dim=1)
+        cand_d, order = torch.sort(cand_d, dim=1, stable=True)
+        run_d = cand_d[:, :k]
+        run_p = torch.take_along_dim(cand_p, order[:, :k], dim=1)
+    run_p = torch.where(torch.isfinite(run_d), run_p, -1)
+    out_d = torch.sqrt(run_d.to(torch.float64)).to(torch.float32)
+    return out_d, run_p.to(torch.int32)
+
+
+@functools.cache
+def _dense_entry():
+    """K-D's C entry, loaded and typed once per process."""
+    fn = build.library("dense_topk").repro_dense_topk
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def distance_topk_cuda(
+    r: torch.Tensor, s: torch.Tensor, k: int, *,
+    visit_mask: Optional[torch.Tensor] = None, bm: int = 128, bn: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K-D on the current stream of ``r``'s device: a partial
+    top-k per (32 queries, split of the S tiles) block, then a merge of
+    the splits per query."""
+    global dense_launches
+    if not r.is_cuda:
+        raise ValueError(f"dense kernel: r must be a CUDA tensor, got "
+                         f"{r.device}")
+    dev = r.device
+    _check("r", r, torch.float32, 2, dev)
+    _check("s", s, torch.float32, 2, dev)
+    n_r, d = r.shape
+    n_s = s.shape[0]
+    nr_tiles = -(-n_r // bm) if bm >= 1 else 0
+    ns_tiles = -(-n_s // bn) if bn >= 1 else 0
+    if visit_mask is not None:
+        _check("visit_mask", visit_mask, torch.int8, 2, dev)
+    if (s.shape[1] != d or d < 1 or not 1 <= k <= MAX_K or bm < 1
+            or bn < 1 or n_s < 1 or n_s >= 2 ** 31 or n_r >= 2 ** 31
+            or (visit_mask is not None
+                and tuple(visit_mask.shape) != (nr_tiles, ns_tiles))):
+        raise ValueError(
+            f"dense kernel takes d >= 1, 1 <= k <= {MAX_K}, 1 <= n_s < 2^31 "
+            f"and a (ceil(n_r/bm), ceil(n_s/bn)) int8 visit mask; got r "
+            f"{tuple(r.shape)}, s {tuple(s.shape)}, k={k}, bm={bm}, bn={bn}"
+            + ("" if visit_mask is None
+               else f", visit_mask {tuple(visit_mask.shape)}"))
+    out_d = torch.empty((n_r, k), dtype=torch.float32, device=dev)
+    out_p = torch.empty((n_r, k), dtype=torch.int32, device=dev)
+    if n_r == 0:
+        return out_d, out_p
+    kp = max(8, next_pow2(k))
+    nr_blocks = nr_tiles * -(-bm // _DENSE_BQ)
+    n_splits = min(ns_tiles, 65535,
+                   max(1, -(-_DENSE_TARGET_BLOCKS // nr_blocks)))
+    part_d = torch.empty((n_splits, n_r, kp), dtype=torch.float32,
+                         device=dev)
+    part_p = torch.empty((n_splits, n_r, kp), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _dense_entry()(
+            r.data_ptr(), s.data_ptr(),
+            None if visit_mask is None else visit_mask.data_ptr(),
+            part_d.data_ptr(), part_p.data_ptr(), out_d.data_ptr(),
+            out_p.data_ptr(), n_r, n_s, d, k, bm, bn, n_splits,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dense kernel launch failed: CUDA error {err}")
+    dense_launches += 1
     return out_d, out_p

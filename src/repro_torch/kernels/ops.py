@@ -16,8 +16,8 @@ from . import assign as _assign
 from . import distance_topk as _gather
 from . import quant_topk as _quant
 
-__all__ = ["assign", "distance_topk_gather", "quant_coarse_topk",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["assign", "distance_topk", "distance_topk_gather",
+           "quant_coarse_topk", "launch_counts", "reset_launch_counts"]
 
 
 def assign(x: torch.Tensor, pivots: torch.Tensor
@@ -26,6 +26,19 @@ def assign(x: torch.Tensor, pivots: torch.Tensor
     if x.is_cuda:
         return _assign.assign_cuda(x, pivots)
     return _assign.assign_plain(x, pivots)
+
+
+def distance_topk(
+    r: torch.Tensor, s: torch.Tensor, k: int, *,
+    visit_mask: Optional[torch.Tensor] = None, bm: int = 128, bn: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """k nearest rows of ``s`` per row of ``r`` over every (R tile, S
+    tile) pair ``visit_mask`` (int8, (ceil(n_r/bm), ceil(n_s/bn))) does
+    not zero: ascending (√d² float32, int32 row ids), (+inf, -1) for
+    empty slots. The kNN-LM brute-force retrieval route."""
+    fn = (_gather.distance_topk_cuda if r.is_cuda
+          else _gather.distance_topk_plain)
+    return fn(r, s, k, visit_mask=visit_mask, bm=bm, bn=bn)
 
 
 def distance_topk_gather(
@@ -60,11 +73,13 @@ def quant_coarse_topk(
 def launch_counts() -> Dict[str, int]:
     """Kernel launches in this process since the last reset."""
     return {"assign": _assign.launches,
+            "distance_topk": _gather.dense_launches,
             "distance_topk_gather": _gather.launches,
             "quant_coarse_gather": _quant.launches}
 
 
 def reset_launch_counts() -> None:
     _assign.launches = 0
+    _gather.dense_launches = 0
     _gather.launches = 0
     _quant.launches = 0

@@ -22,8 +22,9 @@ Per batch:
 4. **certification** — with L = the shortlist's largest lb (+inf if it
    was not filled) and τ̂ = the k-th exact distance, every excluded row
    has lb ≥ L, so ``L ≥ τ̂`` proves the result. Queries that fail re-run
-   through the fp32 host-planned path (``JoinStats.n_quant_fallback``
-   counts them): exactness is unconditional.
+   through the fp32 host-planned path (``MutableIndex.join_batch`` over
+   segments; ``JoinStats.n_quant_fallback`` counts them): exactness is
+   unconditional.
 
 Construction resolves ``mode`` (``"int8"``, or ``"fp32"`` when a tuning
 table entry measured int8 as a loss; an explicit slack pins int8),
@@ -53,6 +54,7 @@ from ..core.metrics import canonical_gathered, canonical_topk
 from ..core.types import JoinConfig, JoinStats
 from ..kernels import ops
 from ..kernels.sorted_merge import next_pow2
+from ..serve import faultinject
 from . import autotune
 from .autotune import TunedConfig
 from .quantize import resident_extra_bytes
@@ -130,11 +132,12 @@ def _quant_megastep(q, n_valid, pl: _QuantPayload, *, mp, k, bm, bn):
 
 
 class QuantMegastepEngine(MegastepEngine):
-    """Memory-lean drop-in for ``MegastepEngine`` over a static
-    ``SIndex``: the same exact results from an int8-resident coarse
-    pass. Reached via ``knn_join(..., quantized=True)``,
-    ``knn_join_batched(..., quantized=True)`` and
-    ``StreamJoinEngine(..., quantized=True)``. L2 only.
+    """Memory-lean drop-in for ``MegastepEngine`` over an ``SIndex`` or
+    a ``MutableIndex`` (live tombstones included): the same exact
+    results from an int8-resident coarse pass. Reached via
+    ``knn_join(..., quantized=True)``, ``knn_join_batched(...,
+    quantized=True)`` and ``StreamJoinEngine(..., quantized=True)``.
+    L2 only.
 
     ``slack`` (default ``config.quant_slack``; ≥ 0 pins int8 with
     ``mp = pow2(k + slack)``), ``resident`` (None = auto-size),
@@ -192,28 +195,39 @@ class QuantMegastepEngine(MegastepEngine):
         else:
             self.resident = (resident_extra_bytes(index.n_s, index.dim)
                              <= _RESIDENT_MAX_BYTES)
+        self._rows_on_device = self.mode == "fp32" or self.resident
 
-    # ---- device payload: int8 codes + scales + ε (+ fp32 rows when the
-    # re-rank is resident)
+    # ---- device payload: int8 codes + scales + ε per segment,
+    # concatenated like the fp32 tiles (+ fp32 rows when the re-rank is
+    # resident)
 
-    def _build_payload(self, **kw) -> _Payload:
+    def _build_struct(self, segs) -> dict:
+        st = super()._build_struct(segs)
         if self.mode == "fp32":
-            return super()._build_payload()
-        base = super()._build_payload(rows_on_device=self.resident)
-        qr = self.index.ensure_quant(self._bn)
+            return st
         dev = self.device
-        rows_host = None
-        if not self.resident:
-            pad = qr.q.shape[0] - self.index.n_s
-            rows_host = torch.nn.functional.pad(
-                self.index.s_sorted, (0, 0, 0, pad)).cpu()
+        qrs = [si.ensure_quant(self._bn) for si, _ in segs]
+        st.update(
+            sq=torch.as_tensor(np.concatenate([qr.q for qr in qrs]),
+                               device=dev),
+            sscale=torch.as_tensor(np.concatenate([qr.scales for qr in qrs]),
+                                   device=dev),
+            seps=torch.as_tensor(np.concatenate([qr.eps for qr in qrs]),
+                                 device=dev),
+            rows_host=None if self.resident else st["rows"].cpu(),
+            gids_host=st["gids"].cpu())
+        return st
+
+    def _make_payload(self, st: dict, alive: torch.Tensor,
+                      dead_total: int) -> _Payload:
+        base = super()._make_payload(st, alive, dead_total)
+        if self.mode == "fp32":
+            return base
         return _QuantPayload(
             **{f.name: getattr(base, f.name)
                for f in dataclasses.fields(_Payload)},
-            sq=torch.as_tensor(qr.q, device=dev),
-            sscale=torch.as_tensor(qr.scales, device=dev),
-            seps=torch.as_tensor(qr.eps, device=dev),
-            rows_host=rows_host, gids_host=base.gids.cpu())
+            sq=st["sq"], sscale=st["sscale"], seps=st["seps"],
+            rows_host=st["rows_host"], gids_host=st["gids_host"])
 
     def _step_args(self, q_dev: torch.Tensor) -> dict:
         bucket = int(q_dev.shape[0])
@@ -236,8 +250,11 @@ class QuantMegastepEngine(MegastepEngine):
         pl = self.payload()
         with obs.span("quant.coarse", rows=n, mp=self.mp, mode=self.mode):
             lb, pos = _quant_coarse(qd, nv, pl, **self._step_args(qd))
+            faultinject.fire("megastep.fetch")     # a lost fetch
             lb = lb[:n].cpu().numpy()
             pos = pos[:n].cpu().numpy()
+        # deflating the certified bounds is what inflated ε would do
+        lb = faultinject.transform_value("quant.eps_inflation", lb)
         gids = pl.gids_host.numpy()
         ids = np.where(pos >= 0, gids[np.clip(pos, 0, gids.shape[0] - 1)],
                        -1)
@@ -283,11 +300,7 @@ class QuantMegastepEngine(MegastepEngine):
             return JoinHandle(kind="empty", n=0)
         pl = self.payload()
         if stats is not None:
-            stats.n_r += n
-            stats.n_s = max(stats.n_s, self.index.n_s)
-            stats.n_segments = 1
-            stats.n_tombstones = pl.dead_total
-            stats.pivot_pairs_computed += n * self.index.n_pivots
+            self._count(stats, n, pl)
         qd, nv = self.enqueue(q)
         if self.resident:
             return JoinHandle(kind="quant_resident", n=n,
@@ -303,7 +316,10 @@ class QuantMegastepEngine(MegastepEngine):
             return super().finalize(handle, stats=stats)
         k = self.config.k
         if handle.kind == "quant_resident":
+            faultinject.fire("megastep.fetch")     # a lost fetch
             d, ids, lm = (x[:handle.n].cpu().numpy() for x in handle.dev)
+            # deflated bounds force certification failures downstream
+            lm = faultinject.transform_value("quant.eps_inflation", lm)
             if stats is not None:
                 stats.n_resident_rerank += handle.n
         elif handle.kind == "quant_host":
@@ -332,7 +348,9 @@ class QuantMegastepEngine(MegastepEngine):
         numpy ``(d, ids, lm)``."""
         n, k = handle.n, self.config.k
         pl = self.payload()
-        lb = handle.dev[0][:n].cpu()
+        faultinject.fire("megastep.fetch")         # a lost fetch
+        lb = torch.from_numpy(faultinject.transform_value(
+            "quant.eps_inflation", handle.dev[0][:n].cpu().numpy()))
         pos = handle.dev[1][:n].cpu().to(torch.int64)
         pos_c = torch.clamp(pos, 0, pl.gids_host.shape[0] - 1)
         ids = torch.where(pos >= 0, pl.gids_host[pos_c], -1)
@@ -351,5 +369,8 @@ class QuantMegastepEngine(MegastepEngine):
         what a full oracle run would emit."""
         from ..core.api import execute_join
         from ..core.index import plan_queries
+        from ..core.segments import MutableIndex
+        if isinstance(self.index, MutableIndex):
+            return self.index.join_batch(q, config=self.config)
         return execute_join(q, self.index,
                             plan_queries(q, self.index, self.config))

@@ -1,0 +1,34 @@
+"""Serving, PyTorch port of the JAX package's ``serve``: the kNN-LM
+datastore (``retrieval``) and the fault-injection hooks
+(``faultinject``).
+
+Lazy (PEP 562) exports of only what the port has: ``core.megastep``
+fires ``faultinject`` sites, so importing this package must stay light.
+"""
+import importlib
+
+_EXPORTS = {
+    "Datastore": "retrieval",
+    "KnnLMConfig": "retrieval",
+    "interpolate": "retrieval",
+    "knn_logits": "retrieval",
+    "FaultPlan": "faultinject",
+    "InjectedFault": "faultinject",
+    "ShardFault": "faultinject",
+    "ShardFailedError": "faultinject",
+}
+
+__all__ = sorted(_EXPORTS) + ["faultinject", "retrieval"]
+
+
+def __getattr__(name):
+    if name in ("faultinject", "retrieval"):
+        return importlib.import_module(f".{name}", __name__)
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{mod}", __name__), name)
+
+
+def __dir__():
+    return __all__

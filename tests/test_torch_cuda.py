@@ -174,3 +174,118 @@ def test_host_path_on_the_card_is_exact(cuda):
     assert counts["assign"] == 2 and 1 <= counts["distance_topk_gather"] <= 4
     bd, _ = rt.brute_force_knn(r, s, 10, device=cuda)
     np.testing.assert_array_equal(res.distances, bd)
+
+
+@pytest.mark.parametrize("d,k,masked", [(10, 10, False), (10, 10, True),
+                                        (1024, 8, True), (1024, 64, False)])
+def test_dense_kernel_matches_plain(cuda, d, k, masked):
+    """K-D against its plain version: empty slots equal, d² within each
+    pair's fp32 limit (both sum the expanded form in their own order:
+    (2d+4)·2⁻²⁴·(‖r‖²+‖s‖²) each, plus the √ rounding), ids equal
+    except where the two d² tie within it."""
+    from repro_torch.kernels import distance_topk as kd
+    rng = np.random.default_rng(d + k)
+    nr, ns, bm, bn = 300, 5000, 128, 512
+    r = torch.as_tensor(rng.normal(size=(nr, d)).astype(np.float32),
+                        device=cuda)
+    s = torch.as_tensor(rng.normal(size=(ns, d)).astype(np.float32),
+                        device=cuda)
+    mask = None
+    if masked:
+        mask = torch.as_tensor((rng.random((-(-nr // bm), -(-ns // bn)))
+                                < 0.5).astype(np.int8), device=cuda)
+    ops.reset_launch_counts()
+    dk, ik = kd.distance_topk_cuda(r, s, k, visit_mask=mask, bm=bm, bn=bn)
+    dp, ip = kd.distance_topk_plain(r, s, k, visit_mask=mask, bm=bm, bn=bn)
+    assert ops.launch_counts()["distance_topk"] == 1
+    full = ip >= 0
+    assert torch.equal(ik >= 0, full)
+    r64, s64 = r.double(), s.double()
+    s2 = (s64 * s64).sum(1)
+    ikc, ipc = ik.long().clamp(min=0), ip.long().clamp(min=0)
+    tol = ((r64 * r64).sum(1)[:, None] + torch.maximum(s2[ikc], s2[ipc])) \
+        * 2 * (2 * d + 8) * 2.0 ** -24
+    d2k, d2p = dk.double() ** 2, dp.double() ** 2
+    assert bool(((d2k - d2p).abs() <= tol)[full].all())
+    ex_k = ((r64[:, None, :] - s64[ikc]) ** 2).sum(-1)
+    assert bool((((ex_k - d2p).abs() <= 1.5 * tol) | (ik == ip))[full].all())
+
+
+def test_multi_segment_megastep_cpu_equals_card(cuda):
+    """A mutable index with sealed deltas, a write buffer and tombstones:
+    the megastep over its 4 segments gives the same distances on the CPU
+    (plain versions) and on the card (K-A, K-G), both exact, and the
+    card's step makes no host sync."""
+    s = rt.forest_like(20000, 10, seed=0)
+    r = rt.forest_like(3000, 10, seed=1)
+    cfg = rt.JoinConfig(k=10, n_pivots=64, tile_r=128, tile_s=512)
+    out = {}
+    for dev in ("cpu", cuda):
+        mi = rt.MutableIndex.build(s[:16000], cfg, seal_threshold=1500,
+                                   device=dev)
+        for lo, hi in ((16000, 17500), (17500, 19000), (19000, 20000)):
+            mi.insert(s[lo:hi])
+        mi.delete(np.arange(0, 20000, 97))
+        assert (len(mi.segments), mi.n_buffered) == (3, 1000)
+        ops.reset_launch_counts()
+        res = rt.knn_join_batched(r, index=mi, batch_size=1024,
+                                  megastep=True, device=dev)
+        out[str(dev)] = (res, ops.launch_counts(), mi)
+    (rc, nc, _), (rg, ng, mi) = out["cpu"], out[str(cuda)]
+    np.testing.assert_array_equal(rc.distances, rg.distances)
+    assert set(nc.values()) == {0} and ng["distance_topk_gather"] == 3
+    assert rg.stats.n_segments == 4 and rg.stats.n_tombstones == 207
+    rows, gids = mi.live_rows()
+    bd, _ = rt.brute_force_knn(r, rows, 10, device=cuda)
+    np.testing.assert_array_equal(rg.distances, bd)
+    eng = rt.MegastepEngine(mi, cfg, device=cuda)
+    qd, nv = eng.enqueue(r[:1024])
+    eng.join_batch_device(qd, nv)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.join_batch_device(qd, nv)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_retrieval_routes_on_the_card(cuda):
+    """Both ``knn_logits`` routes on the card (K-G through the megastep,
+    K-D over the centered live rows) across a mutation: the join route
+    exact; K-D's d² within the fp32 limit of the expanded form on the
+    centered rows (δ = 2(2d+8)·2⁻²⁴·(‖q_c‖² + max‖s_c‖²)); the
+    log-probabilities within 4δ/τ + 2⁻¹⁵ where the id sets agree."""
+    from repro_torch.serve import Datastore, KnnLMConfig, knn_logits
+    rng = np.random.default_rng(5)
+    keys = rt.forest_like(30000, 10, seed=2)
+    vals = rng.integers(0, 7, 31000).astype(np.int32)
+    store = Datastore.build(keys, vals[:30000], k=10, n_pivots=64,
+                            device=cuda)
+    q = rt.forest_like(500, 10, seed=3)
+    d0, _, _ = store.retrieve(q, 10)
+    kcfg = KnnLMConfig(k=10, tau=float(np.median(d0[:, -1] ** 2)))
+    for step in range(2):
+        ops.reset_launch_counts()
+        lj, (dj, ij) = knn_logits(q, store, kcfg, 7, return_neighbors=True)
+        lk, (dk, ik) = knn_logits(q, store, kcfg, 7, use_kernel=True,
+                                  return_neighbors=True)
+        counts = ops.launch_counts()
+        assert counts["distance_topk"] == 1 and \
+            counts["distance_topk_gather"] >= 1
+        rows, gids = store.index.live_rows()
+        bd, bi = rt.brute_force_knn(q, rows, 10, device=cuda)
+        np.testing.assert_array_equal(dj, bd)
+        rows_c, center, _ = store.index.live_device_centered()
+        qc = (torch.as_tensor(q, device=cuda) - center).double()
+        delta = (2 * (2 * 10 + 8) * 2.0 ** -24
+                 * ((qc * qc).sum(1) + float((rows_c.double() ** 2)
+                                             .sum(1).max()))).cpu().numpy()
+        err = np.abs(dk.astype(np.float64) ** 2 - dj.astype(np.float64) ** 2)
+        assert (err <= delta[:, None]).all()
+        same = (np.sort(ij, 1) == np.sort(ik, 1)).all(1)
+        assert same.mean() > 0.9
+        lp_tol = 4 * float(delta.max()) / kcfg.tau + 2.0 ** -15
+        assert np.abs(lk[same] - lj[same]).max() <= lp_tol
+        store.add_entries(rt.forest_like(1000, 10, seed=4 + step),
+                          vals[30000:])
+        store.remove_entries(np.arange(step, 30000, 101))

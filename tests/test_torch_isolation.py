@@ -25,6 +25,7 @@ PKG = ROOT / "src" / "repro_torch"
 def test_import_loads_neither_jax_nor_repro():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels\n"
+        "import repro_torch.serve.retrieval, repro_torch.core.segments\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n")
@@ -53,7 +54,7 @@ def _small():
 @pytest.mark.parametrize("entry", [
     "build_index", "knn_join_batched", "MegastepEngine", "StreamJoinEngine",
     "sindex_from_arrays", "brute_force_knn", "knn_join",
-    "QuantMegastepEngine"])
+    "QuantMegastepEngine", "MutableIndex", "Datastore"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises;
     it never carries on silently on the CPU."""
@@ -71,6 +72,9 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         "brute_force_knn": lambda: rt.brute_force_knn(r, s, 3),
         "knn_join": lambda: rt.knn_join(r, s, config=cfg),
         "QuantMegastepEngine": lambda: rt.QuantMegastepEngine(idx, cfg),
+        "MutableIndex": lambda: rt.MutableIndex.build(s, cfg),
+        "Datastore": lambda: rt.serve.Datastore.build(s, np.zeros(300),
+                                                      k=3, n_pivots=8),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -78,28 +82,27 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
 
 @pytest.mark.parametrize("route,item", [
     ("sharded stream", "A5"), ("sharded batched", "A5"),
-    ("mutable knn_join", "A2"), ("mutable stream", "A2"),
-    ("mutable megastep", "A2"), ("join_batch_approx", "A3"),
+    ("knn_logits scheduler", "A3"), ("sharded datastore", "A5"),
+    ("datastore recover_shards", "A5"), ("join_batch_approx", "A3"),
     ("nbytes per shard", "A5"), ("hbrj_join", "A1"), ("pbj_join", "A1"),
     ("l1 oracle", "A1")])
 def test_unported_routes_raise(route, item):
+    from repro_torch.serve import Datastore, KnnLMConfig, knn_logits
     s, r = _small()
     cfg = rt.JoinConfig(k=3, n_pivots=8, tile_r=16, tile_s=32)
     idx = rt.build_index(s, cfg, device="cpu")
-
-    class MutableIndex:     # stands in for the JAX package's segmented index
-        config = cfg
+    values = np.arange(s.shape[0]) % 5
+    store = Datastore.build(s, values, k=3, n_pivots=8, device="cpu")
     calls = {
         "sharded stream": lambda: StreamJoinEngine(idx, cfg, n_shards=2,
                                                    device="cpu"),
         "sharded batched": lambda: rt.knn_join_batched(
             r, index=idx, n_shards=2, megastep=True, device="cpu"),
-        "mutable knn_join": lambda: rt.knn_join(r, index=MutableIndex(),
-                                                device="cpu"),
-        "mutable stream": lambda: StreamJoinEngine(MutableIndex(), cfg,
-                                                   device="cpu"),
-        "mutable megastep": lambda: MegastepEngine(MutableIndex(), cfg,
-                                                   device="cpu"),
+        "knn_logits scheduler": lambda: knn_logits(
+            r, store, KnnLMConfig(k=3), 5, scheduler=object()),
+        "sharded datastore": lambda: Datastore.build(
+            s, values, k=3, n_pivots=8, n_shards=2, device="cpu"),
+        "datastore recover_shards": lambda: store.recover_shards(),
         "join_batch_approx": lambda: rt.QuantMegastepEngine(
             idx, cfg, device="cpu").join_batch_approx(r),
         "nbytes per shard": lambda: idx.nbytes_resident(n_shards=2),
@@ -146,6 +149,8 @@ def test_kernel_wrappers_take_no_cpu_tensor():
     qi = torch.zeros((40, 4), dtype=torch.int8)
     v = torch.ones((40,))
     si = torch.zeros((64, 4), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kg.distance_topk_cuda(torch.from_numpy(r), torch.from_numpy(s), 4)
     with pytest.raises(ValueError, match="CUDA"):
         kq.quant_coarse_gather_cuda(
             qi, v, v, v, si, torch.ones((2,)),
