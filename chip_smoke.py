@@ -12,8 +12,9 @@ quantized tier (``build_index(quantize="int8")`` →
 ``knn_join_batched(quantized=True)``), both over all of R in 4096-query
 batches, the paper's host-planned one-shot ``knn_join`` on a sample
 of R, the mutable segmented index, and kNN-LM retrieval over a mutable
-``Datastore`` — and checks each against a float64 brute force and
-against each other. Phases:
+``Datastore`` — and the LM serving path at full width (llama3.2-3b in
+bf16 through ``BatchedServer`` with the kNN-LM hook), and checks each
+against a float64 brute force and against each other. Phases:
 
 1. card, versions, kernel build;
 2. K-A (nearest pivot) vs its plain version, n = 581,012, M = 256, d = 10;
@@ -50,12 +51,28 @@ against each other. Phases:
    exact against the float64 brute force over the live rows and bitwise
    equal to a megastep over a fresh index of the survivors; in the
    first stage also the host route and the quantized route, bitwise
-   equal to it, and a 16-segment step under the sync debug mode;
+   equal to it, and a 16-segment step under the sync debug mode; in
+   the second (whose deletes take the 80 nearest rows of 4 probe
+   queries) the host route again, its over-fetch asking K-G for
+   thousands of rows;
 12. kNN-LM retrieval: a ``Datastore`` over the base rows, 16 decode
    steps of 4,096 queries through both ``knn_logits`` routes (K-D
    launched once a step), with 1,024 entries added and 16 removed
    between steps and a ``compact`` after step 8; each step's join route
-   exact, the routes' distances and log-probabilities in agreement.
+   exact, the routes' distances and log-probabilities in agreement;
+13. the shapes the kernels refused before: K-A at d = 3,072, K-G at d =
+   256 / 1,024 (65,536 Gaussian rows) and at k = 100 / 1,024 (phase 3's
+   bucket), K-D at k = 128 (phase 10 (a)), K-Q at d = 256 and mp =
+   1,024 — each against its plain version;
+14. the LM serving path: K-F (flash attention) vs its plain version at
+   the prefill, windowed and decode shapes with SDPA timed beside it;
+   ``BatchedServer`` + ``make_knn_hook`` over a 1,048,576-key
+   ``Datastore``, 16 requests of 512-2,048 tokens, batch 8, 32 greedy
+   tokens, counted (K-F once per layer per forward, K-G every decode
+   step, K-A in the build), every retrieval exact against float64,
+   every layer's K-F output of one prefill and one decode step against
+   the plain version; the reduced model on the card and the CPU with
+   the same weights (logits within tolerance, tokens equal).
 
 Every time printed stands beside the card's name and power limit. The
 line before the last two is one JSON object with each kernel's launches,
@@ -83,6 +100,12 @@ DIM = 10
 DEAD_A, DEAD_TOTAL = 48, N_ROWS // 100    # phase 11's stages A and B
 LM_QUERIES, LM_KEYS, LM_DIM = 256, 262_144, 1024   # phase 10 (c)
 DECODE_STEPS, ADD_ROWS, REMOVE_IDS = 16, 1024, 16  # phase 12
+PROBES, PROBE_DEAD = 4, 80  # phase 11 stage B: the over-fetch probes
+CAP_ROWS = 65_536           # phase 13: Gaussian rows of the wide shapes
+LM_ARCH = "llama3.2-3b"     # phase 14: the LM serving path at full width
+LM_REQUESTS, LM_BATCH, LM_NEW = 16, 8, 32
+LM_PROMPT = (512, 2048)     # prompt lengths, seeded
+LM_STORE_KEYS, LM_STORE_DIM = 1_048_576, 32   # the kNN-LM datastore
 BUCKET = 4096
 HOST_ROWS = 65_536        # R sample of the host-planned gather path
 PRUNED_ROWS = 512         # R samples of the pruned and dense reducers
@@ -91,6 +114,7 @@ DEV = "cuda"
 H100_HBM_BYTES_S = 3.35e12    # H100 SXM data sheet
 H100_FP32_FLOPS_S = 67e12     # fp32 on CUDA cores, no tensor cores
 H100_INT8_OPS_S = 1979e12     # int8 tensor-core peak (dense)
+H100_BF16_FLOPS_S = 989e12    # bf16 tensor-core peak (dense)
 
 
 class SmokeFailure(RuntimeError):
@@ -229,40 +253,51 @@ def phase_assign(card, torch, rt, s_dev, pivots):
                 bound_by=b_by, library_ms=None)
 
 
-def phase_gather(card, torch, rt, s_np, r_np, cfg):
-    """K-G vs its plain version on one bucket at the megastep's shapes."""
+def gather_inputs(torch, rt, s_np, r_np, cfg):
+    """K-G's inputs on one bucket at the megastep's shapes: the centered
+    queries and rows, the schedule and counts stage 3 made for them, and
+    an alive mask with ~1 % of the rows dead."""
     import numpy as np
     from repro_torch.core.megastep import assign_bounds_schedule
-    from repro_torch.kernels import distance_topk as kg
-    from repro_torch.kernels.sorted_merge import next_pow2
-
     idx = rt.build_index(s_np, cfg, device=DEV)
     eng = rt.MegastepEngine(idx, cfg, device=DEV)
     pl = eng.payload()
     q, n_valid = eng.enqueue(r_np[:BUCKET])
-    bm, bn, kp = cfg.tile_r, cfg.tile_s, next_pow2(cfg.k)
     _, qcs, _, _, sched, cnt = assign_bounds_schedule(q, n_valid, pl,
-                                                      k=cfg.k, bm=bm)
+                                                      k=cfg.k, bm=cfg.tile_r)
     rng = np.random.default_rng(7)
     alive = pl.alive.clone()
     dead = torch.as_tensor(rng.choice(idx.n_s, idx.n_s // 100,
                                       replace=False), device=DEV)
     alive[dead] = 0.0
-    s_c = pl.s_c
-    args = (qcs, s_c, kp, sched, cnt)
+    return dict(qcs=qcs, s_c=pl.s_c, sched=sched, cnt=cnt, alive=alive,
+                bm=cfg.tile_r, bn=cfg.tile_s)
+
+
+def gather_case(card, torch, what: str, g: dict, k: int, *,
+                plain_iters: int = 3) -> dict:
+    """K-G vs its plain version on ``gather_inputs`` asking for ``k``:
+    the run checks of :func:`check_runs`, no dead row in a run, times
+    and the bound of these inputs' work."""
+    from repro_torch.kernels import distance_topk as kg
+    qcs, s_c, sched, cnt, alive = (g["qcs"], g["s_c"], g["sched"], g["cnt"],
+                                   g["alive"])
+    bm, bn = g["bm"], g["bn"]
+    args = (qcs, s_c, k, sched, cnt)
     kw = dict(alive=alive, bm=bm, bn=bn)
     d_k, p_k = kg.distance_topk_gather_cuda(*args, **kw)
     d_p, p_p = kg.distance_topk_gather_plain(*args, **kw)
     torch.cuda.synchronize()
     full = p_p >= 0
     check(not bool(((alive[p_k.long().clamp(min=0)] <= 0) & full).any()),
-          "K-G: a dead row entered the kernel's runs")
-    used, same, err, tol = check_runs(torch, "K-G", qcs, s_c, d_k, p_k,
-                                      d_p, p_p)
+          f"K-G ({what}): a dead row entered the kernel's runs")
+    used, same, err, tol = check_runs(torch, f"K-G ({what})", qcs, s_c, d_k,
+                                      p_k, d_p, p_p)
+    del d_k, p_k, d_p, p_p
     ms = time_ms(lambda: kg.distance_topk_gather_cuda(*args, **kw), iters=20)
     plain_ms = time_ms(lambda: kg.distance_topk_gather_plain(*args, **kw),
-                       warmup=1, iters=3)
-    nr_tiles, ns_tiles = sched.shape[0], pl.s.shape[0] // bn
+                       warmup=1, iters=plain_iters)
+    nr_tiles, ns_tiles = sched.shape[0], s_c.shape[0] // bn
     counts = cnt.long()
     slot = torch.arange(sched.shape[1], device=DEV)[None, :]
     visited = sched.long()[slot < counts[:, None]]       # (Σ cnt,) tiles
@@ -271,24 +306,34 @@ def phase_gather(card, torch, rt, s_np, r_np, cfg):
     tiles = torch.unique(visited)
     d = qcs.shape[1]
     n_bytes = (4.0 * qcs.numel() + tiles.numel() * bn * (4.0 * d + 4.0)
-               + 4.0 * (int(counts.sum()) + nr_tiles) + 8.0 * q.shape[0] * kp)
+               + 4.0 * (int(counts.sum()) + nr_tiles) + 8.0 * qcs.shape[0] * k)
     b_ms, b_by = bound(n_bytes, pairs * (2 * d + 3))
     frac = float(counts.sum()) / (nr_tiles * ns_tiles)
-    print(f"[{card}] K-G gather top-k bucket={q.shape[0]} kp={kp} bm={bm} "
-          f"bn={bn}: visited-tile fraction {frac:.4f}, positions equal "
-          f"{same:.6f} (rest near-ties), max |dist err| {err:.3e}, max "
-          f"|d² err| {used:.3e} of its pair's tolerance "
-          f"({tol_text(tol)}); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})", flush=True)
-    return dict(name="distance_topk_gather", route="cuda",
-                source="src/repro_torch/csrc/gather_topk.cu",
-                replaces="src/repro/kernels/distance_topk.py:189",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    print(f"[{card}] K-G gather top-k ({what}) bucket={qcs.shape[0]} d={d} "
+          f"k={k} bm={bm} bn={bn}: visited-tile fraction {frac:.4f}, "
+          f"positions equal {same:.6f} (rest near-ties), max |dist err| "
+          f"{err:.3e}, max |d² err| {used:.3e} of its pair's tolerance "
+          f"({tol_text(tol)}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return dict(shape=what, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def phase_quant(card, torch, rt, idx, r_np, cfg):
+def phase_gather(card, torch, rt, s_np, r_np, cfg):
+    """K-G vs its plain version on one bucket at the megastep's shapes."""
+    from repro_torch.kernels.sorted_merge import next_pow2
+    g = gather_inputs(torch, rt, s_np, r_np, cfg)
+    row = dict(name="distance_topk_gather", route="cuda",
+               source="src/repro_torch/csrc/gather_topk.cu",
+               replaces="src/repro/kernels/distance_topk.py:189")
+    case = gather_case(card, torch, "Forest bucket", g, next_pow2(cfg.k))
+    row.update({key: case[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")})
+    return row, g
+
+
+def phase_quant(card, torch, rt, idx, r_np, cfg, *, plain_iters: int = 3):
     """K-Q vs its plain version on one bucket at the quant path's shapes:
     the schedule and θ its stages 1–3 made, ~1 % of the rows dead."""
     import numpy as np
@@ -331,7 +376,7 @@ def phase_quant(card, torch, rt, idx, r_np, cfg):
                  iters=20)
     plain_ms = time_ms(lambda: kq.quant_coarse_sched_plain(*args, bm=bm,
                                                            bn=bn),
-                       warmup=1, iters=3)
+                       warmup=1, iters=plain_iters)
     # work of these inputs: each live row of each visited tile against
     # the R tile's bm queries; each visited tile read once
     nr_tiles, ns_tiles = sched.shape[0], pl.sq.shape[0] // bn
@@ -349,7 +394,7 @@ def phase_quant(card, torch, rt, idx, r_np, cfg):
     int8_ops, f32_ops = pairs * 2 * d, pairs * 16
     b_ms, b_by = bound(n_bytes, f32_ops, int8_ops)
     frac = float(counts.sum()) / (nr_tiles * ns_tiles)
-    print(f"[{card}] K-Q int8 coarse scan bucket={qi.shape[0]} mp={mp} "
+    print(f"[{card}] K-Q int8 coarse scan bucket={qi.shape[0]} d={d} mp={mp} "
           f"bm={bm} bn={bn}: visited-tile fraction {frac:.4f}, lb "
           f"bit-equal to the plain version, positions equal "
           f"{float((~diff).double().mean()):.6f} (rest ties at the run's "
@@ -564,8 +609,14 @@ def phase_mutable(card, torch, rt, s_np, r_np, cfg, launches,
 
     rng = np.random.default_rng(11)
     dead_a = rng.choice(N_ROWS, DEAD_A, replace=False)
-    dead_b = rng.choice(np.setdiff1d(np.arange(N_ROWS), dead_a),
-                        DEAD_TOTAL - DEAD_A, replace=False)
+    # stage B takes the PROBE_DEAD nearest rows of the first PROBES
+    # queries with it, so the host route must re-fetch their segment at
+    # k + (its tombstones) rows: over-fetch far past 64 in K-G
+    _, near = rt.brute_force_knn(r_np[:PROBES], s_np, PROBE_DEAD, device=DEV)
+    probe_ids = np.setdiff1d(np.unique(near), dead_a)
+    dead_b = np.concatenate([probe_ids, rng.choice(
+        np.setdiff1d(np.arange(N_ROWS), np.union1d(dead_a, probe_ids)),
+        DEAD_TOTAL - DEAD_A - probe_ids.size, replace=False)])
     stages = (("A", lambda: mi.delete(dead_a), n_segs, DEAD_A),
               ("B", lambda: mi.delete(dead_b), n_segs, DEAD_TOTAL),
               ("C", mi.compact, 1, 0))
@@ -592,6 +643,8 @@ def phase_mutable(card, torch, rt, s_np, r_np, cfg, launches,
         rows, gids = check_exact_live(card, rt, f"mutable megastep stage "
                                       f"{name}", r_np, mi, res.distances,
                                       res.indices, cfg.k)
+        if name == "B":
+            host_route_overfetch(card, rt, mi, cfg, r_np, res)
         fresh = rt.build_index(rows, cfg, device=DEV)
         ref = rt.knn_join_batched(r_np, index=fresh, batch_size=BUCKET,
                                   megastep=True, device=DEV)
@@ -645,6 +698,40 @@ def phase_mutable(card, torch, rt, s_np, r_np, cfg, launches,
               f"megastep", flush=True)
     print(f"[{card}] mutable megastep step ms ({BUCKET}-query bucket): "
           + ", ".join(f"{k} {v:.4f}" for k, v in steps.items()), flush=True)
+
+
+def host_route_overfetch(card, rt, mi, cfg, r_np, res) -> None:
+    """Stage B's host route (gather reducer) over ``HOST_ROWS`` queries:
+    the probe queries' segment is re-fetched at k + its tombstones, so K-G
+    runs with k far past 64 (its general kernel); bitwise equal to the
+    megastep."""
+    from repro_torch.kernels import distance_topk as kg
+    ks = []
+    kernel = kg.distance_topk_gather_cuda
+
+    def spy(r, s, k, *args, **kw):
+        ks.append(k)
+        return kernel(r, s, k, *args, **kw)
+
+    cfg_h = dataclasses.replace(cfg, n_groups=8, reducer="gather")
+    kg.distance_topk_gather_cuda = spy
+    try:
+        t0 = time.perf_counter()
+        host = rt.knn_join(r_np[:HOST_ROWS], index=mi, config=cfg_h,
+                           device=DEV)
+        t_host = time.perf_counter() - t0
+    finally:
+        kg.distance_topk_gather_cuda = kernel
+    check(bool(ks) and max(ks) > 64,
+          f"stage B: the host route never asked K-G for more than 64 rows "
+          f"(k = {sorted(set(ks))})")
+    check_same_distances("stage B: host route vs megastep", host.distances,
+                         res.distances[:HOST_ROWS], host.indices,
+                         res.indices[:HOST_ROWS])
+    print(f"[{card}] stage B: host route (gather reducer) over {HOST_ROWS} "
+          f"queries {t_host:.3f} s, K-G asked for k in {sorted(set(ks))} "
+          f"(the over-fetch of the {PROBES} probe queries' segment), "
+          f"bitwise equal to the megastep", flush=True)
 
 
 def phase_retrieval(card, torch, rt, s_np, r_np, launches) -> None:
@@ -747,6 +834,474 @@ def phase_retrieval(card, torch, rt, s_np, r_np, launches) -> None:
               flush=True)
 
 
+_ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
+
+
+def attention_err(torch, out, ref) -> tuple[float, float]:
+    """K-F's output against its plain version's: (max |err|, the share
+    of the limit used). Both compute in float32 and round once to the
+    output type, in another order of sums: float32 outputs agree within
+    2e-5 abs, bfloat16 ones within one bf16 rounding (2⁻⁷ of the larger
+    magnitude) plus 1e-6."""
+    a, b = out.float(), ref.float()
+    diff = (a - b).abs()
+    if out.dtype == torch.bfloat16:
+        lim = 2.0 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-6
+    else:
+        lim = torch.full_like(a, 2e-5)
+    return float(diff.max()), float((diff / lim).max())
+
+
+def attention_case(card, torch, what: str, q, k, v, *, window=None,
+                   library=None) -> dict:
+    """K-F vs its plain version on one shape (causal, queries
+    right-aligned), both timed, with ``library`` (one PyTorch call of the
+    same function) timed beside them; the bound is the larger of the
+    bytes of q, k, v and o at the HBM rate and the visible pairs'
+    4·d operations at the bf16 tensor-core peak."""
+    from repro_torch.kernels import flash_attention as kf
+    out = kf.flash_attention_cuda(q, k, v, window=window)
+    ref = kf.flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out.float()).all()),
+          f"K-F ({what}): non-finite output")
+    err, used = attention_err(torch, out, ref)
+    check(used <= 1.0, f"K-F ({what}): {used:.3f} of the limit against the "
+          f"plain version")
+    del ref
+    ms = time_ms(lambda: kf.flash_attention_cuda(q, k, v, window=window),
+                 iters=10)
+    plain_ms = time_ms(lambda: kf.flash_attention_plain(q, k, v,
+                                                        window=window),
+                       warmup=1, iters=2)
+    lib_ms = None if library is None else time_ms(library, iters=10)
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    pos = torch.arange(nq, device=DEV, dtype=torch.float64) + (nk - nq)
+    lo = torch.zeros_like(pos) if window is None else \
+        torch.clamp(pos - window + 1, min=0)
+    pairs = float(b * h * torch.clamp(torch.minimum(pos, torch.full_like(
+        pos, nk - 1)) - lo + 1, min=0).sum())
+    n_bytes = float(q.element_size()) * (2 * q.numel() + k.numel()
+                                         + v.numel())
+    t_b = n_bytes / H100_HBM_BYTES_S * 1e3
+    t_f = 4.0 * d * pairs / H100_BF16_FLOPS_S * 1e3
+    b_ms, b_by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+    print(f"[{card}] K-F flash attention ({what}) q {tuple(q.shape)} kv "
+          f"{tuple(k.shape)} {str(q.dtype).removeprefix('torch.')}"
+          + ("" if window is None else f" window {window}")
+          + f": max |err| {err:.3e} ({used:.3f} of the limit) vs the plain "
+          f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          + ("" if lib_ms is None else f"SDPA {lib_ms:.4f} ms, ")
+          + f"bound {b_ms:.4f} ms ({b_by}: {pairs:.4e} visible pairs x 4d "
+          f"bf16 operations, {n_bytes:.4e} bytes)", flush=True)
+    return dict(shape=what, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def check_retrieval(card, torch, what: str, queries, keys64, kn64, d, ids,
+                    k: int) -> None:
+    """One retrieval against the float64 brute force over the live keys
+    (on the card): distances within 4 ulp, every reported id's true
+    distance within the true k-th, no duplicate ids."""
+    import numpy as np
+    q = torch.as_tensor(queries, device=DEV).double()
+    d2 = torch.clamp((q * q).sum(1)[:, None] + kn64[None, :]
+                     - 2.0 * (q @ keys64.T), min=0.0)
+    bd2, _ = torch.topk(d2, k, dim=1, largest=False)
+    bd = torch.sqrt(bd2).cpu().numpy()
+    check(d.shape == (q.shape[0], k) and bool((ids >= 0).all()),
+          f"{what}: malformed result")
+    ulp = np.spacing(np.maximum(bd, 1.0).astype(np.float32))
+    check(bool((np.abs(d - bd) <= 4 * ulp).all()),
+          f"{what}: distances off the float64 brute force beyond 4 ulp")
+    got = torch.gather(d2, 1, torch.as_tensor(ids, device=DEV).long())
+    check(bool((got <= bd2[:, -1:] * (1 + 1e-6) + 1e-6).all()),
+          f"{what}: a reported id lies beyond the true k-th distance")
+    check(all(len(set(row)) == k for row in ids.tolist()),
+          f"{what}: duplicate ids")
+
+
+def phase_lm(card, torch, rt, launches, out_dir: Path) -> dict:
+    """14. The LM serving path at full width: llama3.2-3b in bf16 with
+    seeded random weights, ``BatchedServer`` + ``make_knn_hook`` over a
+    ``Datastore`` of 1,048,576 Gaussian keys. (a) K-F vs its plain version
+    at the path's prefill and decode shapes and with a window, SDPA timed
+    beside it; (b) 16 requests of 512-2,048 tokens, batch 8, 32 greedy
+    tokens, counted (K-F once per layer per forward), every retrieval
+    exact, every layer's K-F output of one prefill and one decode step
+    held against the plain version, decode timed with and without the
+    hook, and the device's busy share over decode steps with the hook
+    profiled; (c) the reduced model on the card and on the CPU with the
+    same weights: logits within tolerance, tokens equal."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels import distance_topk as kg
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops
+    from repro_torch.models import (ModelOptions, count_params, forward,
+                                    init_cache, init_params)
+    from repro_torch.serve import (BatchedServer, Datastore, KnnLMConfig,
+                                   ServeConfig, make_knn_hook,
+                                   make_serve_step)
+    cfg = configs.get_arch(LM_ARCH)
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+
+    # ---- (a) K-F at the path's shapes
+    gen = torch.Generator(device=DEV).manual_seed(14)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
+
+    n = LM_PROMPT[1]
+    q, k, v = rand(LM_BATCH, n, h, dh), rand(LM_BATCH, n, kvh, dh), \
+        rand(LM_BATCH, n, kvh, dh)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    prefill = attention_case(
+        card, torch, f"prefill b={LM_BATCH} nq=nk={n}", q, k, v,
+        library=lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    pos = torch.arange(n, device=DEV)
+    wmask = ((pos[None, :] <= pos[:, None])
+             & (pos[None, :] > pos[:, None] - 256))
+    windowed = attention_case(
+        card, torch, f"prefill b={LM_BATCH} nq=nk={n}, window 256", q, k, v,
+        window=256, library=lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=wmask, enable_gqa=True))
+    nk = n + LM_NEW
+    kc, vc = rand(LM_BATCH, nk + 64, kvh, dh), rand(LM_BATCH, nk + 64, kvh, dh)
+    q1 = rand(LM_BATCH, 1, h, dh)
+    k1, v1 = kc[:, :nk], vc[:, :nk]          # a live slice of a cache
+    q1t, k1t, v1t = (x.transpose(1, 2) for x in (q1, k1, v1))
+    decode = attention_case(
+        card, torch, f"decode b={LM_BATCH} nq=1 nk={nk}", q1, k1, v1,
+        library=lambda: F.scaled_dot_product_attention(
+            q1t, k1t, v1t, enable_gqa=True))
+    del q, k, v, qt, kt, vt, kc, vc, q1, k1, v1, q1t, k1t, v1t, wmask
+    torch.cuda.empty_cache()
+
+    # ---- (b) BatchedServer + the kNN-LM hook, counted
+    opts = ModelOptions(dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         opts, device=DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = count_params(params)
+    rng = np.random.default_rng(14)
+    keys = rng.standard_normal((LM_STORE_KEYS, LM_STORE_DIM),
+                               dtype=np.float32)
+    vals = rng.integers(0, cfg.vocab, LM_STORE_KEYS).astype(np.int32)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(
+        LM_PROMPT[0], LM_PROMPT[1] + 1))).astype(np.int32)
+        for _ in range(LM_REQUESTS)]
+    kcfg = KnnLMConfig(lam=0.2, tau=50.0, k=8)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = Datastore.build(keys, vals, k=8, n_pivots=128, n_groups=8,
+                            device=DEV)
+    torch.cuda.synchronize()
+    t_store = time.perf_counter() - t0
+    retrieved = []
+    retrieve = store.retrieve
+
+    def recording_retrieve(queries, k=None, **kw):
+        d, ids, values = retrieve(queries, k, **kw)
+        retrieved.append((np.array(queries), d, ids))
+        return d, ids, values
+
+    store.retrieve = recording_retrieve
+    hook = make_knn_hook(store, kcfg, cfg.vocab)
+
+    def timed(fn, into):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    prefill_ms, decode_ms, hook_ms = [], [], []
+    srv = BatchedServer(cfg, ServeConfig(batch=LM_BATCH), params, opts,
+                        logits_hook=timed(hook, hook_ms))
+    srv.prefill_step = timed(srv.prefill_step, prefill_ms)
+    srv.decode_step = timed(srv.decode_step, decode_ms)
+    t0 = time.perf_counter()
+    outs = srv.generate(prompts, max_new_tokens=LM_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    counts = launches["lm_serve"] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    waves = -(-LM_REQUESTS // LM_BATCH)
+    want_fa = cfg.n_layers * waves * (LM_NEW + 1)
+    check(counts["flash_attention"] == want_fa,
+          f"LM serving: K-F launched {counts['flash_attention']} times, "
+          f"expected {cfg.n_layers} layers x {waves} waves x {LM_NEW + 1} "
+          f"forwards = {want_fa}")
+    check(counts["distance_topk_gather"] >= waves * LM_NEW
+          and counts["assign"] > 0,
+          f"LM serving: K-G must launch once a decode step at least and K-A "
+          f"in the Datastore build: {counts}")
+    check(len(outs) == LM_REQUESTS and all(
+        o.shape == (LM_NEW,) and ((o >= 0) & (o < cfg.vocab)).all()
+        for o in outs), "LM serving: malformed generations")
+    check(len(retrieved) == waves * LM_NEW,
+          f"LM serving: {len(retrieved)} retrievals for "
+          f"{waves * LM_NEW} decode steps")
+    keys64 = torch.as_tensor(keys, device=DEV).double()
+    kn64 = (keys64 * keys64).sum(1)
+    for i, (qr, d, ids) in enumerate(retrieved):
+        check_retrieval(card, torch, f"decode step {i} retrieval", qr, keys64,
+                        kn64, d, ids, kcfg.k)
+    del keys64, kn64
+    n_tok = LM_REQUESTS * LM_NEW
+    print(f"[{card}] LM serving {LM_ARCH} (bf16, {n_params} parameters, "
+          f"init {t_init:.3f} s): Datastore.build {t_store:.3f} s over "
+          f"{LM_STORE_KEYS} keys x {LM_STORE_DIM}; {LM_REQUESTS} requests of "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))} prompt tokens, "
+          f"batch {LM_BATCH}, {LM_NEW} greedy tokens each in {t_gen:.3f} s "
+          f"= {n_tok / t_gen:.1f} tokens/s with the kNN-LM hook; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; launches {counts}; every retrieval "
+          f"({len(retrieved)}) exact vs the float64 brute force", flush=True)
+    print(f"[{card}] LM serving prefill ms per wave: "
+          + ", ".join(f"{x:.3f}" for x in prefill_ms), flush=True)
+    print(f"[{card}] LM serving decode ms per step (model only; median "
+          f"{float(np.median(decode_ms)):.3f}): "
+          + ", ".join(f"{x:.3f}" for x in decode_ms), flush=True)
+    print(f"[{card}] LM serving kNN-LM hook ms per step (median "
+          f"{float(np.median(hook_ms)):.3f}): "
+          + ", ".join(f"{x:.3f}" for x in hook_ms), flush=True)
+
+    # K-G alone at one decode step's retrieval (8 queries, 1M keys)
+    seen = {}
+    kernel = kg.distance_topk_gather_cuda
+
+    def grab(r, s, k, schedule, counts, **kw):
+        seen.update(r=r, s=s, k=k, schedule=schedule, counts=counts, **kw)
+        return kernel(r, s, k, schedule, counts, **kw)
+
+    kg.distance_topk_gather_cuda = grab
+    try:
+        store.retrieve(retrieved[0][0], kcfg.k)
+    finally:
+        kg.distance_topk_gather_cuda = kernel
+    alive = seen.get("alive")
+    g = dict(qcs=seen["r"], s_c=seen["s"], sched=seen["schedule"],
+             cnt=seen["counts"], bm=seen["bm"], bn=seen["bn"],
+             alive=torch.ones(seen["s"].shape[0], device=DEV)
+             if alive is None else alive)
+    kg_decode = gather_case(card, torch, f"kNN-LM decode step: "
+                            f"{retrieved[0][0].shape[0]} queries over "
+                            f"{LM_STORE_KEYS} keys", g, seen["k"],
+                            plain_iters=1)
+    del g, seen
+
+    # every layer's K-F output of one prefill and one decode step vs plain
+    errs = []
+    flash = ops.flash_attention
+
+    def checking(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        errs.append(attention_err(torch, out, kf.flash_attention_plain(
+            q, k, v, **kw)))
+        return out
+
+    prefill_step, decode_step = make_serve_step(cfg, ServeConfig(), opts)
+    wave = prompts[:LM_BATCH]
+    tmax = max(len(p) for p in wave)
+    pad = np.zeros((len(wave), tmax), np.int32)
+    for r, p in enumerate(wave):
+        pad[r, tmax - len(p):] = p
+    ops.flash_attention = checking
+    try:
+        cache = init_cache(cfg, len(wave), tmax + 8, opts, device=DEV)
+        logits, cache = prefill_step(params, torch.as_tensor(pad, device=DEV),
+                                     cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        logits, cache = decode_step(params, tok[:, None], cache)
+    finally:
+        ops.flash_attention = flash
+    torch.cuda.synchronize()
+    check(len(errs) == 2 * cfg.n_layers,
+          f"layer check: {len(errs)} K-F calls, expected {2 * cfg.n_layers}")
+    worst = max(u for _, u in errs)
+    check(worst <= 1.0, f"layer check: a layer's K-F output is {worst:.3f} "
+          f"of the limit off its plain version")
+    print(f"[{card}] LM serving layer check: all {cfg.n_layers} layers' K-F "
+          f"outputs of one prefill (b={len(wave)}, {tmax} tokens) and one "
+          f"decode step vs the plain version on the same q/k/v: max |err| "
+          f"{max(e for e, _ in errs):.3e}, {worst:.3f} of the bf16 limit",
+          flush=True)
+    state = {"logits": logits}
+
+    def step():     # one decode step of the served loop: hook, sample, decode
+        tok = torch.argmax(hook(state["logits"], cache), -1).to(torch.int32)
+        state["logits"], _ = decode_step(params, tok[:, None], cache)
+
+    profile_device(card, torch, step, f"LM decode step with the kNN-LM hook "
+                   f"(b={len(wave)}, cache {tmax + 1}+)",
+                   out_dir / "lm_decode_profile.txt", runs=4)
+    del cache, logits, state
+    plain_ms = []
+    srv0 = BatchedServer(cfg, ServeConfig(batch=LM_BATCH), params, opts)
+    srv0.decode_step = timed(srv0.decode_step, plain_ms)
+    srv0.generate(prompts[:LM_BATCH], max_new_tokens=LM_NEW)
+    print(f"[{card}] LM serving decode ms per step without the hook (one "
+          f"wave; median {float(np.median(plain_ms)):.3f}): "
+          + ", ".join(f"{x:.3f}" for x in plain_ms), flush=True)
+    del params, srv, srv0, store
+    torch.cuda.empty_cache()
+
+    # ---- (c) the reduced model: card vs CPU, the same weights
+    cfg_r = configs.get_reduced(LM_ARCH)
+    opts32 = ModelOptions(dtype=torch.float32)
+    cpu_params = init_params(cfg_r, torch.Generator().manual_seed(2), opts32,
+                             device="cpu")
+
+    def to_dev(tree):
+        if isinstance(tree, dict):
+            return {key: to_dev(val) for key, val in tree.items()}
+        if isinstance(tree, list):
+            return [to_dev(val) for val in tree]
+        return tree.to(DEV)
+
+    dev_params = to_dev(cpu_params)
+    toks = torch.as_tensor(rng.integers(0, cfg_r.vocab, (4, 300)))
+    lg_cpu, _ = forward(cpu_params, cfg_r, toks, opts=opts32)
+    lg_dev, _ = forward(dev_params, cfg_r, toks.to(DEV), opts=opts32)
+    again, _ = forward(dev_params, cfg_r, toks.to(DEV), opts=opts32)
+    check(torch.equal(lg_dev, again),
+          "reduced model: two identical forwards on the card differ")
+    del again
+    ops.flash_attention = kf.flash_attention_plain
+    try:
+        lg_dev_plain, _ = forward(dev_params, cfg_r, toks.to(DEV), opts=opts32)
+    finally:
+        ops.flash_attention = flash
+    lg_dev, lg_dev_plain = lg_dev.cpu(), lg_dev_plain.cpu()
+    # K-F's share: the card's logits with K-F and with the plain attention
+    # on the card, both fp32 (the fp32 limit of attention_err, 2e-5, per
+    # unit of logit)
+    kf_diff = float((lg_dev - lg_dev_plain).abs().max())
+    check(bool(((lg_dev - lg_dev_plain).abs()
+                <= 2e-5 + 2e-5 * lg_dev_plain.abs()).all()),
+          f"reduced model: K-F moves the card's logits by {kf_diff:.3e}")
+    # card vs CPU: the same fp32 function through each device's own sin,
+    # cos, pow and exp (a few ulp apart; the CPU's vectorized versions
+    # depend on its ISA). At 300 positions a rotary angle reaches ~300
+    # rad, where one ulp of the RoPE frequencies moves these logits by
+    # ~1.7e-5 (measured on the CPU); the limit, 5e-4, is ~30 such ulps.
+    # K-F's own share is held to the fp32 limit above.
+    from repro_torch.models.layers import rope_freqs
+    tables = []
+    for where in ("cpu", DEV):
+        ang = (torch.arange(300, dtype=torch.float32, device=where)[:, None]
+               * rope_freqs(cfg_r.dh // 2, cfg_r.rope_theta, device=where))
+        tables.append(torch.cat([torch.cos(ang), torch.sin(ang)]).cpu())
+    table_diff = float((tables[0] - tables[1]).abs().max())
+    diff = float((lg_dev - lg_cpu).abs().max())
+    plain_diff = float((lg_dev_plain - lg_cpu).abs().max())
+    isa = torch.backends.cpu.get_cpu_capability()
+    check(diff <= 5e-4, f"reduced model: card logits off the CPU's by "
+          f"{diff:.3e} > 5e-4 (with the plain attention on the card "
+          f"{plain_diff:.3e}; K-F vs the plain attention on the card "
+          f"{kf_diff:.3e}; RoPE tables card vs CPU ({isa}) {table_diff:.3e})")
+    small = [rng.integers(0, cfg_r.vocab, int(n)).astype(np.int32)
+             for n in (5, 130, 3, 260, 40)]
+    got = {}
+    for where, p in (("cpu", cpu_params), ("card", dev_params)):
+        got[where] = BatchedServer(cfg_r, ServeConfig(batch=2), p,
+                                   opts32).generate(small, max_new_tokens=8)
+    check(all(np.array_equal(a, b) for a, b in zip(got["cpu"], got["card"])),
+          "reduced model: greedy tokens differ between card and CPU")
+    print(f"[{card}] reduced {LM_ARCH} (fp32, {count_params(cpu_params)} "
+          f"parameters): card vs CPU logits over 4 x 300 tokens max |diff| "
+          f"{diff:.3e} (limit 5e-4; with the plain attention on the card "
+          f"{plain_diff:.3e}; RoPE cos/sin tables card vs CPU ({isa}) "
+          f"{table_diff:.3e}), K-F vs the plain attention on the "
+          f"card {kf_diff:.3e} (limit 2e-5 + 2e-5·|logit|); a repeated "
+          f"forward on the card bitwise equal; greedy tokens of 5 requests "
+          f"(batch 2, 8 tokens) equal", flush=True)
+
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/csrc/flash_attn.cu",
+               replaces="src/repro/kernels/flash_attention.py:27")
+    row.update({key: prefill[key] for key in _ROW_KEYS})
+    row["other_shapes"] = [decode, windowed]
+    row["lm_serve"] = dict(
+        tokens_per_s=n_tok / t_gen, prefill_ms=prefill_ms,
+        decode_ms_median=float(np.median(decode_ms)),
+        hook_ms_median=float(np.median(hook_ms)),
+        decode_ms_median_no_hook=float(np.median(plain_ms)),
+        peak_bytes=peak, kg_decode_step=kg_decode)
+    return row
+
+
+def phase_caps(card, torch, rt, s_np, r_np, cfg, g_forest) -> dict:
+    """13. The shapes the kernels refused before: K-A at d = 3,072, K-G at
+    d = 256 / 1,024 and at k = 100 / 1,024, K-D at k = 128, K-Q at d =
+    256 and at mp = 1,024 — each against its plain version, as its own
+    phase checks it. Returns the cases per kernel."""
+    import numpy as np
+    from repro_torch.kernels import distance_topk as kd
+    caps = {"assign": [], "distance_topk_gather": [], "distance_topk": [],
+            "quant_coarse_gather": []}
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    x = torch.randn((CAP_ROWS, 3072), generator=gen, device=DEV)
+    piv = torch.randn((256, 3072), generator=gen, device=DEV)
+    a = phase_assign(card, torch, rt, x, piv)
+    caps["assign"].append(dict(
+        shape=f"d = 3,072: {CAP_ROWS} Gaussian rows x 256 pivots",
+        **{k: a[k] for k in _ROW_KEYS}))
+    del x, piv
+    rng = np.random.default_rng(13)
+    cfg_g = rt.JoinConfig(k=10, n_pivots=256, tile_r=128, tile_s=512)
+    for d in (256, 1024):
+        s_g = rng.standard_normal((CAP_ROWS, d), dtype=np.float32)
+        r_g = rng.standard_normal((BUCKET, d), dtype=np.float32)
+        g = gather_inputs(torch, rt, s_g, r_g, cfg_g)
+        caps["distance_topk_gather"].append(gather_case(
+            card, torch, f"d = {d}, {CAP_ROWS} Gaussian rows", g, 10))
+        del g
+        torch.cuda.empty_cache()
+    for k in (100, 1024):
+        caps["distance_topk_gather"].append(gather_case(
+            card, torch, f"Forest bucket, k = {k}", g_forest, k,
+            plain_iters=1))
+    base = torch.as_tensor(s_np[:N_BASE], device=DEV)
+    center = base.double().mean(0).float()
+    s_c = (base - center).contiguous()
+    q_c = (torch.as_tensor(r_np[:BUCKET], device=DEV) - center).contiguous()
+    caps["distance_topk"].append(dense_case(
+        card, torch, kd, "a: retrieval shape, k = 128", q_c, s_c, 128, None,
+        library=True))
+    del base, s_c, q_c
+    s_q = rng.standard_normal((CAP_ROWS, 256), dtype=np.float32)
+    r_q = rng.standard_normal((BUCKET, 256), dtype=np.float32)
+    cfg_q = dataclasses.replace(cfg_g, quant_slack=118, reducer="gather")
+    row = phase_quant(card, torch, rt,
+                      rt.build_index(s_q, cfg_q, quantize="int8", device=DEV),
+                      r_q, cfg_q, plain_iters=1)
+    caps["quant_coarse_gather"].append(dict(
+        shape=f"d = 256, {CAP_ROWS} Gaussian rows, mp = 128",
+        **{k: row[k] for k in _ROW_KEYS}))
+    cfg_m = dataclasses.replace(cfg, quant_slack=1014, reducer="gather")
+    row = phase_quant(card, torch, rt,
+                      rt.build_index(s_np, cfg_m, quantize="int8", device=DEV),
+                      r_np, cfg_m, plain_iters=1)
+    caps["quant_coarse_gather"].append(dict(
+        shape="Forest bucket, mp = 1,024", **{k: row[k] for k in _ROW_KEYS}))
+    torch.cuda.empty_cache()
+    return caps
+
+
 def profile_device(card, torch, fn, what: str, out_file: Path,
                    runs: int = 1) -> None:
     """Device time by kernel over ``runs`` calls of ``fn`` (torch.profiler),
@@ -828,8 +1383,8 @@ def main(argv=None) -> int:
         s_np, cfg.n_pivots, cfg.pivot_strategy, sample=cfg.pivot_sample,
         n_sets=cfg.pivot_candidate_sets, seed=cfg.seed, device=DEV),
         device=DEV)
-    rows = [phase_assign(card, torch, rt, s_dev, pivots),
-            phase_gather(card, torch, rt, s_np, r_np, cfg)]
+    g_row, g_forest = phase_gather(card, torch, rt, s_np, r_np, cfg)
+    rows = [phase_assign(card, torch, rt, s_dev, pivots), g_row]
 
     # ---- 4. the serving path, counted
     ops.reset_launch_counts()
@@ -998,9 +1553,20 @@ def main(argv=None) -> int:
     # ---- 12. kNN-LM retrieval through both knn_logits routes
     phase_retrieval(card, torch, rt, s_np, r_np, launches)
 
+    # ---- 13. the shapes the kernels refused before
+    caps = phase_caps(card, torch, rt, s_np, r_np, cfg, g_forest)
+    del g_forest
+    torch.cuda.empty_cache()
+
+    # ---- 14. the LM serving path at full width
+    rows.append(phase_lm(card, torch, rt, launches, out_dir))
+
     owner = {"assign": "megastep", "distance_topk_gather": "megastep",
-             "quant_coarse_gather": "quantized", "distance_topk": "retrieval"}
+             "quant_coarse_gather": "quantized", "distance_topk": "retrieval",
+             "flash_attention": "lm_serve"}
     for row in rows:
+        if row["name"] in caps:
+            row["cap_shapes"] = caps[row["name"]]
         row["launches"] = launches[owner[row["name"]]][row["name"]]
         row["launches_by_path"] = {path: n[row["name"]]
                                    for path, n in launches.items()}

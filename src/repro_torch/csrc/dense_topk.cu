@@ -40,6 +40,12 @@
 //   true neighbour out of the run. Row offsets are 64-bit (n_s·d passes
 //   2³¹ at 2.1 M keys of width 1,024).
 //
+// - Wide runs. Past k = 64 a run no longer fits in registers: the KP = 0
+//   instantiation keeps each query's run in a warp-wide run of exactly k
+//   entries in device memory (csrc/wide_run.cuh; a warp serves its 4
+//   queries in turn), the partial runs are k wide, and the merge pass folds
+//   them through a wide run too. The d² chain is the same in both.
+//
 // This is the simple, correct first version: no wgmma, no TMA or cp.async
 // double buffering, the query chunk restaged for every 64 S rows.
 
@@ -49,6 +55,7 @@
 #include <algorithm>
 
 #include "sorted_run.cuh"
+#include "wide_run.cuh"
 
 namespace {
 
@@ -56,6 +63,7 @@ using repro_torch::run_before;
 using repro_torch::run_init;
 using repro_torch::run_insert;
 using repro_torch::warp_merge_flush;
+using repro_torch::WideRun;
 
 constexpr int kBQ = 32;       // queries per block
 constexpr int kBS = 64;       // S rows per chunk
@@ -63,6 +71,11 @@ constexpr int kDK = 32;       // width of one staged chunk of d
 constexpr int kThreads = 256;
 constexpr int kGroup = 8;     // lanes that scan one query's candidates
 constexpr int kDStride = kBS + 8;  // the 4 queries of a warp start 8 banks apart
+constexpr int kCap = 64;           // candidate buffer of a wide run
+
+// KP > 0: register runs of KP entries; KP == 0: wide runs of k entries, in
+// part_d / part_p rows of 2k (the ping-pong pair; the first k hold the
+// split's run when the kernel ends).
 
 __device__ __forceinline__ long long lmin(long long a, long long b) { return a < b ? a : b; }
 
@@ -70,13 +83,17 @@ template <int KP>
 __global__ void __launch_bounds__(kThreads)
 dense_topk_partial(const float* __restrict__ r, const float* __restrict__ s,
                    const signed char* __restrict__ mask, float* __restrict__ part_d,
-                   int* __restrict__ part_p, int n_r, int n_s, int d, int bm, int bn,
-                   int ns_tiles, int sub_per_tile, int tiles_per_split) {
+                   int* __restrict__ part_p, int n_r, int n_s, int d, int k, int bm,
+                   int bn, int ns_tiles, int sub_per_tile, int tiles_per_split) {
   __shared__ float q_s[kBQ][kDK + 1];
   __shared__ float s_s[kBS][kDK + 1];
   __shared__ float d_s[kBQ][kDStride];
   __shared__ float sn_s[kBS];
   __shared__ float qn_s[kBQ];
+  constexpr bool kWide = KP == 0;
+  constexpr int KR = kWide ? 1 : KP;
+  __shared__ float wbuf_d[kWide ? kBQ : 1][kCap];
+  __shared__ int wbuf_p[kWide ? kBQ : 1][kCap];
 
   const int tile_r = blockIdx.x / sub_per_tile;
   const int sub = blockIdx.x - tile_r * sub_per_tile;
@@ -108,9 +125,21 @@ dense_topk_partial(const float* __restrict__ r, const float* __restrict__ s,
   const int sel_q = warp * 4 + (lane >> 3);
   const int sel_c = lane & (kGroup - 1);
 
-  float rd[KP];
-  int rp[KP];
+  float rd[KR];
+  int rp[KR];
   run_init(rd, rp);
+  WideRun<kCap> wr[4];  // wide: the runs of this warp's queries warp * 4 + 0..3
+  if constexpr (kWide) {
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const int qi = warp * 4 + qq;
+      if (qi < nq) {
+        const long long at = (static_cast<long long>(split) * n_r + q0 + qi) * 2LL * k;
+        wr[qq].init(part_d + at, part_p + at, part_d + at + k, part_p + at + k, wbuf_d[qi],
+                    wbuf_p[qi], k);
+      }
+    }
+  }
 
   const int t_begin = split * tiles_per_split;
   const int t_end = static_cast<int>(lmin(ns_tiles, t_begin + tiles_per_split));
@@ -169,17 +198,44 @@ dense_topk_partial(const float* __restrict__ r, const float* __restrict__ s,
         }
       }
       __syncthreads();
-      if (sel_q < nq) {
+      if constexpr (kWide) {
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) {
+          const int qi = warp * 4 + qq;
+          if (qi < nq) {  // warp-uniform
+            wr[qq].offer(d_s[qi][lane], static_cast<int>(c0 + lane), lane < rows);
+            wr[qq].offer(d_s[qi][lane + 32], static_cast<int>(c0 + lane + 32), lane + 32 < rows);
+          }
+        }
+      } else if (sel_q < nq) {
         for (int c = sel_c; c < rows; c += kGroup)
           run_insert(rd, rp, d_s[sel_q][c], static_cast<int>(c0 + c));
       }
     }
   }
 
+  if constexpr (kWide) {
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const int qi = warp * 4 + qq;
+      if (qi < nq) {
+        wr[qq].flush();
+        if (wr[qq].cur == 1) {  // the run ends in the second buffer: move it to the first
+          const long long at = (static_cast<long long>(split) * n_r + q0 + qi) * 2LL * k;
+          for (int i = lane; i < k; i += 32) {
+            part_d[at + i] = part_d[at + k + i];
+            part_p[at + i] = part_p[at + k + i];
+          }
+        }
+      }
+    }
+    return;
+  }
+
   // merge the 8 runs of each query (a butterfly over the lane group) and
   // write the split's partial run of KP (d², id) entries
-  const long long out = (static_cast<long long>(split) * n_r + q0 + sel_q) * KP;
-  for (int o = 0; o < KP; ++o) {
+  const long long out = (static_cast<long long>(split) * n_r + q0 + sel_q) * KR;
+  for (int o = 0; o < KR; ++o) {
     float bd = rd[0];
     int bp = rp[0];
 #pragma unroll
@@ -197,13 +253,50 @@ dense_topk_partial(const float* __restrict__ r, const float* __restrict__ s,
     }
     if (rp[0] == bp) {  // ids are unique in the group; an empty winner pops empties only
 #pragma unroll
-      for (int j = 0; j + 1 < KP; ++j) {
+      for (int j = 0; j + 1 < KR; ++j) {
         rd[j] = rd[j + 1];
         rp[j] = rp[j + 1];
       }
-      rd[KP - 1] = CUDART_INF_F;
-      rp[KP - 1] = -1;
+      rd[KR - 1] = CUDART_INF_F;
+      rp[KR - 1] = -1;
     }
+  }
+}
+
+// A warp per query folds the n_splits wide partial runs (rows of 2k, the
+// first k the run) through a wide run in scratch (n_r x 2k) and writes
+// (√d², id).
+__global__ void __launch_bounds__(kThreads)
+dense_topk_merge_wide(const float* __restrict__ part_d, const int* __restrict__ part_p,
+                      float* __restrict__ scratch_d, int* __restrict__ scratch_p,
+                      float* __restrict__ out_d, int* __restrict__ out_p, int n_r, int k,
+                      int n_splits) {
+  __shared__ float buf_d[kThreads / 32][kCap];
+  __shared__ int buf_p[kThreads / 32][kCap];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long q = static_cast<long long>(blockIdx.x) * (kThreads / 32) + warp;
+  if (q >= n_r) return;  // warp-uniform
+  WideRun<kCap> run;
+  run.init(scratch_d + q * 2LL * k, scratch_p + q * 2LL * k, scratch_d + q * 2LL * k + k,
+           scratch_p + q * 2LL * k + k, buf_d[warp], buf_p[warp], k);
+  for (int sp = 0; sp < n_splits; ++sp) {
+    const long long at = (static_cast<long long>(sp) * n_r + q) * 2LL * k;
+    for (int i0 = 0; i0 < k; i0 += 32) {
+      const int i = i0 + lane;
+      const bool ok = i < k;
+      const float dd = ok ? part_d[at + i] : 0.f;
+      const int pp = ok ? part_p[at + i] : -1;
+      run.offer(dd, pp, ok && pp >= 0);
+    }
+  }
+  run.flush();
+  const float* kd = run.keys();
+  const int* kp = run.positions();
+  for (int i = lane; i < k; i += 32) {
+    const int p = kp[i];
+    out_d[q * k + i] = p < 0 ? CUDART_INF_F : sqrtf(kd[i]);
+    out_p[q * k + i] = p;
   }
 }
 
@@ -232,8 +325,9 @@ dense_topk_merge(const float* __restrict__ part_d, const int* __restrict__ part_
 
 template <int KP>
 cudaError_t launch(const float* r, const float* s, const signed char* mask, float* part_d,
-                   int* part_p, float* out_d, int* out_p, int n_r, int n_s, int d, int k,
-                   int bm, int bn, int n_splits, cudaStream_t stream) {
+                   int* part_p, float* scratch_d, int* scratch_p, float* out_d, int* out_p,
+                   int n_r, int n_s, int d, int k, int bm, int bn, int n_splits,
+                   cudaStream_t stream) {
   const int nr_tiles = (n_r + bm - 1) / bm;
   const int sub_per_tile = (bm + kBQ - 1) / kBQ;
   const int ns_tiles = (n_s + bn - 1) / bn;
@@ -242,44 +336,56 @@ cudaError_t launch(const float* r, const float* s, const signed char* mask, floa
   if (nr_blocks > 0x7fffffffLL || n_splits > 65535) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(nr_blocks), n_splits);
   dense_topk_partial<KP><<<grid, kThreads, 0, stream>>>(r, s, mask, part_d, part_p, n_r, n_s, d,
-                                                        bm, bn, ns_tiles, sub_per_tile,
+                                                        k, bm, bn, ns_tiles, sub_per_tile,
                                                         tiles_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const unsigned merge_blocks = static_cast<unsigned>((n_r + kThreads / 32 - 1) / (kThreads / 32));
-  dense_topk_merge<KP><<<merge_blocks, kThreads, 0, stream>>>(part_d, part_p, out_d, out_p, n_r,
-                                                               k, n_splits);
+  if constexpr (KP == 0)
+    dense_topk_merge_wide<<<merge_blocks, kThreads, 0, stream>>>(
+        part_d, part_p, scratch_d, scratch_p, out_d, out_p, n_r, k, n_splits);
+  else
+    dense_topk_merge<KP><<<merge_blocks, kThreads, 0, stream>>>(part_d, part_p, out_d, out_p,
+                                                                 n_r, k, n_splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Launches both passes on `stream`,
-// allocates nothing (part_d / part_p hold n_splits x n_r x KP entries,
-// KP = max(8, next_pow2(k))), returns cudaGetLastError()
-// (cudaErrorInvalidValue for shapes it does not take: d >= 1,
-// 1 <= k <= 64, bm, bn, n_splits >= 1). `mask` may be null (every tile).
+// allocates nothing, returns cudaGetLastError() (cudaErrorInvalidValue for
+// shapes it does not take: d, k, bm, bn, n_splits >= 1). `mask` may be null
+// (every tile). k <= 64: part_d / part_p hold n_splits x n_r x KP entries,
+// KP = max(8, next_pow2(k)), and scratch may be null; k > 64: part_d /
+// part_p hold n_splits x n_r x 2k entries and scratch_d / scratch_p n_r x 2k.
 extern "C" int repro_dense_topk(const void* r, const void* s, const void* mask, void* part_d,
-                                void* part_p, void* out_d, void* out_p, int n_r, int n_s, int d,
-                                int k, int bm, int bn, int n_splits, void* stream) {
-  if (d < 1 || k < 1 || k > 64 || bm < 1 || bn < 1 || n_r < 1 || n_s < 1 || n_splits < 1)
+                                void* part_p, void* scratch_d, void* scratch_p, void* out_d,
+                                void* out_p, int n_r, int n_s, int d, int k, int bm, int bn,
+                                int n_splits, void* stream) {
+  if (d < 1 || k < 1 || bm < 1 || bn < 1 || n_r < 1 || n_s < 1 || n_splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* rf = static_cast<const float*>(r);
   const auto* sf = static_cast<const float*>(s);
   const auto* mk = static_cast<const signed char*>(mask);
   auto* pd = static_cast<float*>(part_d);
   auto* pp = static_cast<int*>(part_p);
+  auto* xd = static_cast<float*>(scratch_d);
+  auto* xp = static_cast<int*>(scratch_p);
   auto* od = static_cast<float*>(out_d);
   auto* op = static_cast<int*>(out_p);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (k <= 8)
-    err = launch<8>(rf, sf, mk, pd, pp, od, op, n_r, n_s, d, k, bm, bn, n_splits, st);
+    err = launch<8>(rf, sf, mk, pd, pp, xd, xp, od, op, n_r, n_s, d, k, bm, bn, n_splits, st);
   else if (k <= 16)
-    err = launch<16>(rf, sf, mk, pd, pp, od, op, n_r, n_s, d, k, bm, bn, n_splits, st);
+    err = launch<16>(rf, sf, mk, pd, pp, xd, xp, od, op, n_r, n_s, d, k, bm, bn, n_splits, st);
   else if (k <= 32)
-    err = launch<32>(rf, sf, mk, pd, pp, od, op, n_r, n_s, d, k, bm, bn, n_splits, st);
+    err = launch<32>(rf, sf, mk, pd, pp, xd, xp, od, op, n_r, n_s, d, k, bm, bn, n_splits, st);
+  else if (k <= 64)
+    err = launch<64>(rf, sf, mk, pd, pp, xd, xp, od, op, n_r, n_s, d, k, bm, bn, n_splits, st);
+  else if (xd == nullptr || xp == nullptr)
+    err = cudaErrorInvalidValue;
   else
-    err = launch<64>(rf, sf, mk, pd, pp, od, op, n_r, n_s, d, k, bm, bn, n_splits, st);
+    err = launch<0>(rf, sf, mk, pd, pp, xd, xp, od, op, n_r, n_s, d, k, bm, bn, n_splits, st);
   return static_cast<int>(err);
 }

@@ -37,9 +37,20 @@
 // division, while a staged row (d code bytes, ε and liveness) is read from
 // HBM once per block and shared by the block's kWarps queries. So it is
 // bound by the float32 pipe's issue rate, not by HBM: int8 tiles move a
-// quarter of the bytes of the fp32 gather kernel's. This is the simple,
-// right first version: no wgmma int8 tensor-core dot, no TMA staging, no
-// early-out on θ before the √ chain. Those come in later PRs.
+// quarter of the bytes of the fp32 gather kernel's.
+//
+// Any width, any mp. The layout above holds the query's packed codes in
+// registers (d <= 128) and the run in shared memory (mp <= 512). Past
+// either, a second kernel runs on the same grid: it stages 64 S rows and the
+// block's queries one 32-word chunk (128 codes) at a time, each lane summing
+// the integer dots of two rows across the chunks (exact, so the order does
+// not matter), and keeps each query's shortlist in a warp-wide run of mp
+// entries in device memory (csrc/wide_run.cuh). The lb chain is the same
+// code, so both kernels give the same bits.
+//
+// This is the simple, right first version: no wgmma int8 tensor-core dot,
+// no TMA staging, no early-out on θ before the √ chain. Those come in later
+// PRs.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -47,6 +58,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "wide_run.cuh"
 
 namespace {
 
@@ -56,6 +69,24 @@ constexpr int kSmemBytes = 48 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kDeltaRel = 2e-6f;  // quant_topk.NUM_DELTA_REL
 constexpr float kTolAbs = 1e-7f;    // quant_topk.NUM_TOL_ABS
+constexpr int kRC = 64;             // S rows per chunk of the general kernel (two per lane)
+constexpr int kWC = 32;             // packed words (128 codes) per staged chunk
+constexpr int kCap = 64;            // candidate buffer of a wide run
+
+// The certified lower bound of one (query, row) pair from its exact integer
+// parts, in coarse_lb_tile's order, every operation rounded on its own.
+__device__ __forceinline__ float coarse_lb(float q2, float ssc2, float coef, float qe, int c,
+                                          int sq, float seps) {
+  const float s2 = __fmul_rn(ssc2, static_cast<float>(sq));
+  const float qs2 = __fadd_rn(q2, s2);
+  const float d2 = __fsub_rn(qs2, __fmul_rn(coef, static_cast<float>(c)));
+  const float dc = __fsqrt_rn(fmaxf(d2, 0.f));
+  const float delta = __fmul_rn(kDeltaRel, qs2);
+  const float eps_num = __fdiv_rn(delta, fmaxf(dc, __fsqrt_rn(delta)));
+  const float eps_t = __fadd_rn(__fadd_rn(__fadd_rn(seps, qe), eps_num), kTolAbs);
+  const float x = __fsub_rn(dc, eps_t);
+  return x != x ? x : fmaxf(x, 0.f);
+}
 
 // (lb, position) order; the empty slot's -1 compares as the largest position
 __device__ __forceinline__ bool before(float a, int pa, float b, int pb) {
@@ -186,15 +217,7 @@ quant_coarse_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc
           for (int w = 0; w < MAXW; ++w) {
             if (w < nw) c = __dp4a(qw[w], s_code[rr * nw + w], c);
           }
-          const float s2 = __fmul_rn(ssc2, static_cast<float>(s_sq[rr]));
-          const float qs2 = __fadd_rn(q2, s2);
-          const float d2 = __fsub_rn(qs2, __fmul_rn(coef, static_cast<float>(c)));
-          const float dc = __fsqrt_rn(fmaxf(d2, 0.f));
-          const float delta = __fmul_rn(kDeltaRel, qs2);
-          const float eps_num = __fdiv_rn(delta, fmaxf(dc, __fsqrt_rn(delta)));
-          const float eps_t = __fadd_rn(__fadd_rn(__fadd_rn(s_eps[rr], qe), eps_num), kTolAbs);
-          const float x = __fsub_rn(dc, eps_t);
-          lb = x != x ? x : fmaxf(x, 0.f);
+          lb = coarse_lb(q2, ssc2, coef, qe, c, s_sq[rr], s_eps[rr]);
           keep = lb <= th;
         }
         const float tail_lb = my_lb[mp - 1];
@@ -215,6 +238,125 @@ quant_coarse_kernel(const int8_t* __restrict__ qi, const float* __restrict__ qsc
     const float l = my_lb[j];
     out_lb[row * mp + j] = l;
     out_pos[row * mp + j] = isfinite(l) ? my_pos[j] : -1;
+  }
+}
+
+// The general kernel: any d, any mp (see the header). run_lb / run_pos hold
+// two buffers of mp entries per query row (the wide run's ping-pong pair).
+__global__ void __launch_bounds__(kThreads)
+quant_coarse_general(const int8_t* __restrict__ qi, const float* __restrict__ qscale,
+                     const float* __restrict__ qeps, const float* __restrict__ theta,
+                     const int8_t* __restrict__ si, const float* __restrict__ sscale,
+                     const __half* __restrict__ seps, const float* __restrict__ alive,
+                     const int* __restrict__ sched, const int* __restrict__ counts,
+                     float* __restrict__ out_lb, int* __restrict__ out_pos,
+                     float* __restrict__ run_lb, int* __restrict__ run_pos, int n_r, int n_s,
+                     int d, int mp, int bm, int bn, int max_visits) {
+  __shared__ int q_w[kWarps][kWC];
+  __shared__ int s_w[kRC][kWC + 1];
+  __shared__ int s_sq[kRC];  // -1 marks a dead row
+  __shared__ float s_eps[kRC];
+  __shared__ float buf_d[kWarps][kCap];
+  __shared__ int buf_p[kWarps][kCap];
+
+  const int nw = (d + 3) >> 2;  // packed words per row
+  const int tile_r = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q_local = blockIdx.x * kWarps + warp;
+  const long long row = static_cast<long long>(tile_r) * bm + q_local;
+  const bool active = q_local < bm && row < n_r;  // uniform across the warp
+  const int ns_tiles = n_s / bn;
+
+  float qsc = 1.f, qe = 0.f, th = -CUDART_INF_F;
+  int qa = 0;  // Σ qcode², exact in any order
+  if (active) {
+    qsc = qscale[row];
+    qe = qeps[row];
+    th = theta[row];
+    for (int w = lane; w < nw; w += 32) {
+      const int word = pack4(qi + row * d, 4 * w, d);
+      qa = __dp4a(word, word, qa);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) qa += __shfl_xor_sync(kFull, qa, off);
+  const float q2 = __fmul_rn(__fmul_rn(qsc, qsc), static_cast<float>(qa));
+
+  repro_torch::WideRun<kCap> run;
+  if (active) {
+    float* rl = run_lb + row * 2LL * mp;
+    int* rp = run_pos + row * 2LL * mp;
+    run.init(rl, rp, rl + mp, rp + mp, buf_d[warp], buf_p[warp], mp);
+  }
+
+  const int cnt = min(counts[tile_r], max_visits);
+  const int* srow = sched + static_cast<size_t>(tile_r) * max_visits;
+  for (int v = 0; v < cnt; ++v) {
+    const int t = srow[v];
+    if (t < 0 || t >= ns_tiles) continue;  // nothing to read (block-uniform)
+    const float ssc = sscale[t];
+    const float ssc2 = __fmul_rn(ssc, ssc);
+    const float coef = __fmul_rn(2.f, __fmul_rn(qsc, ssc));
+    const long long base = static_cast<long long>(t) * bn;
+    for (int c0 = 0; c0 < bn; c0 += kRC) {
+      const int rows = min(kRC, bn - c0);
+      int acc0 = 0, acc1 = 0, sq = 0;
+      for (int w0 = 0; w0 < nw; w0 += kWC) {
+        const int wk = min(kWC, nw - w0);
+        __syncthreads();  // the previous chunk (and selection) is consumed
+        for (int e = tid; e < kWarps * kWC; e += kThreads) {
+          const int w = e / kWC;
+          const int j = e - w * kWC;
+          const long long qrow = static_cast<long long>(tile_r) * bm + blockIdx.x * kWarps + w;
+          const bool ok = blockIdx.x * kWarps + w < bm && qrow < n_r && j < wk;
+          q_w[w][j] = ok ? pack4(qi + qrow * d, 4 * (w0 + j), d) : 0;
+        }
+        for (int e = tid; e < kRC * kWC; e += kThreads) {
+          const int i = e / kWC;
+          const int j = e - i * kWC;
+          s_w[i][j] = (i < rows && j < wk) ? pack4(si + (base + c0 + i) * d, 4 * (w0 + j), d) : 0;
+        }
+        __syncthreads();
+        if (tid < kRC) {
+          for (int j = 0; j < wk; ++j) sq = __dp4a(s_w[tid][j], s_w[tid][j], sq);
+        }
+        for (int j = 0; j < wk; ++j) {
+          const int qw = q_w[warp][j];
+          acc0 = __dp4a(qw, s_w[lane][j], acc0);
+          acc1 = __dp4a(qw, s_w[lane + 32][j], acc1);
+        }
+      }
+      if (tid < kRC) {
+        const long long g = base + c0 + tid;
+        s_sq[tid] = (tid < rows && alive[g] > 0.f) ? sq : -1;
+        s_eps[tid] = tid < rows ? __half2float(seps[g]) : 0.f;
+      }
+      __syncthreads();
+      if (active) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int rr = lane + 32 * m;
+          float lb = CUDART_INF_F;
+          bool keep = false;
+          if (s_sq[rr] >= 0) {
+            lb = coarse_lb(q2, ssc2, coef, qe, m == 0 ? acc0 : acc1, s_sq[rr], s_eps[rr]);
+            keep = lb <= th;
+          }
+          run.offer(lb, static_cast<int>(base + c0 + rr), keep);
+        }
+      }
+    }
+  }
+  if (!active) return;
+  run.flush();
+  const float* kl = run.keys();
+  const int* kp = run.positions();
+  for (int j = lane; j < mp; j += 32) {
+    const float l = kl[j];
+    out_lb[row * mp + j] = l;
+    out_pos[row * mp + j] = isfinite(l) ? kp[j] : -1;
   }
 }
 
@@ -241,16 +383,18 @@ cudaError_t launch(const int8_t* qi, const float* qscale, const float* qeps, con
 
 // Plain C entry point, bound with ctypes. Launches on `stream`, allocates
 // nothing, returns cudaGetLastError() (cudaErrorInvalidValue for shapes the
-// kernel does not take: 1 <= d <= 128, mp a power of two in [1, 512], S
-// tile-padded to a multiple of bn).
+// kernel does not take: d >= 1, mp a power of two, S tile-padded to a
+// multiple of bn). d <= 128 with mp <= 512 runs the register kernel; past
+// either the general kernel, whose wide runs live in run_lb / run_pos
+// (n_r x 2mp entries each; unused, and may be null, otherwise).
 extern "C" int repro_quant_coarse(const void* qi, const void* qscale, const void* qeps,
                                   const void* theta, const void* si, const void* sscale,
                                   const void* seps, const void* alive, const void* sched,
-                                  const void* counts, void* out_lb, void* out_pos, int n_r,
-                                  int n_s, int d, int mp, int bm, int bn, int nr_tiles,
-                                  int max_visits, void* stream) {
-  if (d < 1 || d > 128 || mp < 1 || mp > 512 || (mp & (mp - 1)) != 0 || bm < 1 || bn < 1 ||
-      n_s < bn || n_s % bn != 0 || max_visits < 1 || n_r < 1 || nr_tiles < 1)
+                                  const void* counts, void* out_lb, void* out_pos, void* run_lb,
+                                  void* run_pos, int n_r, int n_s, int d, int mp, int bm, int bn,
+                                  int nr_tiles, int max_visits, void* stream) {
+  if (d < 1 || mp < 1 || (mp & (mp - 1)) != 0 || bm < 1 || bn < 1 || n_s < bn ||
+      n_s % bn != 0 || max_visits < 1 || n_r < 1 || nr_tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* a_qi = static_cast<const int8_t*>(qi);
   const auto* a_qsc = static_cast<const float*>(qscale);
@@ -265,6 +409,15 @@ extern "C" int repro_quant_coarse(const void* qi, const void* qscale, const void
   auto* o_lb = static_cast<float*>(out_lb);
   auto* o_pos = static_cast<int*>(out_pos);
   auto st = static_cast<cudaStream_t>(stream);
+  if (d > 128 || mp > 512) {
+    if (run_lb == nullptr || run_pos == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((bm + kWarps - 1) / kWarps, nr_tiles);
+    quant_coarse_general<<<grid, kThreads, 0, st>>>(
+        a_qi, a_qsc, a_qe, a_th, a_si, a_ssc, a_se, a_al, a_sc, a_cn, o_lb, o_pos,
+        static_cast<float*>(run_lb), static_cast<int*>(run_pos), n_r, n_s, d, mp, bm, bn,
+        max_visits);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (d <= 16)
     return static_cast<int>(launch<4>(a_qi, a_qsc, a_qe, a_th, a_si, a_ssc, a_se, a_al, a_sc, a_cn,
                                       o_lb, o_pos, n_r, n_s, d, mp, bm, bn, nr_tiles, max_visits,

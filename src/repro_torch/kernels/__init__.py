@@ -8,6 +8,7 @@ PyTorch version beside it:
 - ``assign``: phase-1 nearest-pivot map (``build_index``,
   ``plan_queries``)
 - ``quant_topk``: the quantized tier's int8 coarse scan
+- ``flash_attention``: the LM's attention forward (prefill and decode)
 
 ``ops`` dispatches on the tensors' device and reads the launch counts.
 """

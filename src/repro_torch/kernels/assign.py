@@ -68,10 +68,11 @@ def assign_cuda(x: torch.Tensor, pivots: torch.Tensor
         raise ValueError("assign kernel: x and pivots on different devices")
     n, d = x.shape
     m = pivots.shape[0]
-    if pivots.shape[1] != d or not 1 <= d <= 128 or m < 1 \
+    if pivots.shape[1] != d or d < 1 or m < 1 \
             or n * d >= 2 ** 31 or m * d >= 2 ** 31:
-        raise ValueError(f"assign kernel takes 1 <= d <= 128, m >= 1; got "
-                         f"x {tuple(x.shape)}, pivots {tuple(pivots.shape)}")
+        raise ValueError(f"assign kernel takes d >= 1, m >= 1 and fewer "
+                         f"than 2^31 elements on each side; got x "
+                         f"{tuple(x.shape)}, pivots {tuple(pivots.shape)}")
     pid = torch.empty((n,), dtype=torch.int32, device=x.device)
     dist = torch.empty((n,), dtype=torch.float32, device=x.device)
     if n == 0:

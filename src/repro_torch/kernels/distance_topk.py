@@ -43,10 +43,13 @@ from .sorted_merge import next_pow2
 
 __all__ = ["distance_topk_gather_plain", "distance_topk_gather_cuda",
            "distance_topk_plain", "distance_topk_cuda", "launches",
-           "dense_launches", "MAX_K", "MAX_DIM"]
+           "dense_launches"]
 
-MAX_K = 64       # widest run either kernel keeps in registers
-MAX_DIM = 128    # K-G holds the query in registers; K-D takes any width
+# widest run either kernel keeps in registers, and widest query K-G
+# holds there; past them the kernels keep wide runs in scratch the
+# wrappers allocate (two buffers of k entries a query)
+_REG_K = 64
+_REG_D = 128
 
 # launches of K-G and of K-D in this process (read and reset through
 # ``kernels.ops``)
@@ -112,7 +115,7 @@ def distance_topk_gather_plain(
 def _entry():
     """The kernel's C entry, loaded and typed once per process."""
     fn = build.library("gather_topk").repro_gather_topk
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -132,7 +135,9 @@ def distance_topk_gather_cuda(
     counts: torch.Tensor, *, alive: Optional[torch.Tensor] = None,
     bm: int = 128, bn: int = 512,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on the current stream of ``r``'s device."""
+    """Launch the kernel on the current stream of ``r``'s device. Any d
+    and any k: past d = 128 or k = 64 the kernel's general form runs,
+    with each query's run in a scratch of 2k entries allocated here."""
     global launches
     if not r.is_cuda:
         raise ValueError(f"gather kernel: r must be a CUDA tensor, got "
@@ -147,16 +152,16 @@ def distance_topk_gather_cuda(
     n_r, d = r.shape
     n_s = s.shape[0]
     nr_tiles = -(-n_r // bm) if bm >= 1 else 0
-    if (s.shape[1] != d or not 1 <= d <= MAX_DIM or not 1 <= k <= MAX_K
-            or bm < 1 or bn < 1 or n_s < 1
+    if (s.shape[1] != d or d < 1 or k < 1 or bm < 1 or bn < 1 or n_s < 1
             or schedule.shape[0] != nr_tiles or schedule.shape[1] < 1
             or nr_tiles > 65535
             or counts.shape[0] != nr_tiles
             or (alive is not None and alive.shape[0] != n_s)
             or n_r * d >= 2 ** 31 or n_s * d >= 2 ** 31):
         raise ValueError(
-            f"gather kernel takes 1 <= d <= {MAX_DIM}, 1 <= k <= {MAX_K}, "
-            f"a (ceil(n_r/bm), V >= 1) schedule and matching counts/alive; "
+            f"gather kernel takes d, k >= 1, fewer than 2^31 elements on "
+            f"each side, a (ceil(n_r/bm), V >= 1) schedule and matching "
+            f"counts/alive; "
             f"got r {tuple(r.shape)}, s {tuple(s.shape)}, k={k}, bm={bm}, "
             f"bn={bn}, schedule {tuple(schedule.shape)}, counts "
             f"{tuple(counts.shape)}"
@@ -165,11 +170,18 @@ def distance_topk_gather_cuda(
     out_p = torch.empty((n_r, k), dtype=torch.int32, device=dev)
     if n_r == 0:
         return out_d, out_p
+    run_d = run_p = None
+    if d > _REG_D or k > _REG_K:
+        run_d = torch.empty((n_r, 2 * k), dtype=torch.float32, device=dev)
+        run_p = torch.empty((n_r, 2 * k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _entry()(
             r.data_ptr(), s.data_ptr(), schedule.data_ptr(),
             counts.data_ptr(), None if alive is None else alive.data_ptr(),
-            out_d.data_ptr(), out_p.data_ptr(), n_r, n_s, d, k, bm, bn,
+            out_d.data_ptr(), out_p.data_ptr(),
+            None if run_d is None else run_d.data_ptr(),
+            None if run_p is None else run_p.data_ptr(),
+            n_r, n_s, d, k, bm, bn,
             nr_tiles, schedule.shape[1],
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -221,7 +233,7 @@ def distance_topk_plain(
 def _dense_entry():
     """K-D's C entry, loaded and typed once per process."""
     fn = build.library("dense_topk").repro_dense_topk
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -233,7 +245,8 @@ def distance_topk_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K-D on the current stream of ``r``'s device: a partial
     top-k per (32 queries, split of the S tiles) block, then a merge of
-    the splits per query."""
+    the splits per query. Any d and any k: past k = 64 the runs are wide
+    (k entries in scratch allocated here, two buffers a query)."""
     global dense_launches
     if not r.is_cuda:
         raise ValueError(f"dense kernel: r must be a CUDA tensor, got "
@@ -247,12 +260,12 @@ def distance_topk_cuda(
     ns_tiles = -(-n_s // bn) if bn >= 1 else 0
     if visit_mask is not None:
         _check("visit_mask", visit_mask, torch.int8, 2, dev)
-    if (s.shape[1] != d or d < 1 or not 1 <= k <= MAX_K or bm < 1
+    if (s.shape[1] != d or d < 1 or k < 1 or bm < 1
             or bn < 1 or n_s < 1 or n_s >= 2 ** 31 or n_r >= 2 ** 31
             or (visit_mask is not None
                 and tuple(visit_mask.shape) != (nr_tiles, ns_tiles))):
         raise ValueError(
-            f"dense kernel takes d >= 1, 1 <= k <= {MAX_K}, 1 <= n_s < 2^31 "
+            f"dense kernel takes d, k >= 1, 1 <= n_s < 2^31 "
             f"and a (ceil(n_r/bm), ceil(n_s/bn)) int8 visit mask; got r "
             f"{tuple(r.shape)}, s {tuple(s.shape)}, k={k}, bm={bm}, bn={bn}"
             + ("" if visit_mask is None
@@ -261,18 +274,27 @@ def distance_topk_cuda(
     out_p = torch.empty((n_r, k), dtype=torch.int32, device=dev)
     if n_r == 0:
         return out_d, out_p
-    kp = max(8, next_pow2(k))
+    wide = k > _REG_K
+    kp = 2 * k if wide else max(8, next_pow2(k))
     nr_blocks = nr_tiles * -(-bm // _DENSE_BQ)
     n_splits = min(ns_tiles, 65535,
                    max(1, -(-_DENSE_TARGET_BLOCKS // nr_blocks)))
     part_d = torch.empty((n_splits, n_r, kp), dtype=torch.float32,
                          device=dev)
     part_p = torch.empty((n_splits, n_r, kp), dtype=torch.int32, device=dev)
+    scratch_d = scratch_p = None
+    if wide:
+        scratch_d = torch.empty((n_r, 2 * k), dtype=torch.float32,
+                                device=dev)
+        scratch_p = torch.empty((n_r, 2 * k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _dense_entry()(
             r.data_ptr(), s.data_ptr(),
             None if visit_mask is None else visit_mask.data_ptr(),
-            part_d.data_ptr(), part_p.data_ptr(), out_d.data_ptr(),
+            part_d.data_ptr(), part_p.data_ptr(),
+            None if scratch_d is None else scratch_d.data_ptr(),
+            None if scratch_p is None else scratch_p.data_ptr(),
+            out_d.data_ptr(),
             out_p.data_ptr(), n_r, n_s, d, k, bm, bn, n_splits,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -14,10 +14,12 @@ import torch
 
 from . import assign as _assign
 from . import distance_topk as _gather
+from . import flash_attention as _flash
 from . import quant_topk as _quant
 
 __all__ = ["assign", "distance_topk", "distance_topk_gather",
-           "quant_coarse_topk", "launch_counts", "reset_launch_counts"]
+           "flash_attention", "quant_coarse_topk", "launch_counts",
+           "reset_launch_counts"]
 
 
 def assign(x: torch.Tensor, pivots: torch.Tensor
@@ -70,11 +72,28 @@ def quant_coarse_topk(
               schedule, counts, bm=bm, bn=bn)
 
 
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention over q ``(b, nq, h, d)`` and k, v ``(b, nk, kvh, d)``
+    (GQA), queries right-aligned to the keys, causal and/or windowed;
+    output ``(b, nq, h, d)`` in q's dtype, float32 math inside. The LM's
+    every attention layer, prefill and decode."""
+    if q.is_cuda:
+        return _flash.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, scale=scale)
+    return _flash.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, scale=scale)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches in this process since the last reset."""
     return {"assign": _assign.launches,
             "distance_topk": _gather.dense_launches,
             "distance_topk_gather": _gather.launches,
+            "flash_attention": _flash.launches,
             "quant_coarse_gather": _quant.launches}
 
 
@@ -82,4 +101,5 @@ def reset_launch_counts() -> None:
     _assign.launches = 0
     _gather.dense_launches = 0
     _gather.launches = 0
+    _flash.launches = 0
     _quant.launches = 0

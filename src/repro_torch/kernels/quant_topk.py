@@ -32,7 +32,7 @@ from . import build
 
 __all__ = ["NUM_DELTA_REL", "NUM_TOL_ABS", "coarse_lb_tile",
            "quant_coarse_topk_plain", "quant_coarse_sched_plain",
-           "quant_coarse_gather_cuda", "launches", "MAX_MP", "MAX_DIM"]
+           "quant_coarse_gather_cuda", "launches"]
 
 # float32 rounding allowance of the rescale + √: |d2_f32 − d2_exact| ≤
 # δ = NUM_DELTA_REL·(‖q̂‖² + ‖ŝ‖²) — the int8 dot and the squared norms
@@ -43,9 +43,6 @@ NUM_DELTA_REL = 2e-6
 NUM_TOL_ABS = 1e-7
 _DELTA_F32 = float(np.float32(NUM_DELTA_REL))
 _TOL_F32 = float(np.float32(NUM_TOL_ABS))
-
-MAX_MP = 512     # widest shortlist the kernel keeps in shared memory
-MAX_DIM = 128
 
 # launches of the CUDA kernel in this process (read and reset through
 # ``kernels.ops``)
@@ -188,7 +185,7 @@ def quant_coarse_sched_plain(qi, qscale, qeps, theta, si, sscale, seps,
 def _entry():
     """The kernel's C entry, loaded and typed once per process."""
     fn = build.library("quant_coarse").repro_quant_coarse
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -210,7 +207,10 @@ def quant_coarse_gather_cuda(qi, qscale, qeps, theta, si, sscale, seps,
     ``qi`` (n_r, d) int8, ``qscale``/``qeps``/``theta`` (n_r,) float32,
     ``si`` (ns_tiles·bn, d) int8, ``sscale`` (ns_tiles,) float32,
     ``seps`` (ns_tiles·bn,) float16, ``alive`` (ns_tiles·bn,) float32,
-    ``schedule`` (ceil(n_r/bm), V) int32, ``counts`` int32."""
+    ``schedule`` (ceil(n_r/bm), V) int32, ``counts`` int32. Any d and
+    any power-of-two mp: past d = 128 or mp = 512 the kernel's general
+    form runs, with each query's shortlist in a scratch of 2·mp entries
+    allocated here."""
     global launches
     if not qi.is_cuda:
         raise ValueError(f"quant coarse kernel: qi must be a CUDA tensor, "
@@ -219,16 +219,15 @@ def quant_coarse_gather_cuda(qi, qscale, qeps, theta, si, sscale, seps,
     n_r, d = qi.shape
     n_s = si.shape[0]
     nr_tiles = -(-n_r // bm) if bm >= 1 else 0
-    if (not 1 <= d <= MAX_DIM or not 1 <= mp <= MAX_MP or mp & (mp - 1)
-            or bm < 1 or bn < 1 or n_s < bn or n_s % bn
-            or not 1 <= nr_tiles <= 65535 or schedule.dim() != 2
+    if (d < 1 or mp < 1 or mp & (mp - 1) or bm < 1 or bn < 1
+            or n_s < bn or n_s % bn or not 1 <= nr_tiles <= 65535 or schedule.dim() != 2
             or schedule.shape[1] < 1 or n_r * d >= 2 ** 31
             or n_s * d >= 2 ** 31):
         raise ValueError(
-            f"quant coarse kernel takes 1 <= d <= {MAX_DIM}, mp a power of "
-            f"two <= {MAX_MP}, S tile-padded to a multiple of bn and 1..65535 "
-            f"R tiles; got qi {tuple(qi.shape)}, si {tuple(si.shape)}, "
-            f"mp={mp}, bm={bm}, bn={bn}, schedule {tuple(schedule.shape)}")
+            f"quant coarse kernel takes d >= 1, mp a power of two, S "
+            f"tile-padded to a multiple of bn, 1..65535 R tiles and fewer "
+            f"than 2^31 codes on each side; got qi {tuple(qi.shape)}, si "
+            f"{tuple(si.shape)}, mp={mp}, bm={bm}, bn={bn}, schedule {tuple(schedule.shape)}")
     ns_tiles = n_s // bn
     for name, t, dtype, shape in (
             ("qi", qi, torch.int8, (n_r, d)),
@@ -245,12 +244,18 @@ def quant_coarse_gather_cuda(qi, qscale, qeps, theta, si, sscale, seps,
         _check(name, t, dtype, shape, dev)
     out_lb = torch.empty((n_r, mp), dtype=torch.float32, device=dev)
     out_pos = torch.empty((n_r, mp), dtype=torch.int32, device=dev)
+    run_lb = run_pos = None
+    if d > 128 or mp > 512:     # past the register query / shared-memory run
+        run_lb = torch.empty((n_r, 2 * mp), dtype=torch.float32, device=dev)
+        run_pos = torch.empty((n_r, 2 * mp), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _entry()(
             qi.data_ptr(), qscale.data_ptr(), qeps.data_ptr(),
             theta.data_ptr(), si.data_ptr(), sscale.data_ptr(),
             seps.data_ptr(), alive.data_ptr(), schedule.data_ptr(),
             counts.data_ptr(), out_lb.data_ptr(), out_pos.data_ptr(),
+            None if run_lb is None else run_lb.data_ptr(),
+            None if run_pos is None else run_pos.data_ptr(),
             n_r, n_s, d, mp, bm, bn, nr_tiles, schedule.shape[1],
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -1,6 +1,6 @@
-"""Serving, PyTorch port of the JAX package's ``serve``: the kNN-LM
-datastore (``retrieval``) and the fault-injection hooks
-(``faultinject``).
+"""Serving, PyTorch port of the JAX package's ``serve``: batched
+generation (``serve_step``), the kNN-LM datastore (``retrieval``) and
+the fault-injection hooks (``faultinject``).
 
 Lazy (PEP 562) exports of only what the port has: ``core.megastep``
 fires ``faultinject`` sites, so importing this package must stay light.
@@ -8,6 +8,11 @@ fires ``faultinject`` sites, so importing this package must stay light.
 import importlib
 
 _EXPORTS = {
+    "BatchedServer": "serve_step",
+    "ServeConfig": "serve_step",
+    "make_serve_step": "serve_step",
+    "make_knn_hook": "serve_step",
+    "sample": "serve_step",
     "Datastore": "retrieval",
     "KnnLMConfig": "retrieval",
     "interpolate": "retrieval",
@@ -18,11 +23,11 @@ _EXPORTS = {
     "ShardFailedError": "faultinject",
 }
 
-__all__ = sorted(_EXPORTS) + ["faultinject", "retrieval"]
+__all__ = sorted(_EXPORTS) + ["faultinject", "retrieval", "serve_step"]
 
 
 def __getattr__(name):
-    if name in ("faultinject", "retrieval"):
+    if name in ("faultinject", "retrieval", "serve_step"):
         return importlib.import_module(f".{name}", __name__)
     mod = _EXPORTS.get(name)
     if mod is None:

@@ -289,3 +289,180 @@ def test_retrieval_routes_on_the_card(cuda):
         store.add_entries(rt.forest_like(1000, 10, seed=4 + step),
                           vals[30000:])
         store.remove_entries(np.arange(step, 30000, 101))
+
+
+# ---- the lifted caps: any d for K-A / K-G / K-Q, any k for K-G / K-D,
+# any power-of-two mp for K-Q
+
+
+def test_assign_kernel_any_width(cuda):
+    """K-A past d = 128 (the wide kernel) against its plain version: the
+    same d² chain limit as K-G's, ids equal but at near-ties."""
+    rng = np.random.default_rng(3)
+    n, m, dim = 3000, 70, 300
+    x = torch.as_tensor(rng.normal(size=(n, dim)).astype(np.float32),
+                        device=cuda)
+    p = torch.as_tensor(rng.normal(size=(m, dim)).astype(np.float32),
+                        device=cuda)
+    pid, dist = ka.assign_cuda(x, p)
+    rpid, rdist = ka.assign_plain(x, p)
+    assert (pid == rpid).float().mean() > 0.999
+    x64, p64 = x.double(), p.double()
+    tol = ((x64 * x64).sum(1) + (p64 * p64).sum(1).max()) \
+        * 2 * (2 * dim + 8) * 2.0 ** -24
+    assert bool(((dist.double() ** 2 - rdist.double() ** 2).abs()
+                 <= tol).all())
+
+
+def _gather_case(cuda, rng, nr, ns, dim, bm, bn, dead):
+    r = torch.as_tensor(rng.normal(size=(nr, dim)).astype(np.float32),
+                        device=cuda)
+    s = torch.as_tensor(rng.normal(size=(ns, dim)).astype(np.float32),
+                        device=cuda)
+    alive = torch.as_tensor((rng.random(ns) >= dead).astype(np.float32),
+                            device=cuda)
+    nr_t, ns_t = -(-nr // bm), -(-ns // bn)
+    counts = rng.integers(1, ns_t + 1, nr_t)
+    sched = np.zeros((nr_t, ns_t), np.int32)
+    for t in range(nr_t):
+        picks = np.sort(rng.choice(ns_t, counts[t], replace=False))
+        sched[t, :counts[t]], sched[t, counts[t]:] = picks, picks[-1]
+    return (r, s, torch.as_tensor(sched, device=cuda),
+            torch.as_tensor(counts.astype(np.int32), device=cuda), alive)
+
+
+@pytest.mark.parametrize("k,dim", [(100, 10), (10, 160), (300, 200)])
+def test_gather_kernel_any_width_and_k(cuda, k, dim):
+    """K-G's general kernel (past d = 128 or k = 64) against the plain
+    version, as the register kernel's test holds it."""
+    rng = np.random.default_rng(k + dim)
+    bm, bn = 32, 128
+    r, s, sched, counts, alive = _gather_case(cuda, rng, 150, 3000, dim,
+                                              bm, bn, 0.2)
+    d, i = kg.distance_topk_gather_cuda(r, s, k, sched, counts, alive=alive,
+                                        bm=bm, bn=bn)
+    rd, ri = kg.distance_topk_gather_plain(r, s, k, sched, counts,
+                                           alive=alive, bm=bm, bn=bn)
+    fin = torch.isfinite(rd)
+    assert torch.equal(torch.isfinite(d), fin)
+    torch.testing.assert_close(d[fin], rd[fin], atol=1e-4, rtol=1e-5)
+    assert (i == ri)[fin].float().mean() > 0.999
+    assert bool((i[~fin] == -1).all())
+
+
+def test_gather_general_kernel_equals_register_kernel(cuda):
+    """The general kernel computes the register kernel's d² chain: its
+    first 64 entries at k = 65 are the register kernel's k = 64 run, bit
+    for bit."""
+    rng = np.random.default_rng(9)
+    r, s, sched, counts, alive = _gather_case(cuda, rng, 200, 4000, 12, 32,
+                                              128, 0.1)
+    d64, i64 = kg.distance_topk_gather_cuda(r, s, 64, sched, counts,
+                                            alive=alive, bm=32, bn=128)
+    d65, i65 = kg.distance_topk_gather_cuda(r, s, 65, sched, counts,
+                                            alive=alive, bm=32, bn=128)
+    assert torch.equal(d65[:, :64], d64) and torch.equal(i65[:, :64], i64)
+
+
+@pytest.mark.parametrize("k,masked", [(128, False), (100, True)])
+def test_dense_kernel_wide_k(cuda, k, masked):
+    """K-D past k = 64 (wide runs) against its plain version, and its
+    first 64 entries at k = 65 bitwise the register runs' k = 64."""
+    from repro_torch.kernels import distance_topk as kd
+    rng = np.random.default_rng(k)
+    nr, ns, bm, bn, dim = 300, 20000, 128, 512, 10
+    r = torch.as_tensor(rng.normal(size=(nr, dim)).astype(np.float32),
+                        device=cuda)
+    s = torch.as_tensor(rng.normal(size=(ns, dim)).astype(np.float32),
+                        device=cuda)
+    mask = None
+    if masked:
+        mask = torch.as_tensor((rng.random((-(-nr // bm), -(-ns // bn)))
+                                < 0.5).astype(np.int8), device=cuda)
+    kw = dict(visit_mask=mask, bm=bm, bn=bn)
+    dk, ik = kd.distance_topk_cuda(r, s, k, **kw)
+    dp, ip = kd.distance_topk_plain(r, s, k, **kw)
+    full = ip >= 0
+    assert torch.equal(ik >= 0, full)
+    r64, s64 = r.double(), s.double()
+    s2 = (s64 * s64).sum(1)
+    ikc, ipc = ik.long().clamp(min=0), ip.long().clamp(min=0)
+    tol = ((r64 * r64).sum(1)[:, None] + torch.maximum(s2[ikc], s2[ipc])) \
+        * 2 * (2 * dim + 8) * 2.0 ** -24
+    assert bool(((dk.double() ** 2 - dp.double() ** 2).abs()
+                 <= tol)[full].all())
+    d64, i64 = kd.distance_topk_cuda(r, s, 64, **kw)
+    d65, i65 = kd.distance_topk_cuda(r, s, 65, **kw)
+    assert torch.equal(d65[:, :64], d64) and torch.equal(i65[:, :64], i64)
+
+
+@pytest.mark.parametrize("mp,dim", [(1024, 10), (64, 160), (1024, 300)])
+def test_quant_coarse_kernel_any_width_and_mp(cuda, mp, dim):
+    """K-Q's general kernel (past d = 128 or mp = 512) against its plain
+    version: lb bit-equal, positions equal."""
+    from repro_torch.kernels import quant_topk as kq
+    rng = np.random.default_rng(mp + dim)
+    bm, bn = 32, 128
+    args = [t.to(cuda) for t in _quant_case(rng, 100, 3000, dim, bm, bn,
+                                            0.1)]
+    sched, counts = args[8], args[9]
+    lb, pos = kq.quant_coarse_gather_cuda(*args[:8], mp, sched, counts,
+                                          bm=bm, bn=bn)
+    rlb, rpos = kq.quant_coarse_sched_plain(*args[:8], mp, sched, counts,
+                                            bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert torch.equal(lb.view(torch.int32), rlb.view(torch.int32))
+    assert torch.equal(pos, rpos)
+    assert bool(torch.isfinite(lb).any())
+
+
+# ---- K-F, the flash attention kernel
+
+
+def _attn_inputs(cuda, rng, b, nq, nk, h, kvh, d, dtype, cache_len=None):
+    q = torch.as_tensor(rng.normal(size=(b, nq, h, d)).astype(np.float32),
+                        device=cuda).to(dtype)
+    c = nk if cache_len is None else cache_len
+    kc = torch.as_tensor(rng.normal(size=(b, c, kvh, d)).astype(np.float32),
+                         device=cuda).to(dtype)
+    vc = torch.as_tensor(rng.normal(size=(b, c, kvh, d)).astype(np.float32),
+                         device=cuda).to(dtype)
+    return q, kc[:, :nk], vc[:, :nk]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("case", ["causal", "window", "decode", "no_key"])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, d, case):
+    """K-F against its plain version. k and v are live slices of a longer
+    cache (read in place through their strides). fp32: within 2e-5 abs
+    (the dot products and sums run in another order); bf16: within one
+    bf16 rounding of the output (2⁻⁷ relative) — both versions compute
+    in fp32 and round once. ``no_key``: rows right-aligned before the
+    first key see nothing and come out 0."""
+    from repro_torch.kernels import flash_attention as kf
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(d)
+    shapes = {"causal": (2, 300, 300, 6, 2, None),
+              "window": (2, 300, 300, 4, 4, 50),
+              "decode": (3, 1, 333, 6, 2, None),
+              "no_key": (2, 20, 7, 4, 1, None)}
+    b, nq, nk, h, kvh, window = shapes[case]
+    q, k, v = _attn_inputs(cuda, rng, b, nq, nk, h, kvh, d, dt,
+                           cache_len=nk + 40)
+    assert not k.is_contiguous()
+    ops.reset_launch_counts()
+    out = kf.flash_attention_cuda(q, k, v, causal=True, window=window)
+    ref = kf.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert out.dtype == dt and out.shape == (b, nq, h, d)
+    a, r = out.float(), ref.float()
+    if dt == torch.float32:
+        assert float((a - r).abs().max()) <= 2e-5
+    else:
+        lim = 2.0 ** -7 * torch.maximum(a.abs(), r.abs()) + 1e-6
+        assert bool(((a - r).abs() <= lim).all())
+    if case == "no_key":
+        assert bool((out[:, :nq - nk] == 0).all())
+        assert bool((out[:, nq - nk:] != 0).any())

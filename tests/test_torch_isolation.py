@@ -26,6 +26,9 @@ def test_import_loads_neither_jax_nor_repro():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.serve.retrieval, repro_torch.core.segments\n"
+        "import repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.serve.serve_step, repro_torch.launch.serve\n"
+        "import repro_torch.kernels.flash_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n")
@@ -54,13 +57,21 @@ def _small():
 @pytest.mark.parametrize("entry", [
     "build_index", "knn_join_batched", "MegastepEngine", "StreamJoinEngine",
     "sindex_from_arrays", "brute_force_knn", "knn_join",
-    "QuantMegastepEngine", "MutableIndex", "Datastore"])
+    "QuantMegastepEngine", "MutableIndex", "Datastore", "init_params",
+    "init_cache", "params_from_jax", "BatchedServer", "launch.serve"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises;
     it never carries on silently on the CPU."""
     s, r = _small()
     cfg = rt.JoinConfig(k=3, n_pivots=8, tile_r=16, tile_s=32)
     idx = rt.build_index(s, cfg, device="cpu")
+    from repro_torch import configs, models, serve
+    from repro_torch.launch import serve as launch_serve
+    lm = configs.get_reduced("llama3.2-3b")
+    cpu_params = models.init_params(lm, torch.Generator(), device="cpu")
+    np_params = {"embed": cpu_params["embed"].float().numpy(),
+                 "final_norm": {"scale": np.ones(lm.d_model, np.float32)},
+                 "groups": []}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
         "build_index": lambda: rt.build_index(s, cfg),
@@ -75,6 +86,16 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         "MutableIndex": lambda: rt.MutableIndex.build(s, cfg),
         "Datastore": lambda: rt.serve.Datastore.build(s, np.zeros(300),
                                                       k=3, n_pivots=8),
+        "init_params": lambda: models.init_params(lm, torch.Generator()),
+        "init_cache": lambda: models.init_cache(lm, 2, 8),
+        "params_from_jax": lambda: models.params_from_jax(np_params, lm),
+        # the server runs where its parameters live: they come from the
+        # card unless made with device="cpu"
+        "BatchedServer": lambda: serve.BatchedServer(
+            lm, serve.ServeConfig(), models.init_params(
+                lm, torch.Generator())),
+        "launch.serve": lambda: launch_serve.main(
+            ["--arch", "llama3.2-3b", "--reduced"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -156,3 +177,7 @@ def test_kernel_wrappers_take_no_cpu_tensor():
             qi, v, v, v, si, torch.ones((2,)),
             torch.zeros((64,), dtype=torch.float16), torch.ones((64,)), 16,
             sched, cnt, bm=16, bn=32)
+    from repro_torch.kernels import flash_attention as kf
+    q = torch.zeros((1, 4, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        kf.flash_attention_cuda(q, q, q)
