@@ -20,7 +20,7 @@ against a float64 brute force and against each other. Phases:
 2. K-A (nearest pivot) vs its plain version, n = 581,012, M = 256, d = 10;
 3. K-G (scheduled gather top-k) vs its plain version on one 4096-query
    bucket with the schedule the megastep's stage 3 made for it and ~1 %
-   of the rows dead;
+   of the rows dead, with its split count;
 4. the serving path, with both kernels' launch counters reset before it
    and read after it (each must be > 0);
 5. the join against the float64 brute force on 2048 sampled queries;
@@ -63,22 +63,27 @@ against a float64 brute force and against each other. Phases:
 13. the shapes the kernels refused before: K-A at d = 3,072, K-G at d =
    256 / 1,024 (65,536 Gaussian rows) and at k = 100 / 1,024 (phase 3's
    bucket), K-D at k = 128 (phase 10 (a)), K-Q at d = 256 and mp =
-   1,024 — each against its plain version;
+   1,024 — each against its plain version — and K-G's widest register
+   form (d = 128, k = 64, 65,536 Gaussian rows);
 14. the LM serving path: K-F (flash attention) vs its plain version at
-   the prefill, windowed and decode shapes with SDPA timed beside it;
+   the prefill, windowed and decode shapes and at d = 192, with SDPA
+   timed beside it and each shape's route and split count printed, and
+   the tensor-core instructions in K-F's SASS counted (none fails);
    ``BatchedServer`` + ``make_knn_hook`` over a 1,048,576-key
    ``Datastore``, 16 requests of 512-2,048 tokens, batch 8, 32 greedy
    tokens, counted (K-F once per layer per forward, K-G every decode
    step, K-A in the build), every retrieval exact against float64,
    every layer's K-F output of one prefill and one decode step against
    the plain version; the reduced model on the card and the CPU with
-   the same weights (logits within tolerance, tokens equal).
+   the same weights (logits within 2e-5 + 2e-5·|logit|, tokens equal).
 
 Every time printed stands beside the card's name and power limit. The
 line before the last two is one JSON object with each kernel's launches,
 error, times and bound; the line before the last is the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Any failure
-exits non-zero before those lines. Long reports (nvcc's ``ptxas``
+exits non-zero before those lines, with its message on stdout and stderr
+(also without a card, or where the script stands alone, away from the
+repository's ``src/``). Long reports (nvcc's ``ptxas``
 output, the two profiles by kernel) go to ``--out`` (default
 ``build/chip_smoke/``). Needs one card, no network; imports nothing of
 JAX.
@@ -132,6 +137,18 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def cpu_line() -> str:
+    """The host CPU's model name (``/proc/cpuinfo``), where Linux gives it."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return "CPU model not known"
 
 
 def time_ms(fn, *, warmup: int = 2, iters: int = 10) -> float:
@@ -286,6 +303,7 @@ def gather_case(card, torch, what: str, g: dict, k: int, *,
     args = (qcs, s_c, k, sched, cnt)
     kw = dict(alive=alive, bm=bm, bn=bn)
     d_k, p_k = kg.distance_topk_gather_cuda(*args, **kw)
+    plan = kg.last_plan
     d_p, p_p = kg.distance_topk_gather_plain(*args, **kw)
     torch.cuda.synchronize()
     full = p_p >= 0
@@ -310,13 +328,17 @@ def gather_case(card, torch, what: str, g: dict, k: int, *,
     b_ms, b_by = bound(n_bytes, pairs * (2 * d + 3))
     frac = float(counts.sum()) / (nr_tiles * ns_tiles)
     print(f"[{card}] K-G gather top-k ({what}) bucket={qcs.shape[0]} d={d} "
-          f"k={k} bm={bm} bn={bn}: visited-tile fraction {frac:.4f}, "
+          f"k={k} bm={bm} bn={bn}, {plan.splits} splits of {plan.per} "
+          f"schedule slots, {plan.warps} warps of {plan.qw} queries a block: "
+          f"visited-tile "
+          f"fraction {frac:.4f}, "
           f"positions equal {same:.6f} (rest near-ties), max |dist err| "
           f"{err:.3e}, max |d² err| {used:.3e} of its pair's tolerance "
           f"({tol_text(tol)}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     return dict(shape=what, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                splits=plan.splits)
 
 
 def phase_gather(card, torch, rt, s_np, r_np, cfg):
@@ -861,7 +883,10 @@ def attention_case(card, torch, what: str, q, k, v, *, window=None,
     bytes of q, k, v and o at the HBM rate and the visible pairs'
     4·d operations at the bf16 tensor-core peak."""
     from repro_torch.kernels import flash_attention as kf
+    b, nq, h, d = q.shape
+    nk, kvh = k.shape[1], k.shape[2]
     out = kf.flash_attention_cuda(q, k, v, window=window)
+    plan = kf.last_plan
     ref = kf.flash_attention_plain(q, k, v, window=window)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out.float()).all()),
@@ -876,8 +901,6 @@ def attention_case(card, torch, what: str, q, k, v, *, window=None,
                                                         window=window),
                        warmup=1, iters=2)
     lib_ms = None if library is None else time_ms(library, iters=10)
-    b, nq, h, d = q.shape
-    nk = k.shape[1]
     pos = torch.arange(nq, device=DEV, dtype=torch.float64) + (nk - nq)
     lo = torch.zeros_like(pos) if window is None else \
         torch.clamp(pos - window + 1, min=0)
@@ -888,16 +911,23 @@ def attention_case(card, torch, what: str, q, k, v, *, window=None,
     t_b = n_bytes / H100_HBM_BYTES_S * 1e3
     t_f = 4.0 * d * pairs / H100_BF16_FLOPS_S * 1e3
     b_ms, b_by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+    # the tensor-core form does 2d operations per pair for q·k and 3 x 2d
+    # for the exact p·v (p split in three bf16 terms): its own floor
+    floor_ms = (max(t_b, 2.0 * t_f) if plan.route == "mma" else b_ms)
     print(f"[{card}] K-F flash attention ({what}) q {tuple(q.shape)} kv "
           f"{tuple(k.shape)} {str(q.dtype).removeprefix('torch.')}"
           + ("" if window is None else f" window {window}")
-          + f": max |err| {err:.3e} ({used:.3f} of the limit) vs the plain "
+          + f", route {plan.route} (width {plan.width}, {plan.zc} column "
+          f"chunks, {plan.splits} key splits of {plan.split_keys}): max "
+          f"|err| {err:.3e} ({used:.3f} of the limit) vs the plain "
           f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           + ("" if lib_ms is None else f"SDPA {lib_ms:.4f} ms, ")
           + f"bound {b_ms:.4f} ms ({b_by}: {pairs:.4e} visible pairs x 4d "
-          f"bf16 operations, {n_bytes:.4e} bytes)", flush=True)
+          f"bf16 operations, {n_bytes:.4e} bytes), this design's floor "
+          f"{floor_ms:.4f} ms", flush=True)
     return dict(shape=what, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                form=plan.route, splits=plan.splits)
 
 
 def check_retrieval(card, torch, what: str, queries, keys64, kn64, d, ids,
@@ -921,6 +951,25 @@ def check_retrieval(card, torch, what: str, queries, keys64, kn64, d, ids,
           f"{what}: a reported id lies beyond the true k-th distance")
     check(all(len(set(row)) == k for row in ids.tolist()),
           f"{what}: duplicate ids")
+
+
+def tensor_core_instructions(card, name: str) -> int:
+    """Tensor-core instructions (HGMMA, HMMA) in the SASS of one built
+    kernel library (``cuobjdump -sass``); fails if there are none."""
+    import os
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.path.exists(tool), "cuobjdump not found: cannot read K-F's SASS")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    found = re.findall(r"\b(?:HGMMA|HMMA)\.[\w.]+", sass)
+    check(len(found) > 0, f"{name}: no tensor-core instruction in its SASS")
+    print(f"[{card}] {name} SASS: {len(found)} tensor-core instructions "
+          f"({', '.join(sorted(set(found)))})", flush=True)
+    return len(found)
 
 
 def phase_lm(card, torch, rt, launches, out_dir: Path) -> dict:
@@ -980,7 +1029,16 @@ def phase_lm(card, torch, rt, launches, out_dir: Path) -> dict:
         library=lambda: F.scaled_dot_product_attention(
             q1t, k1t, v1t, enable_gqa=True))
     del q, k, v, qt, kt, vt, kc, vc, q1, k1, v1, q1t, k1t, v1t, wmask
+    # a head width no kernel is instantiated for (MLA's q·k width)
+    q, k, v = rand(2, n, h, 192), rand(2, n, kvh, 192), rand(2, n, kvh, 192)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    wide = attention_case(
+        card, torch, f"prefill b=2 nq=nk={n}, d=192", q, k, v,
+        library=lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+    n_mma = tensor_core_instructions(card, "flash_attn")
 
     # ---- (b) BatchedServer + the kNN-LM hook, counted
     opts = ModelOptions(dtype=torch.bfloat16)
@@ -1193,26 +1251,28 @@ def phase_lm(card, torch, rt, launches, out_dir: Path) -> dict:
     check(bool(((lg_dev - lg_dev_plain).abs()
                 <= 2e-5 + 2e-5 * lg_dev_plain.abs()).all()),
           f"reduced model: K-F moves the card's logits by {kf_diff:.3e}")
-    # card vs CPU: the same fp32 function through each device's own sin,
-    # cos, pow and exp (a few ulp apart; the CPU's vectorized versions
-    # depend on its ISA). At 300 positions a rotary angle reaches ~300
-    # rad, where one ulp of the RoPE frequencies moves these logits by
-    # ~1.7e-5 (measured on the CPU); the limit, 5e-4, is ~30 such ulps.
-    # K-F's own share is held to the fp32 limit above.
-    from repro_torch.models.layers import rope_freqs
+    # card vs CPU: the same fp32 function on both devices. The RoPE
+    # tables (frequencies, cos, sin) are taken in float64 and rounded once,
+    # so both devices hold the same float32 tables; what is left is each
+    # device's order of sums and its float32 exp / rsqrt / silu, within
+    # 2e-5 + 2e-5·|logit|.
+    from repro_torch.models.layers import rope_tables
     tables = []
     for where in ("cpu", DEV):
-        ang = (torch.arange(300, dtype=torch.float32, device=where)[:, None]
-               * rope_freqs(cfg_r.dh // 2, cfg_r.rope_theta, device=where))
-        tables.append(torch.cat([torch.cos(ang), torch.sin(ang)]).cpu())
+        pos = torch.arange(300, device=where)[None, :]
+        tables.append(torch.cat(rope_tables(pos, cfg_r.dh // 2,
+                                            cfg_r.rope_theta)).cpu())
     table_diff = float((tables[0] - tables[1]).abs().max())
     diff = float((lg_dev - lg_cpu).abs().max())
     plain_diff = float((lg_dev_plain - lg_cpu).abs().max())
-    isa = torch.backends.cpu.get_cpu_capability()
-    check(diff <= 5e-4, f"reduced model: card logits off the CPU's by "
-          f"{diff:.3e} > 5e-4 (with the plain attention on the card "
+    isa = f"{torch.backends.cpu.get_cpu_capability()}, {cpu_line()}"
+    check(table_diff == 0.0, f"reduced model: RoPE tables differ card vs CPU "
+          f"({isa}) by {table_diff:.3e}")
+    check(bool(((lg_dev - lg_cpu).abs() <= 2e-5 + 2e-5 * lg_cpu.abs()).all()),
+          f"reduced model: card logits off the CPU's by {diff:.3e}, past "
+          f"2e-5 + 2e-5·|logit| (with the plain attention on the card "
           f"{plain_diff:.3e}; K-F vs the plain attention on the card "
-          f"{kf_diff:.3e}; RoPE tables card vs CPU ({isa}) {table_diff:.3e})")
+          f"{kf_diff:.3e}; CPU {isa})")
     small = [rng.integers(0, cfg_r.vocab, int(n)).astype(np.int32)
              for n in (5, 130, 3, 260, 40)]
     got = {}
@@ -1223,9 +1283,9 @@ def phase_lm(card, torch, rt, launches, out_dir: Path) -> dict:
           "reduced model: greedy tokens differ between card and CPU")
     print(f"[{card}] reduced {LM_ARCH} (fp32, {count_params(cpu_params)} "
           f"parameters): card vs CPU logits over 4 x 300 tokens max |diff| "
-          f"{diff:.3e} (limit 5e-4; with the plain attention on the card "
-          f"{plain_diff:.3e}; RoPE cos/sin tables card vs CPU ({isa}) "
-          f"{table_diff:.3e}), K-F vs the plain attention on the "
+          f"{diff:.3e} (limit 2e-5 + 2e-5·|logit|; with the plain attention "
+          f"on the card {plain_diff:.3e}; RoPE cos/sin tables card vs CPU "
+          f"({isa}) bitwise equal), K-F vs the plain attention on the "
           f"card {kf_diff:.3e} (limit 2e-5 + 2e-5·|logit|); a repeated "
           f"forward on the card bitwise equal; greedy tokens of 5 requests "
           f"(batch 2, 8 tokens) equal", flush=True)
@@ -1234,7 +1294,8 @@ def phase_lm(card, torch, rt, launches, out_dir: Path) -> dict:
                source="src/repro_torch/csrc/flash_attn.cu",
                replaces="src/repro/kernels/flash_attention.py:27")
     row.update({key: prefill[key] for key in _ROW_KEYS})
-    row["other_shapes"] = [decode, windowed]
+    row["other_shapes"] = [decode, windowed, wide]
+    row["tensor_core_instructions"] = n_mma
     row["lm_serve"] = dict(
         tokens_per_s=n_tok / t_gen, prefill_ms=prefill_ms,
         decode_ms_median=float(np.median(decode_ms)),
@@ -1248,7 +1309,8 @@ def phase_caps(card, torch, rt, s_np, r_np, cfg, g_forest) -> dict:
     """13. The shapes the kernels refused before: K-A at d = 3,072, K-G at
     d = 256 / 1,024 and at k = 100 / 1,024, K-D at k = 128, K-Q at d =
     256 and at mp = 1,024 — each against its plain version, as its own
-    phase checks it. Returns the cases per kernel."""
+    phase checks it; and K-G's widest register form (d = 128, k = 64).
+    Returns the cases per kernel."""
     import numpy as np
     from repro_torch.kernels import distance_topk as kd
     caps = {"assign": [], "distance_topk_gather": [], "distance_topk": [],
@@ -1263,12 +1325,12 @@ def phase_caps(card, torch, rt, s_np, r_np, cfg, g_forest) -> dict:
     del x, piv
     rng = np.random.default_rng(13)
     cfg_g = rt.JoinConfig(k=10, n_pivots=256, tile_r=128, tile_s=512)
-    for d in (256, 1024):
+    for d, k in ((128, 64), (256, 10), (1024, 10)):
         s_g = rng.standard_normal((CAP_ROWS, d), dtype=np.float32)
         r_g = rng.standard_normal((BUCKET, d), dtype=np.float32)
         g = gather_inputs(torch, rt, s_g, r_g, cfg_g)
         caps["distance_topk_gather"].append(gather_case(
-            card, torch, f"d = {d}, {CAP_ROWS} Gaussian rows", g, 10))
+            card, torch, f"d = {d}, k = {k}, {CAP_ROWS} Gaussian rows", g, k))
         del g
         torch.cuda.empty_cache()
     for k in (100, 1024):
@@ -1348,8 +1410,11 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
     if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
+        raise SmokeFailure("no CUDA device available")
+    if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
+        raise SmokeFailure(f"the port's package is not beside this script "
+                           f"({ROOT / 'src' / 'repro_torch'}): run it from "
+                           f"a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch as rt
     from repro_torch.kernels import build, ops
@@ -1582,5 +1647,6 @@ if __name__ == "__main__":
     try:
         sys.exit(main())
     except SmokeFailure as e:
-        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        for stream in (sys.stdout, sys.stderr):
+            print(f"chip_smoke: FAILED: {e}", file=stream, flush=True)
         sys.exit(1)

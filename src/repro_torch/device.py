@@ -12,7 +12,13 @@ from typing import Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "SMS", "BLOCKS_PER_SM"]
+
+# The card the kernels' grids are cut for: an H100 SXM's streaming
+# multiprocessors, and the blocks per SM that K-D's, K-G's and K-F's
+# host-side split planners aim at.
+SMS = 132
+BLOCKS_PER_SM = 4
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:

@@ -20,7 +20,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "library"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "library", "library_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -88,6 +88,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
                 proc.wait()
             if tmp.exists():
                 tmp.unlink()
+
+
+def library_path(name: str) -> Path:
+    """Where the built library of one kernel source lives (built or not)."""
+    return _lib_path(name)
 
 
 def library(name: str) -> ctypes.CDLL:

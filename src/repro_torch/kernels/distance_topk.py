@@ -20,6 +20,11 @@ Its candidates of a slot all lie past the run's positions because
 schedule rows are ascending (``core.schedule.compact_visits``), so the
 stable sort is what sends ties to the lower position.
 
+K-G cuts each R tile's schedule row into contiguous visit ranges
+(:func:`plan_gather`, from static shapes only) and merges the ranges'
+partial runs in (d², position) order; the selection is exact, so every
+cut gives the plain version's bits.
+
 K-D replaces the Pallas ``distance_topk_kernel``
 (``kernels/distance_topk.py:71``, wrapper ``distance_topk_pallas``):
 the same function over every (R tile, S tile) pair whose
@@ -34,16 +39,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import BLOCKS_PER_SM, SMS
 from . import build
 from .sorted_merge import next_pow2
 
 __all__ = ["distance_topk_gather_plain", "distance_topk_gather_cuda",
            "distance_topk_plain", "distance_topk_cuda", "launches",
-           "dense_launches"]
+           "dense_launches", "last_plan", "GatherPlan", "plan_gather"]
 
 # widest run either kernel keeps in registers, and widest query K-G
 # holds there; past them the kernels keep wide runs in scratch the
@@ -55,20 +61,18 @@ _REG_D = 128
 # ``kernels.ops``)
 launches = 0
 dense_launches = 0
+# the plan of the last K-G launch (read by the card tests and chip_smoke.py)
+last_plan = None
 
 # distances the plain dense version holds at once (128 MB of float32)
 _PLAIN_STEP_ELEMS = 1 << 25
-# K-D: queries per block, and the blocks its S-axis split aims for
-# (~4 per SM of an H100's 132)
+# K-D: queries per block
 _DENSE_BQ = 32
-_DENSE_TARGET_BLOCKS = 4 * 132
 
 
-def distance_topk_gather_plain(
-    r: torch.Tensor, s: torch.Tensor, k: int, schedule: torch.Tensor,
-    counts: torch.Tensor, *, alive: Optional[torch.Tensor] = None,
-    bm: int = 128, bn: int = 512,
-) -> tuple[torch.Tensor, torch.Tensor]:
+def _gather_runs_plain(r, s, k, schedule, counts, alive, bm, bn):
+    """The scheduled kp-runs (d², int64 positions), kp = next_pow2(k),
+    shaped (nr_tiles, bm, kp); empty slots (+inf, -1)."""
     n_r, d = r.shape
     n_s = s.shape[0]
     dev = r.device
@@ -105,17 +109,66 @@ def distance_topk_gather_plain(
         cand_d, order = torch.sort(cand_d, dim=-1, stable=True)
         run_d = cand_d[..., :kp]
         run_p = torch.take_along_dim(cand_p, order[..., :kp], dim=-1)
-    run_p = torch.where(torch.isfinite(run_d), run_p, -1)
+    return run_d, torch.where(torch.isfinite(run_d), run_p, -1)
+
+
+def _runs_out(run_d, run_p, n_r, k):
+    """A (nr_tiles, bm, kp) run as the kernel's output: √ of the first k
+    d² (float32) and int32 positions, rows past n_r dropped."""
+    nr_tiles, bm = run_d.shape[:2]
     out_d = torch.sqrt(run_d[..., :k]).reshape(nr_tiles * bm, k)[:n_r]
     out_p = run_p[..., :k].reshape(nr_tiles * bm, k)[:n_r]
     return out_d, out_p.to(torch.int32)
+
+
+def distance_topk_gather_plain(
+    r: torch.Tensor, s: torch.Tensor, k: int, schedule: torch.Tensor,
+    counts: torch.Tensor, *, alive: Optional[torch.Tensor] = None,
+    bm: int = 128, bn: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    run_d, run_p = _gather_runs_plain(r, s, k, schedule, counts, alive, bm,
+                                      bn)
+    return _runs_out(run_d, run_p, r.shape[0], k)
+
+
+class GatherPlan(NamedTuple):
+    """How K-G's grid is cut: blocks of ``warps`` warps, each warp serving
+    ``qw`` queries, and each R tile's schedule row in ``splits``
+    contiguous visit ranges of ``per`` slots (split i covers slots
+    ``[i·per, (i+1)·per)``)."""
+    warps: int
+    qw: int
+    splits: int
+    per: int
+
+
+def plan_gather(n_r: int, d: int, k: int, bm: int, max_visits: int, *,
+                splits: Optional[int] = None) -> GatherPlan:
+    """K-G's cut from static shapes only (never ``counts``): about
+    ``BLOCKS_PER_SM`` blocks with a live query per SM, or the forced
+    ``splits``. Where the register runs and the query fit twice in
+    registers (k <= 16, d <= 32) a warp serves 2 queries, and a block has
+    16 warps where the batch fills them (held to 128 registers a thread);
+    every other form has 8 warps of one query each."""
+    pair = d <= 32 and k <= 16
+    qw = 2 if pair else 1
+    warps = 16 if pair and min(n_r, bm) >= 16 * qw else 8
+    qb = warps * qw
+    nr_tiles = -(-n_r // bm)
+    last = n_r - (nr_tiles - 1) * bm
+    live = (nr_tiles - 1) * -(-bm // qb) + -(-min(last, bm) // qb)
+    if splits is None:
+        splits = -(-BLOCKS_PER_SM * SMS // live)
+    want = max(1, min(int(splits), max_visits, 65535))
+    per = -(-max_visits // want)
+    return GatherPlan(warps, qw, -(-max_visits // per), per)
 
 
 @functools.cache
 def _entry():
     """The kernel's C entry, loaded and typed once per process."""
     fn = build.library("gather_topk").repro_gather_topk
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -133,12 +186,15 @@ def _check(name, t, dtype, dim, device):
 def distance_topk_gather_cuda(
     r: torch.Tensor, s: torch.Tensor, k: int, schedule: torch.Tensor,
     counts: torch.Tensor, *, alive: Optional[torch.Tensor] = None,
-    bm: int = 128, bn: int = 512,
+    bm: int = 128, bn: int = 512, splits: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on the current stream of ``r``'s device. Any d
-    and any k: past d = 128 or k = 64 the kernel's general form runs,
-    with each query's run in a scratch of 2k entries allocated here."""
-    global launches
+    """Launch the kernel on the current stream of ``r``'s device: each R
+    tile's schedule row cut into :func:`plan_gather`'s visit ranges
+    (``splits`` forces their number; every count gives the same bits),
+    then a merge of the ranges' partial runs. Any d and any k: past d =
+    128 or k = 64 the kernel's general form runs, with each query's run
+    in scratch of 2k entries a split allocated here."""
+    global launches, last_plan
     if not r.is_cuda:
         raise ValueError(f"gather kernel: r must be a CUDA tensor, got "
                          f"{r.device}")
@@ -170,23 +226,34 @@ def distance_topk_gather_cuda(
     out_p = torch.empty((n_r, k), dtype=torch.int32, device=dev)
     if n_r == 0:
         return out_d, out_p
-    run_d = run_p = None
-    if d > _REG_D or k > _REG_K:
-        run_d = torch.empty((n_r, 2 * k), dtype=torch.float32, device=dev)
-        run_p = torch.empty((n_r, 2 * k), dtype=torch.int32, device=dev)
+    max_visits = schedule.shape[1]
+    plan = plan_gather(n_r, d, k, bm, max_visits, splits=splits)
+    wide = d > _REG_D or k > _REG_K
+    width = 2 * k if wide else max(8, next_pow2(k))
+    part_d = part_p = scratch_d = scratch_p = None
+    if wide or plan.splits > 1:
+        part_d = torch.empty((plan.splits, n_r, width), dtype=torch.float32,
+                             device=dev)
+        part_p = torch.empty((plan.splits, n_r, width), dtype=torch.int32,
+                             device=dev)
+    if wide and plan.splits > 1:
+        scratch_d = torch.empty((n_r, 2 * k), dtype=torch.float32,
+                                device=dev)
+        scratch_p = torch.empty((n_r, 2 * k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _entry()(
             r.data_ptr(), s.data_ptr(), schedule.data_ptr(),
             counts.data_ptr(), None if alive is None else alive.data_ptr(),
             out_d.data_ptr(), out_p.data_ptr(),
-            None if run_d is None else run_d.data_ptr(),
-            None if run_p is None else run_p.data_ptr(),
-            n_r, n_s, d, k, bm, bn,
-            nr_tiles, schedule.shape[1],
+            *(None if t is None else t.data_ptr()
+              for t in (part_d, part_p, scratch_d, scratch_p)),
+            n_r, n_s, d, k, bm, bn, nr_tiles, max_visits, *plan,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gather kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"gather kernel launch failed: CUDA error {err} "
+                           f"(plan {plan})")
     launches += 1
+    last_plan = plan
     return out_d, out_p
 
 
@@ -278,7 +345,7 @@ def distance_topk_cuda(
     kp = 2 * k if wide else max(8, next_pow2(k))
     nr_blocks = nr_tiles * -(-bm // _DENSE_BQ)
     n_splits = min(ns_tiles, 65535,
-                   max(1, -(-_DENSE_TARGET_BLOCKS // nr_blocks)))
+                   max(1, -(-BLOCKS_PER_SM * SMS // nr_blocks)))
     part_d = torch.empty((n_splits, n_r, kp), dtype=torch.float32,
                          device=dev)
     part_p = torch.empty((n_splits, n_r, kp), dtype=torch.int32, device=dev)

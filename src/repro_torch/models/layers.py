@@ -29,8 +29,8 @@ from ..core.index import not_ported
 from ..kernels import ops
 
 __all__ = ["dense_init", "dense", "norm_init", "apply_norm", "rope_freqs",
-           "apply_rope", "mlp_init", "mlp_apply", "repeat_kv", "attn_init",
-           "attn_apply"]
+           "rope_tables", "apply_rope", "mlp_init", "mlp_apply", "repeat_kv",
+           "attn_init", "attn_apply"]
 
 Params = Dict[str, Any]
 
@@ -70,10 +70,32 @@ def apply_norm(p: Params, x: torch.Tensor, kind: str,
 
 
 # ------------------------------------------------------------------ RoPE
+# The JAX package builds these tables in float32 with its own pow, cos and
+# sin. Vectorized float32 versions of those ops differ by an ulp or more
+# between CPUs (by ISA) and between the CPU and the card, and at a few
+# hundred positions one ulp of an angle moves a logit by ~1e-5. So the
+# port computes the frequencies and the cos / sin in float64 and rounds
+# each once to float32 (the same float32 on every device, but where the
+# two devices' float64 values straddle a float32 rounding boundary, about
+# one value in 10^8); the angle stays JAX's float32 product position ×
+# freq, one IEEE multiply, the same bits everywhere.
 def rope_freqs(dh_half: int, theta: float, device=None) -> torch.Tensor:
-    e = torch.arange(dh_half, dtype=torch.float32, device=device) / dh_half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), e)
+    e = torch.arange(dh_half, dtype=torch.float64, device=device) / dh_half
+    return (1.0 / torch.pow(torch.tensor(theta, dtype=torch.float64,
+                                         device=device), e)
+            ).to(torch.float32)
+
+
+def rope_tables(positions: torch.Tensor, dh_half: int, theta: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of the float32 angles position × freq, each taken in
+    float64 and rounded once to float32: shape ``positions.shape +
+    (dh_half,)``."""
+    freqs = rope_freqs(dh_half, theta, device=positions.device)
+    angles = (positions[..., None].to(torch.float32) * freqs).to(
+        torch.float64)
+    return (torch.cos(angles).to(torch.float32),
+            torch.sin(angles).to(torch.float32))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -81,10 +103,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x (B, T, H, dh), positions (B, T) → rotated x (split halves, the
     rotation in float32)."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh // 2, theta, device=x.device)
-    angles = positions[..., None].to(torch.float32) * freqs     # (B, T, dh/2)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    cos, sin = rope_tables(positions, dh // 2, theta)            # (B, T, dh/2)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)

@@ -364,6 +364,53 @@ def test_gather_general_kernel_equals_register_kernel(cuda):
     assert torch.equal(d65[:, :64], d64) and torch.equal(i65[:, :64], i64)
 
 
+@pytest.mark.parametrize("k,dim", [(10, 6), (8, 32), (40, 70), (64, 128),
+                                   (100, 10), (10, 160)])
+def test_gather_kernel_split_counts_bitwise(cuda, k, dim):
+    """K-G's schedule split: 1 split, 3 and the planner's count give the
+    same bits and positions, in the register kernel and the general one
+    (past d = 128 or k = 64), on rows with duplicates (ties)."""
+    rng = np.random.default_rng(k * dim)
+    r, s, sched, counts, alive = _gather_case(cuda, rng, 200, 6000, dim, 32,
+                                              128, 0.2)
+    s[3000:] = s[:3000].clone()
+    kw = dict(alive=alive, bm=32, bn=128)
+    outs = []
+    for sp in (1, 3, None):
+        outs.append(kg.distance_topk_gather_cuda(r, s, k, sched, counts,
+                                                 splits=sp, **kw))
+        assert kg.last_plan == kg.plan_gather(200, dim, k, 32,
+                                              sched.shape[1], splits=sp)
+    assert kg.last_plan.splits > 1
+    for d_, i_ in outs[1:]:
+        assert torch.equal(d_.view(torch.int32), outs[0][0].view(torch.int32))
+        assert torch.equal(i_, outs[0][1])
+    rd, ri = kg.distance_topk_gather_plain(r, s, k, sched, counts, **kw)
+    fin = torch.isfinite(rd)
+    torch.testing.assert_close(outs[2][0][fin], rd[fin], atol=1e-4,
+                               rtol=1e-5)
+
+
+def test_gather_kernel_decode_batch(cuda):
+    """K-G at a kNN-LM decode step, scaled down: 8 queries, one R tile,
+    a schedule of 96 tiles split across blocks, against the plain
+    version (d 32, k 8)."""
+    rng = np.random.default_rng(32)
+    bm, bn, n_tiles = 128, 512, 96
+    r = torch.as_tensor(rng.normal(size=(8, 32)).astype(np.float32),
+                        device=cuda)
+    s = torch.as_tensor(rng.normal(size=(bn * n_tiles - 100, 32))
+                        .astype(np.float32), device=cuda)
+    sched = torch.arange(n_tiles, dtype=torch.int32, device=cuda)[None, :]
+    counts = torch.tensor([n_tiles], dtype=torch.int32, device=cuda)
+    d, i = kg.distance_topk_gather_cuda(r, s, 8, sched, counts, bm=bm, bn=bn)
+    assert kg.last_plan.splits > 1
+    rd, ri = kg.distance_topk_gather_plain(r, s, 8, sched, counts, bm=bm,
+                                           bn=bn)
+    torch.testing.assert_close(d, rd, atol=1e-4, rtol=1e-5)
+    assert (i == ri).float().mean() > 0.99
+
+
 @pytest.mark.parametrize("k,masked", [(128, False), (100, True)])
 def test_dense_kernel_wide_k(cuda, k, masked):
     """K-D past k = 64 (wide runs) against its plain version, and its
@@ -431,28 +478,38 @@ def _attn_inputs(cuda, rng, b, nq, nk, h, kvh, d, dtype, cache_len=None):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [16, 128])
-@pytest.mark.parametrize("case", ["causal", "window", "decode", "no_key"])
+@pytest.mark.parametrize("d", [16, 80, 128, 192, 320])
+@pytest.mark.parametrize("case", ["causal", "window", "decode", "no_key",
+                                  "prefill_1024", "decode_4096"])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, d, case):
-    """K-F against its plain version. k and v are live slices of a longer
+    """K-F against its plain version, at any head width (80, 192 and 320
+    are not instantiated widths). k and v are live slices of a longer
     cache (read in place through their strides). fp32: within 2e-5 abs
     (the dot products and sums run in another order); bf16: within one
     bf16 rounding of the output (2⁻⁷ relative) — both versions compute
     in fp32 and round once. ``no_key``: rows right-aligned before the
-    first key see nothing and come out 0."""
+    first key see nothing and come out 0. ``prefill_1024`` runs bf16 up
+    to d = 256 through the tensor-core form; ``decode_4096`` splits the
+    keys across blocks (split-KV and the combine pass)."""
     from repro_torch.kernels import flash_attention as kf
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(d)
     shapes = {"causal": (2, 300, 300, 6, 2, None),
               "window": (2, 300, 300, 4, 4, 50),
               "decode": (3, 1, 333, 6, 2, None),
-              "no_key": (2, 20, 7, 4, 1, None)}
+              "no_key": (2, 20, 7, 4, 1, None),
+              "prefill_1024": (2, 1024, 1024, 4, 2, None),
+              "decode_4096": (2, 1, 4096, 6, 2, None)}
     b, nq, nk, h, kvh, window = shapes[case]
     q, k, v = _attn_inputs(cuda, rng, b, nq, nk, h, kvh, d, dt,
                            cache_len=nk + 40)
     assert not k.is_contiguous()
     ops.reset_launch_counts()
     out = kf.flash_attention_cuda(q, k, v, causal=True, window=window)
+    if case == "prefill_1024" and dt == torch.bfloat16 and d <= 256:
+        assert kf.last_plan.route == "mma"
+    if case == "decode_4096":
+        assert kf.last_plan.route == "simt" and kf.last_plan.splits > 1
     ref = kf.flash_attention_plain(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == 1
