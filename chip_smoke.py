@@ -17,7 +17,8 @@ bf16 through ``BatchedServer`` with the kNN-LM hook), and checks each
 against a float64 brute force and against each other. Phases:
 
 1. card, versions, kernel build;
-2. K-A (nearest pivot) vs its plain version, n = 581,012, M = 256, d = 10;
+2. K-A (nearest pivot) vs its plain version, n = 581,012, M = 256, d = 10,
+   with ``torch.cdist(x, pivots).min(dim=1)`` timed beside it;
 3. K-G (scheduled gather top-k) vs its plain version on one 4096-query
    bucket with the schedule the megastep's stage 3 made for it and ~1 %
    of the rows dead, with its split count;
@@ -30,7 +31,10 @@ against a float64 brute force and against each other. Phases:
    and of a 32-batch ``knn_join_batched``;
 7. K-Q (int8 coarse scan) vs its plain version on one 4096-query
    bucket, with the schedule and θ the quant engine's stages 1–3 made
-   for it and ~1 % of the rows dead: lb bit-equal, positions equal;
+   for it and ~1 % of the rows dead: lb bit-equal, positions equal; its
+   form and split count, and the share of the live pairs that passed
+   the screen and reached the exact √ chain (a counter only this check
+   launch passes);
 8. the quantized path, counted (K-Q must launch; certification
    failures re-run through the host path's K-G), against the brute
    force and bitwise against phase 4's distances; one steady-state quant
@@ -43,7 +47,8 @@ against a float64 brute force and against each other. Phases:
 10. K-D (dense top-k) vs its plain version: 4,096 centered queries over
    the 522,911 base rows (d = 10, k = 10), the same with a seeded 50 %
    visit mask, and 256 queries over 262,144 Gaussian keys of d = 1,024
-   (k = 8), with ``torch.topk(torch.cdist(...))`` timed beside it;
+   (k = 8), with ``torch.topk(torch.cdist(...))`` timed beside it and
+   each launch's form (narrow or tile) and split count;
 11. the mutable index: ``MutableIndex.build`` over the base rows, the
    other 58,101 rows inserted in waves of 4,096 (16 segments), then 48
    deletes (θ finite), 5,810 (θ = +inf) and ``compact``; in each stage
@@ -63,8 +68,9 @@ against a float64 brute force and against each other. Phases:
 13. the shapes the kernels refused before: K-A at d = 3,072, K-G at d =
    256 / 1,024 (65,536 Gaussian rows) and at k = 100 / 1,024 (phase 3's
    bucket), K-D at k = 128 (phase 10 (a)), K-Q at d = 256 and mp =
-   1,024 — each against its plain version — and K-G's widest register
-   form (d = 128, k = 64, 65,536 Gaussian rows);
+   1,024 — each against its plain version, with K-D's and K-Q's forms
+   and split counts — and K-G's widest register form (d = 128, k = 64,
+   65,536 Gaussian rows);
 14. the LM serving path: K-F (flash attention) vs its plain version at
    the prefill, windowed and decode shapes and at d = 192, with SDPA
    timed beside it and each shape's route and split count printed, and
@@ -255,19 +261,22 @@ def phase_assign(card, torch, rt, s_dev, pivots):
     err = float((dist_k - dist_p).abs().max())
     ms = time_ms(lambda: ka.assign_cuda(s_dev, pivots), iters=20)
     plain_ms = time_ms(lambda: ka.assign_plain(s_dev, pivots), iters=5)
+    # the yardstick: two library calls for the same function, never
+    # called by the port
+    lib_ms = time_ms(lambda: torch.cdist(s_dev, pivots).min(dim=1), iters=5)
     b_ms, b_by = bound(4.0 * (n * d + m * d + 2 * n),
                        float(n) * m * (2 * d + 3))
     print(f"[{card}] K-A assign n={n} m={m} d={d}: ids differ at {n_diff} "
           f"near-tie rows, max |dist err| {err:.3e}, max |d² err| "
           f"{used:.3e} of its pair's tolerance ({tol_text(tol)}); kernel "
           f"{ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
-          flush=True)
+          f"plain {plain_ms:.4f} ms, cdist+min (two library calls) "
+          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
     return dict(name="assign", route="cuda",
                 source="src/repro_torch/csrc/assign.cu",
                 replaces="src/repro/kernels/assign.py:23",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=lib_ms)
 
 
 def gather_inputs(torch, rt, s_np, r_np, cfg):
@@ -378,7 +387,12 @@ def phase_quant(card, torch, rt, idx, r_np, cfg, *, plain_iters: int = 3):
     alive[dead] = 0.0
     args = (qi, qsc, qe, pad_theta(th_q).contiguous(), pl.sq, pl.sscale,
             pl.seps, alive, mp, sched, cnt)
-    lb_k, p_k = kq.quant_coarse_gather_cuda(*args, bm=bm, bn=bn)
+    # the check launch counts the live pairs screened and the pairs that
+    # reached the exact √ chain (the main path passes no counter)
+    screen = torch.zeros(2, dtype=torch.int64, device=DEV)
+    lb_k, p_k = kq.quant_coarse_gather_cuda(*args, bm=bm, bn=bn,
+                                            stats=screen)
+    plan = kq.last_plan
     lb_p, p_p = kq.quant_coarse_sched_plain(*args, bm=bm, bn=bn)
     torch.cuda.synchronize()
     check(torch.equal(lb_k.view(torch.int32), lb_p.view(torch.int32)),
@@ -416,8 +430,17 @@ def phase_quant(card, torch, rt, idx, r_np, cfg, *, plain_iters: int = 3):
     int8_ops, f32_ops = pairs * 2 * d, pairs * 16
     b_ms, b_by = bound(n_bytes, f32_ops, int8_ops)
     frac = float(counts.sum()) / (nr_tiles * ns_tiles)
+    n_live, n_chain = (int(x) for x in screen.tolist())
+    check(0 < n_live and 0 <= n_chain <= n_live,
+          f"K-Q: screen counters out of range ({n_live}, {n_chain})")
+    form = (f"{plan.qb} queries a block ({plan.qpw} a warp), "
+            f"{'wide' if plan.wide else 'shared-memory'} runs, chunks of "
+            f"{plan.chunk} rows, {plan.splits} splits of {plan.per} "
+            f"schedule slots")
     print(f"[{card}] K-Q int8 coarse scan bucket={qi.shape[0]} d={d} mp={mp} "
-          f"bm={bm} bn={bn}: visited-tile fraction {frac:.4f}, lb "
+          f"bm={bm} bn={bn}, {form}: visited-tile fraction {frac:.4f}, "
+          f"pairs that reached the exact chain {n_chain} of {n_live} live "
+          f"pairs screened ({n_chain / n_live:.4%}), lb "
           f"bit-equal to the plain version, positions equal "
           f"{float((~diff).double().mean()):.6f} (rest ties at the run's "
           f"tail), kept slots {float(full.double().mean()):.4f}; kernel "
@@ -429,7 +452,8 @@ def phase_quant(card, torch, rt, idx, r_np, cfg, *, plain_iters: int = 3):
                 source="src/repro_torch/csrc/quant_coarse.cu",
                 replaces="src/repro/kernels/quant_topk.py:105",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None, form=form,
+                splits=plan.splits, chain_share=n_chain / n_live)
 
 
 def check_exact(card, rt, what: str, r_np, s_np, d, i, k: int, *,
@@ -503,6 +527,7 @@ def dense_case(card, torch, kd, what: str, q, s, k: int, mask, *,
     the port) where no mask applies."""
     kw = dict(visit_mask=mask, bm=bm, bn=bn)
     d_k, p_k = kd.distance_topk_cuda(q, s, k, **kw)
+    plan = kd.last_dense_plan
     d_p, p_p = kd.distance_topk_plain(q, s, k, **kw)
     torch.cuda.synchronize()
     used, same, err, tol = check_runs(torch, f"K-D ({what})", q, s, d_k,
@@ -531,7 +556,8 @@ def dense_case(card, torch, kd, what: str, q, s, k: int, mask, *,
                + (0 if mask is None else mask.numel()))
     b_ms, b_by = bound(n_bytes, pairs * (2 * d + 3))
     print(f"[{card}] K-D dense top-k ({what}) n_r={n_r} n_s={n_s} d={d} "
-          f"k={k}" + ("" if mask is None else
+          f"k={k}, {plan.form} form, {plan.splits} splits of {plan.per} S "
+          f"tiles" + ("" if mask is None else
                       f", visited-tile fraction {float(vis.mean()):.4f}")
           + f": ids equal {same:.6f} (rest near-ties), max |dist err| "
           f"{err:.3e}, max |d² err| {used:.3e} of its pair's tolerance "
@@ -541,7 +567,8 @@ def dense_case(card, torch, kd, what: str, q, s, k: int, mask, *,
           + f", bound {b_ms:.4f} ms ({b_by}: {pairs:.4e} pairs x (2d+3) "
           f"fp32 operations, {n_bytes:.4e} bytes)", flush=True)
     return dict(shape=what, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                form=plan.form, splits=plan.splits)
 
 
 def phase_dense(card, torch, rt, s_np, r_np) -> dict:
@@ -576,7 +603,7 @@ def phase_dense(card, torch, rt, s_np, r_np) -> dict:
                replaces="src/repro/kernels/distance_topk.py:71")
     row.update({key: a[key] for key in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
-                                        "library_ms")})
+                                        "library_ms", "form", "splits")})
     row["other_shapes"] = [b, c]
     return row
 
@@ -1353,13 +1380,14 @@ def phase_caps(card, torch, rt, s_np, r_np, cfg, g_forest) -> dict:
                       r_q, cfg_q, plain_iters=1)
     caps["quant_coarse_gather"].append(dict(
         shape=f"d = 256, {CAP_ROWS} Gaussian rows, mp = 128",
-        **{k: row[k] for k in _ROW_KEYS}))
+        **{k: row[k] for k in _ROW_KEYS + ("form", "splits")}))
     cfg_m = dataclasses.replace(cfg, quant_slack=1014, reducer="gather")
     row = phase_quant(card, torch, rt,
                       rt.build_index(s_np, cfg_m, quantize="int8", device=DEV),
                       r_np, cfg_m, plain_iters=1)
     caps["quant_coarse_gather"].append(dict(
-        shape="Forest bucket, mp = 1,024", **{k: row[k] for k in _ROW_KEYS}))
+        shape="Forest bucket, mp = 1,024",
+        **{k: row[k] for k in _ROW_KEYS + ("form", "splits")}))
     torch.cuda.empty_cache()
     return caps
 

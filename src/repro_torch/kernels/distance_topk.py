@@ -33,7 +33,11 @@ width d. Its plain version walks S in groups of whole tiles for all
 queries at once (memory bounded by ``_PLAIN_STEP_ELEMS`` distances) and
 folds each group into the run with one stable sort; √ is taken in
 float64 and rounded once (the correctly rounded float32 √, as the
-kernel's).
+kernel's). K-D has two forms, chosen by :func:`plan_dense` from the
+static shapes (a narrow register-query scan, a fused fp32 tile for wide
+rows and wide runs); both cut S into contiguous ranges of S tiles whose
+partial runs merge in (d², id) order, so every cut selects the same
+rows.
 """
 from __future__ import annotations
 
@@ -49,7 +53,8 @@ from .sorted_merge import next_pow2
 
 __all__ = ["distance_topk_gather_plain", "distance_topk_gather_cuda",
            "distance_topk_plain", "distance_topk_cuda", "launches",
-           "dense_launches", "last_plan", "GatherPlan", "plan_gather"]
+           "dense_launches", "last_plan", "last_dense_plan", "GatherPlan",
+           "plan_gather", "DensePlan", "plan_dense"]
 
 # widest run either kernel keeps in registers, and widest query K-G
 # holds there; past them the kernels keep wide runs in scratch the
@@ -61,13 +66,21 @@ _REG_D = 128
 # ``kernels.ops``)
 launches = 0
 dense_launches = 0
-# the plan of the last K-G launch (read by the card tests and chip_smoke.py)
+# the plans of the last K-G and K-D launches (read by the card tests and
+# chip_smoke.py)
 last_plan = None
+last_dense_plan = None
 
 # distances the plain dense version holds at once (128 MB of float32)
 _PLAIN_STEP_ELEMS = 1 << 25
-# K-D: queries per block
-_DENSE_BQ = 32
+# K-D: queries per block (both forms), and the widest row of its narrow
+# form (the query held in registers)
+_DENSE_QB = 128
+_NARROW_D = 32
+# blocks an SM K-D's narrow form aims at (64- or 128-thread blocks); its
+# tile form (a block fills an SM's shared memory) aims at one full wave
+# where a batch has few R tiles, else at BLOCKS_PER_SM
+_NARROW_BLOCKS_PER_SM = 8
 
 
 def _gather_runs_plain(r, s, k, schedule, counts, alive, bm, bn):
@@ -257,13 +270,10 @@ def distance_topk_gather_cuda(
     return out_d, out_p
 
 
-def distance_topk_plain(
-    r: torch.Tensor, s: torch.Tensor, k: int, *,
-    visit_mask: Optional[torch.Tensor] = None, bm: int = 128, bn: int = 512,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """k nearest rows of ``s`` per row of ``r`` over the visited (R tile,
-    S tile) pairs: ascending (√d² float32, int32 row ids), (+inf, -1)
-    for empty slots, ties to the lower id."""
+def _dense_runs_plain(r, s, k, visit_mask, bm, bn):
+    """The dense runs: (n_r, k) ascending d² and int64 row ids over the
+    visited (R tile, S tile) pairs, (+inf, -1) for empty slots, ties to
+    the lower id."""
     n_r = r.shape[0]
     n_s = s.shape[0]
     dev = r.device
@@ -291,16 +301,68 @@ def distance_topk_plain(
         cand_d, order = torch.sort(cand_d, dim=1, stable=True)
         run_d = cand_d[:, :k]
         run_p = torch.take_along_dim(cand_p, order[:, :k], dim=1)
-    run_p = torch.where(torch.isfinite(run_d), run_p, -1)
+    return run_d, torch.where(torch.isfinite(run_d), run_p, -1)
+
+
+def distance_topk_plain(
+    r: torch.Tensor, s: torch.Tensor, k: int, *,
+    visit_mask: Optional[torch.Tensor] = None, bm: int = 128, bn: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """k nearest rows of ``s`` per row of ``r`` over the visited (R tile,
+    S tile) pairs: ascending (√d² float32, int32 row ids), (+inf, -1)
+    for empty slots, ties to the lower id."""
+    run_d, run_p = _dense_runs_plain(r, s, k, visit_mask, bm, bn)
     out_d = torch.sqrt(run_d.to(torch.float64)).to(torch.float32)
     return out_d, run_p.to(torch.int32)
+
+
+class DensePlan(NamedTuple):
+    """How K-D's grid is cut: the ``form`` (``"narrow"``: a query or two a
+    thread in registers, d <= ``_NARROW_D`` and k <= 64; ``"tile"``: the
+    fused fp32 128 × 128 tile with wide runs), ``qblocks`` blocks of 128
+    queries per R tile, and the S tiles in ``splits`` contiguous ranges of
+    ``per`` tiles (split i covers S tiles ``[i·per, (i+1)·per)``)."""
+    form: str
+    qblocks: int
+    splits: int
+    per: int
+
+
+def plan_dense(n_r: int, n_s: int, d: int, k: int, bm: int, bn: int, *,
+               form: Optional[str] = None,
+               splits: Optional[int] = None) -> DensePlan:
+    """K-D's cut from static shapes only (no host sync): the narrow form
+    where the row fits ``_NARROW_D`` and the run fits registers, else the
+    tile form (or the forced ``form``); about ``_NARROW_BLOCKS_PER_SM``
+    blocks an SM (narrow), one full wave (tile, for a batch of few R
+    tiles) or ``BLOCKS_PER_SM`` (tile), or the forced ``splits``; never
+    an empty split."""
+    if form is None:
+        form = "narrow" if d <= _NARROW_D and k <= _REG_K else "tile"
+    if form not in ("narrow", "tile") or (
+            form == "narrow" and (d > _NARROW_D or k > _REG_K)):
+        raise ValueError(f"K-D has no {form!r} form for d={d}, k={k}")
+    nr_tiles = -(-n_r // bm)
+    ns_tiles = -(-n_s // bn)
+    qblocks = -(-bm // _DENSE_QB)
+    last = n_r - (nr_tiles - 1) * bm
+    live = (nr_tiles - 1) * qblocks + -(-min(last, bm) // _DENSE_QB)
+    if splits is None:
+        if form == "narrow":
+            per_sm = _NARROW_BLOCKS_PER_SM
+        else:     # one full wave for a batch of few R tiles, else four
+            per_sm = 1 if 8 * live <= SMS else BLOCKS_PER_SM
+        splits = -(-per_sm * SMS // live)
+    want = max(1, min(int(splits), ns_tiles, 65535))
+    per = -(-ns_tiles // want)
+    return DensePlan(form, qblocks, -(-ns_tiles // per), per)
 
 
 @functools.cache
 def _dense_entry():
     """K-D's C entry, loaded and typed once per process."""
     fn = build.library("dense_topk").repro_dense_topk
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -309,12 +371,14 @@ def _dense_entry():
 def distance_topk_cuda(
     r: torch.Tensor, s: torch.Tensor, k: int, *,
     visit_mask: Optional[torch.Tensor] = None, bm: int = 128, bn: int = 512,
+    form: Optional[str] = None, splits: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K-D on the current stream of ``r``'s device: a partial
-    top-k per (32 queries, split of the S tiles) block, then a merge of
-    the splits per query. Any d and any k: past k = 64 the runs are wide
-    (k entries in scratch allocated here, two buffers a query)."""
-    global dense_launches
+    """Launch K-D on the current stream of ``r``'s device in the form and
+    cut of :func:`plan_dense` (``form`` / ``splits`` force them; every
+    choice selects the same rows), then a merge of the splits per query.
+    Any d and any k: past k = 64 the tile form keeps each query's run of k
+    entries in scratch allocated here (two buffers a query and split)."""
+    global dense_launches, last_dense_plan
     if not r.is_cuda:
         raise ValueError(f"dense kernel: r must be a CUDA tensor, got "
                          f"{r.device}")
@@ -341,30 +405,35 @@ def distance_topk_cuda(
     out_p = torch.empty((n_r, k), dtype=torch.int32, device=dev)
     if n_r == 0:
         return out_d, out_p
-    wide = k > _REG_K
-    kp = 2 * k if wide else max(8, next_pow2(k))
-    nr_blocks = nr_tiles * -(-bm // _DENSE_BQ)
-    n_splits = min(ns_tiles, 65535,
-                   max(1, -(-BLOCKS_PER_SM * SMS // nr_blocks)))
-    part_d = torch.empty((n_splits, n_r, kp), dtype=torch.float32,
-                         device=dev)
-    part_p = torch.empty((n_splits, n_r, kp), dtype=torch.int32, device=dev)
-    scratch_d = scratch_p = None
-    if wide:
+    plan = plan_dense(n_r, n_s, d, k, bm, bn, form=form, splits=splits)
+    tile = plan.form == "tile"
+    wide = k > _REG_K            # the tile form's runs in device memory
+    width = 2 * k if wide else max(8, next_pow2(k))
+    part_d = part_p = scratch_d = scratch_p = None
+    if wide or plan.splits > 1:
+        part_d = torch.empty((plan.splits, n_r, width), dtype=torch.float32,
+                             device=dev)
+        part_p = torch.empty((plan.splits, n_r, width), dtype=torch.int32,
+                             device=dev)
+    if wide and plan.splits > 1:
         scratch_d = torch.empty((n_r, 2 * k), dtype=torch.float32,
                                 device=dev)
         scratch_p = torch.empty((n_r, 2 * k), dtype=torch.int32, device=dev)
+    # the splits' shared bound on each query's final k-th d²
+    bound = torch.full((n_r,), float("inf"), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _dense_entry()(
             r.data_ptr(), s.data_ptr(),
             None if visit_mask is None else visit_mask.data_ptr(),
-            part_d.data_ptr(), part_p.data_ptr(),
-            None if scratch_d is None else scratch_d.data_ptr(),
-            None if scratch_p is None else scratch_p.data_ptr(),
-            out_d.data_ptr(),
-            out_p.data_ptr(), n_r, n_s, d, k, bm, bn, n_splits,
+            *(None if t is None else t.data_ptr()
+              for t in (part_d, part_p, scratch_d, scratch_p)),
+            out_d.data_ptr(), out_p.data_ptr(), bound.data_ptr(), n_r, n_s, d,
+            k, bm, bn,
+            int(tile), plan.splits, plan.per,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"dense kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"dense kernel launch failed: CUDA error {err} "
+                           f"(plan {plan})")
     dense_launches += 1
+    last_dense_plan = plan
     return out_d, out_p

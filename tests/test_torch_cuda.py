@@ -523,3 +523,134 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, d, case):
     if case == "no_key":
         assert bool((out[:, :nq - nk] == 0).all())
         assert bool((out[:, nq - nk:] != 0).any())
+
+
+# ---- K-D's two forms and K-Q's whole-tile blocks and screen
+
+
+def _dense_check(cuda, r, s, k, dk, ik, dp, ip):
+    """A K-D run against the plain version's: empty slots equal, d²
+    within each pair's fp32 limit, ids equal except at near-ties."""
+    d = r.shape[1]
+    full = ip >= 0
+    assert torch.equal(ik >= 0, full)
+    r64, s64 = r.double(), s.double()
+    s2 = (s64 * s64).sum(1)
+    ikc, ipc = ik.long().clamp(min=0), ip.long().clamp(min=0)
+    tol = ((r64 * r64).sum(1)[:, None] + torch.maximum(s2[ikc], s2[ipc])) \
+        * 2 * (2 * d + 8) * 2.0 ** -24
+    assert bool(((dk.double() ** 2 - dp.double() ** 2).abs()
+                 <= tol)[full].all())
+    ex_k = ((r64[:, None, :] - s64[ikc]) ** 2).sum(-1)
+    assert bool((((ex_k - dp.double() ** 2).abs() <= 1.5 * tol)
+                 | (ik == ip))[full].all())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", [1, 8, 10, 64, 65, 128])
+@pytest.mark.parametrize("d", [1, 10, 32, 33, 1024])
+def test_dense_forms_match_plain(cuda, d, k, masked):
+    """K-D on either side of its form cut (d = 32 narrow, 33 tile; k = 64
+    narrow, 65 tile), ragged n_r and n_s, against the plain version; the
+    plan the launch used is the planner's."""
+    from repro_torch.kernels import distance_topk as kd
+    rng = np.random.default_rng(1000 * d + k)
+    nr, ns, bm, bn = 301, 4999, 128, 512
+    r = torch.as_tensor(rng.normal(size=(nr, d)).astype(np.float32),
+                        device=cuda)
+    s = torch.as_tensor(rng.normal(size=(ns, d)).astype(np.float32),
+                        device=cuda)
+    s[4000:4100] = s[:100]                     # duplicate rows: ties
+    mask = None
+    if masked:
+        mask = torch.as_tensor((rng.random((-(-nr // bm), -(-ns // bn)))
+                                < 0.5).astype(np.int8), device=cuda)
+    kw = dict(visit_mask=mask, bm=bm, bn=bn)
+    dk, ik = kd.distance_topk_cuda(r, s, k, **kw)
+    plan = kd.last_dense_plan
+    assert plan == kd.plan_dense(nr, ns, d, k, bm, bn)
+    assert plan.form == ("narrow" if d <= 32 and k <= 64 else "tile")
+    dp, ip = kd.distance_topk_plain(r, s, k, **kw)
+    torch.cuda.synchronize()
+    _dense_check(cuda, r, s, k, dk, ik, dp, ip)
+
+
+@pytest.mark.parametrize("d,k", [(10, 10), (32, 64), (4, 1)])
+def test_dense_forms_and_splits_are_bitwise_equal(cuda, d, k):
+    """Both forms sum the same fp32 chains (dot, ‖q‖², ‖s‖² ascending), so
+    the narrow and tile forms, at any split count, give the same bits."""
+    from repro_torch.kernels import distance_topk as kd
+    rng = np.random.default_rng(d + k)
+    r = torch.as_tensor(rng.normal(size=(200, d)).astype(np.float32),
+                        device=cuda)
+    s = torch.as_tensor(rng.normal(size=(6000, d)).astype(np.float32),
+                        device=cuda)
+    ref = kd.distance_topk_cuda(r, s, k, form="narrow", splits=1)
+    for form in ("narrow", "tile"):
+        for splits in (1, 3, 12):
+            got = kd.distance_topk_cuda(r, s, k, form=form, splits=splits)
+            assert kd.last_dense_plan.splits == splits
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def _quant_at_cut(rng, n_r, n_s, dim, bm, bn, dead):
+    """K-Q inputs whose θ are exact lb values (many pairs at the cut),
+    rows with duplicates (lb ties), ~``dead`` of the rows dead, and a
+    random ascending schedule per R tile."""
+    from repro_torch.kernels import quant_topk as kq
+    from repro_torch.quant import quantize_queries_np, quantize_rows
+    s = (rng.normal(size=(n_s, dim)) * 3.0).astype(np.float32)
+    s[n_s // 2:n_s // 2 + 200] = s[:200]
+    q = (rng.normal(size=(n_r, dim)) * 3.0).astype(np.float32)
+    qr = quantize_rows(s, bn)
+    qi, qsc, qe = quantize_queries_np(q)
+    ns_t = qr.n_tiles
+    alive = (np.arange(ns_t * bn) < n_s) & (rng.random(ns_t * bn) >= dead)
+    nr_t = -(-n_r // bm)
+    counts = rng.integers(1, ns_t + 1, nr_t)
+    sched = np.zeros((nr_t, ns_t), np.int32)
+    for t in range(nr_t):
+        picks = np.sort(rng.choice(ns_t, counts[t], replace=False))
+        sched[t, :counts[t]], sched[t, counts[t]:] = picks, picks[-1]
+    args = [torch.from_numpy(x) for x in (
+        qi, qsc, qe, np.zeros(n_r, np.float32), qr.q, qr.scales, qr.eps,
+        alive.astype(np.float32), sched, counts.astype(np.int32))]
+    lb = kq.coarse_lb_tile(args[0], args[1], args[2], args[4],
+                           torch.repeat_interleave(args[5], bn), args[6])
+    # θ: the exact lb of a random row, so pairs sit at the cut
+    pick = torch.as_tensor(rng.integers(0, lb.shape[1], n_r))
+    args[3] = lb[torch.arange(n_r), pick].contiguous()
+    return args
+
+
+@pytest.mark.parametrize("mp", [128, 512, 1024])
+@pytest.mark.parametrize("dim", [10, 32, 33, 256])
+def test_quant_coarse_whole_tile_matches_plain(cuda, dim, mp):
+    """K-Q against its plain version with θ at exact lb values: lb bit-
+    equal, positions equal; every split count gives the same bits; the
+    counter's share of pairs that reached the exact chain is in [0, 1]."""
+    from repro_torch.kernels import quant_topk as kq
+    rng = np.random.default_rng(7 * dim + mp)
+    bm, bn = 128, 512
+    args = [t.to(cuda) for t in _quant_at_cut(rng, 300, 40 * 512, dim, bm,
+                                              bn, 0.1)]
+    sched, counts = args[8], args[9]
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    lb, pos = kq.quant_coarse_gather_cuda(*args[:8], mp, sched, counts,
+                                          bm=bm, bn=bn, stats=stats)
+    assert kq.last_plan == kq.plan_quant(300, dim, mp, bm, bn,
+                                         sched.shape[1])
+    rlb, rpos = kq.quant_coarse_sched_plain(*args[:8], mp, sched, counts,
+                                            bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert torch.equal(lb.view(torch.int32), rlb.view(torch.int32))
+    assert torch.equal(pos, rpos)
+    assert bool(torch.isfinite(lb).any())
+    live, chain = int(stats[0]), int(stats[1])
+    assert 0 < live and 0 <= chain <= live
+    for splits in (1, 5):
+        got = kq.quant_coarse_gather_cuda(*args[:8], mp, sched, counts,
+                                          bm=bm, bn=bn, splits=splits)
+        assert kq.last_plan.splits == splits
+        assert torch.equal(got[0].view(torch.int32), lb.view(torch.int32))
+        assert torch.equal(got[1], pos)

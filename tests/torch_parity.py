@@ -160,3 +160,60 @@ def gather_split_plain(r, s, k, schedule, counts, plan, *, alive=None,
     run_p = torch.take_along_dim(cand_p, order[:, :k], 1)
     return (torch.sqrt(run_d),
             torch.where(torch.isfinite(run_d), run_p, -1).to(torch.int32))
+
+
+def _merge_runs(cand_d, cand_p, width):
+    """Concatenated runs (value, int64 position; -1 empty) merged in
+    (value, position) order, the empty slot's -1 last: the first
+    ``width`` of each row."""
+    import torch
+    by_p = torch.argsort(torch.where(cand_p < 0, torch.iinfo(torch.int64).max,
+                                     cand_p), dim=1, stable=True)
+    cand_d = torch.take_along_dim(cand_d, by_p, 1)
+    cand_p = torch.take_along_dim(cand_p, by_p, 1)
+    cand_d, order = torch.sort(cand_d, dim=1, stable=True)
+    return cand_d[:, :width], torch.take_along_dim(cand_p, order[:, :width],
+                                                   1)
+
+
+def dense_split_plain(r, s, k, plan, *, visit_mask=None, bm=128, bn=512):
+    """K-D's split in plain torch: the plain version's run over each range
+    of ``plan.per`` S tiles (the visit mask cut to it), then the ranges'
+    runs merged in (d², id) order and the first k written as (√d²
+    float32, int32 ids)."""
+    import torch
+    from repro_torch.kernels import distance_topk as kd
+    nr_tiles, ns_tiles = -(-r.shape[0] // bm), -(-s.shape[0] // bn)
+    base = (torch.ones((nr_tiles, ns_tiles), dtype=torch.int8)
+            if visit_mask is None else visit_mask)
+    cand_d, cand_p = [], []
+    for i in range(plan.splits):
+        cut = torch.zeros_like(base)
+        cut[:, i * plan.per:(i + 1) * plan.per] = 1
+        run_d, run_p = kd._dense_runs_plain(r, s, k, base * cut, bm, bn)
+        cand_d.append(run_d)
+        cand_p.append(run_p)
+    run_d, run_p = _merge_runs(torch.cat(cand_d, 1), torch.cat(cand_p, 1), k)
+    return (torch.sqrt(run_d.to(torch.float64)).to(torch.float32),
+            torch.where(torch.isfinite(run_d), run_p, -1).to(torch.int32))
+
+
+def quant_split_plain(args, mp, schedule, counts, plan, *, bm=128, bn=512):
+    """K-Q's split schedule in plain torch: the plain schedule walk over
+    each visit range of ``plan`` (slots [i·per, (i+1)·per)), then the
+    ranges' runs merged in (lb, position) order and positions of
+    non-finite lb written as -1."""
+    import torch
+    from repro_torch.kernels import quant_topk as kq
+    cand_d, cand_p = [], []
+    for i in range(plan.splits):
+        lo = i * plan.per
+        hi = min(schedule.shape[1], lo + plan.per)
+        sub = torch.clamp(counts.to(torch.int64) - lo, 0, max(hi - lo, 0))
+        lb, pos = kq.quant_coarse_sched_plain(*args, mp, schedule[:, lo:hi],
+                                              sub.to(torch.int32), bm=bm,
+                                              bn=bn)
+        cand_d.append(lb)
+        cand_p.append(pos.to(torch.int64))
+    lb, pos = _merge_runs(torch.cat(cand_d, 1), torch.cat(cand_p, 1), mp)
+    return lb, torch.where(torch.isfinite(lb), pos, -1).to(torch.int32)
