@@ -18,7 +18,9 @@ against a float64 brute force and against each other. Phases:
 
 1. card, versions, kernel build;
 2. K-A (nearest pivot) vs its plain version, n = 581,012, M = 256, d = 10,
-   with ``torch.cdist(x, pivots).min(dim=1)`` timed beside it;
+   with ``torch.cdist(x, pivots).min(dim=1)`` timed beside it, its form,
+   split count, registers and spills, and its ids and distance bits held
+   equal to its other form's and to K-D's at k = 1;
 3. K-G (scheduled gather top-k) vs its plain version on one 4096-query
    bucket with the schedule the megastep's stage 3 made for it and ~1 %
    of the rows dead, with its split count;
@@ -81,7 +83,10 @@ against a float64 brute force and against each other. Phases:
    step, K-A in the build), every retrieval exact against float64,
    every layer's K-F output of one prefill and one decode step against
    the plain version; the reduced model on the card and the CPU with
-   the same weights (logits within 2e-5 + 2e-5·|logit|, tokens equal).
+   the same weights (logits within 2e-5 + 2e-5·|logit|, tokens equal);
+15. K-A at the other shapes the counted paths handed it (recorded as
+   they ran: the LM datastore build, the host-planned R sample, the
+   seals, the quantized fallback batches), as in phase 2.
 
 Every time printed stands beside the card's name and power limit. The
 line before the last two is one JSON object with each kernel's launches,
@@ -232,12 +237,113 @@ def tol_text(tol) -> str:
             f"{float(tol.max()):.3e} in d²")
 
 
-def phase_assign(card, torch, rt, s_dev, pivots):
-    """K-A vs its plain version at the slice's shapes."""
+# K-A's launches on each counted path, as (n, m, d): the shapes the paths
+# hand it, timed after the paths (``phase_assign_paths``)
+ASSIGN_SHAPES: dict = {}
+_PATH = [None]        # the counted path running, if any
+ASSIGN_PTXAS: dict = {}  # K-A's kernels: (registers, spill bytes), from ptxas
+
+
+def begin_path(ops, name: str) -> None:
+    """Counters to 0 before a counted path; K-A's shapes go under ``name``."""
+    ops.reset_launch_counts()
+    _PATH[0] = name
+
+
+def end_path(ops) -> dict:
+    """The path's launch counts, read just after it."""
+    _PATH[0] = None
+    return ops.launch_counts()
+
+
+def record_assign_shapes(ka) -> None:
+    """Wrap K-A's launcher so that each launch on a counted path records its
+    shape (the launch and its count are the wrapper's own)."""
+    launch = ka.assign_cuda
+
+    def recording(x, pivots, **kw):
+        if _PATH[0] is not None:
+            ASSIGN_SHAPES.setdefault(_PATH[0], []).append(
+                (x.shape[0], pivots.shape[0], x.shape[1]))
+        return launch(x, pivots, **kw)
+
+    ka.assign_cuda = recording
+
+
+def ptxas_usage(report: str) -> dict:
+    """Registers and spill bytes of each kernel in a ``ptxas -v`` report,
+    by a short name (``assign_narrow<10,4,3>``, ``assign_tile``)."""
+    import re
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(assign_(?:narrow|tile|fold))(I(?:Li\d+E)+E)?",
+                          m.group(1))
+            args = [] if k is None or k.group(2) is None else \
+                re.findall(r"Li(\d+)E", k.group(2))
+            name = None if k is None else k.group(1) + (
+                f"<{','.join(args)}>" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name] = [None, int(m.group(1)) + int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name][0] = int(m.group(1))
+    return out
+
+
+def device_ms(torch, fn, iters: int = 10) -> float:
+    """Device time a call of ``fn``: CUDA events around ``iters`` calls
+    that the host enqueues while the device spins (``torch.cuda._sleep``),
+    so that at a small shape the events time the device, not the host's
+    enqueue of each call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)      # ~5 ms at the card's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def assign_instance(ka, plan, d: int) -> str:
+    """The kernel instance a K-A plan launches (``ASSIGN_PTXAS``'s key)."""
+    if plan.form == "tile":
+        return "assign_tile"
+    width = next(w for w in ka._NARROW_WIDTHS if d <= w)
+    return f"assign_narrow<{width},{plan.rows // 32},"
+
+
+def phase_assign(card, torch, rt, s_dev, pivots, *, plain_iters: int = 5):
+    """K-A vs its plain version at one shape: ids equal but at near-ties,
+    d² within each pair's limit; bitwise equal in its other form (d <= 32)
+    and to K-D at k = 1 (the same chains); its form, split count,
+    registers and spills; kernel, device, plain and cdist + min times."""
     from repro_torch.kernels import assign as ka
+    from repro_torch.kernels import distance_topk as kd
     n, d = s_dev.shape
     m = pivots.shape[0]
     pid_k, dist_k = ka.assign_cuda(s_dev, pivots)
+    plan = ka.last_assign_plan
+    bits = dist_k.view(torch.int32)
+    others = ["tile"] if plan.form == "narrow" else []
+    for form in others:
+        pid_f, dist_f = ka.assign_cuda(s_dev, pivots, form=form)
+        check(torch.equal(pid_f, pid_k)
+              and torch.equal(dist_f.view(torch.int32), bits),
+              f"K-A: the {form} form differs from the {plan.form} form")
+    dk, ik = kd.distance_topk_cuda(s_dev, pivots, 1)
+    check(torch.equal(ik[:, 0], pid_k)
+          and torch.equal(dk[:, 0].view(torch.int32), bits),
+          "K-A: ids or distance bits differ from K-D at k = 1")
+    del dk, ik
     pid_p, dist_p = ka.assign_plain(s_dev, pivots)
     torch.cuda.synchronize()
     x64 = s_dev.double()
@@ -260,23 +366,70 @@ def phase_assign(card, torch, rt, s_dev, pivots):
               f"K-A: {n_diff} pivot ids differ beyond near-ties")
     err = float((dist_k - dist_p).abs().max())
     ms = time_ms(lambda: ka.assign_cuda(s_dev, pivots), iters=20)
-    plain_ms = time_ms(lambda: ka.assign_plain(s_dev, pivots), iters=5)
+    dev_ms = device_ms(torch, lambda: ka.assign_cuda(s_dev, pivots))
+    plain_ms = time_ms(lambda: ka.assign_plain(s_dev, pivots),
+                       warmup=1, iters=plain_iters)
     # the yardstick: two library calls for the same function, never
     # called by the port
     lib_ms = time_ms(lambda: torch.cdist(s_dev, pivots).min(dim=1), iters=5)
     b_ms, b_by = bound(4.0 * (n * d + m * d + 2 * n),
                        float(n) * m * (2 * d + 3))
-    print(f"[{card}] K-A assign n={n} m={m} d={d}: ids differ at {n_diff} "
+    regs, spill = ASSIGN_PTXAS.get(next(
+        (k for k in ASSIGN_PTXAS if k.startswith(assign_instance(ka, plan, d))),
+        None), (None, None))
+    print(f"[{card}] K-A assign n={n} m={m} d={d}, {plan.form} form, "
+          f"{plan.splits} splits of {plan.per} pivots ({regs} registers, "
+          f"{spill} bytes spilled): bitwise equal to "
+          + "".join(f"the {f} form and " for f in others)
+          + f"K-D at k = 1; ids differ from the plain version at {n_diff} "
           f"near-tie rows, max |dist err| {err:.3e}, max |d² err| "
           f"{used:.3e} of its pair's tolerance ({tol_text(tol)}); kernel "
-          f"{ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, cdist+min (two library calls) "
+          f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"cdist+min (two library calls) "
           f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
     return dict(name="assign", route="cuda",
                 source="src/repro_torch/csrc/assign.cu",
                 replaces="src/repro/kernels/assign.py:23",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+                form=plan.form, splits=plan.splits, registers=regs,
+                spill_bytes=spill)
+
+
+def phase_assign_paths(card, torch, rt) -> list:
+    """K-A at the shapes the counted paths handed it, other than the
+    Forest build's (phase 2): per path and pivot table, each distinct row
+    count of a launch, or the most and the median — the LM datastore
+    build, the host-planned R sample, the seals, the quantized tier's
+    fallback batches — on seeded Gaussian rows (K-A's work does not
+    depend on the data), each held against its plain version as in
+    phase 2."""
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    done, cases = {(N_ROWS, 256, DIM)}, []
+    for path, shapes in ASSIGN_SHAPES.items():
+        by_table = {}
+        for n, m, d in shapes:
+            by_table.setdefault((m, d), []).append(n)
+        for (m, d), ns in sorted(by_table.items()):
+            # each distinct row count, or the most and the median launch's
+            ns = sorted(ns)
+            picks = set(ns) if len(set(ns)) <= 3 else {ns[-1], ns[len(ns) // 2]}
+            for n in sorted(picks, reverse=True):
+                if (n, m, d) in done:
+                    continue
+                done.add((n, m, d))
+                x = torch.randn((n, d), generator=gen, device=DEV)
+                piv = torch.randn((m, d), generator=gen, device=DEV)
+                row = phase_assign(card, torch, rt, x, piv, plain_iters=2)
+                cases.append(dict(
+                    shape=f"{path}: n = {n} (of {len(ns)} launches with "
+                          f"{m} pivots of d = {d}, n {min(ns)}-{max(ns)})",
+                    n=n, m=m, d=d, launches=len(ns),
+                    **{k: row[k] for k in _ROW_KEYS + (
+                        "device_ms", "form", "splits")}))
+                del x, piv
+    torch.cuda.empty_cache()
+    return cases
 
 
 def gather_inputs(torch, rt, s_np, r_np, cfg):
@@ -677,10 +830,10 @@ def phase_mutable(card, torch, rt, s_np, r_np, cfg, launches,
         key = (f"{n_segs} segment{'s' * (n_segs > 1)}, {n_dead} tombstones"
                + (", compacted" if name == "C" else ""))
         steps[key] = time_ms(lambda: eng.join_batch_device(qd, nv), iters=10)
-        ops.reset_launch_counts()
+        begin_path(ops, f"mutable_{name}")
         res, t_join = synced(lambda: rt.knn_join_batched(
             r_np, index=mi, batch_size=BUCKET, megastep=True, device=DEV))
-        counts = launches[f"mutable_{name}"] = ops.launch_counts()
+        counts = launches[f"mutable_{name}"] = end_path(ops)
         st = res.stats
         check(st.n_segments == n_segs and st.n_tombstones == n_dead
               and mi.n_tombstones == n_dead,
@@ -811,7 +964,7 @@ def phase_retrieval(card, torch, rt, s_np, r_np, launches) -> None:
     next_add = N_BASE
     ms = {"join": [], "kernel": []}
     n_lp, n_swapped, lp_used = 0, 0, 0.0
-    ops.reset_launch_counts()
+    begin_path(ops, "retrieval")
     for step in range(n_steps):
         q = r_np[step * BUCKET:(step + 1) * BUCKET]
         out = {}
@@ -866,7 +1019,7 @@ def phase_retrieval(card, torch, rt, s_np, r_np, launches) -> None:
             store.compact()
             print(f"[{card}] retrieval: compact after step 8 took "
                   f"{store.index.last_compact_s:.3f} s", flush=True)
-    counts = launches["retrieval"] = ops.launch_counts()
+    counts = launches["retrieval"] = end_path(ops)
     check(counts["distance_topk"] == n_steps
           and counts["distance_topk_gather"] >= n_steps,
           f"retrieval: expected {n_steps} K-D launches and at least as "
@@ -1085,7 +1238,7 @@ def phase_lm(card, torch, rt, launches, out_dir: Path) -> dict:
         LM_PROMPT[0], LM_PROMPT[1] + 1))).astype(np.int32)
         for _ in range(LM_REQUESTS)]
     kcfg = KnnLMConfig(lam=0.2, tau=50.0, k=8)
-    ops.reset_launch_counts()
+    begin_path(ops, "lm_serve")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     store = Datastore.build(keys, vals, k=8, n_pivots=128, n_groups=8,
@@ -1122,7 +1275,7 @@ def phase_lm(card, torch, rt, launches, out_dir: Path) -> dict:
     outs = srv.generate(prompts, max_new_tokens=LM_NEW)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    counts = launches["lm_serve"] = ops.launch_counts()
+    counts = launches["lm_serve"] = end_path(ops)
     peak = torch.cuda.max_memory_allocated()
     waves = -(-LM_REQUESTS // LM_BATCH)
     want_fa = cfg.n_layers * waves * (LM_NEW + 1)
@@ -1348,7 +1501,7 @@ def phase_caps(card, torch, rt, s_np, r_np, cfg, g_forest) -> dict:
     a = phase_assign(card, torch, rt, x, piv)
     caps["assign"].append(dict(
         shape=f"d = 3,072: {CAP_ROWS} Gaussian rows x 256 pivots",
-        **{k: a[k] for k in _ROW_KEYS}))
+        **{k: a[k] for k in _ROW_KEYS + ("device_ms", "form", "splits")}))
     del x, piv
     rng = np.random.default_rng(13)
     cfg_g = rt.JoinConfig(k=10, n_pivots=256, tile_r=128, tile_s=512)
@@ -1445,6 +1598,7 @@ def main(argv=None) -> int:
                            f"a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch as rt
+    from repro_torch.kernels import assign as ka
     from repro_torch.kernels import build, ops
 
     # the plain versions' matrix products in full fp32, stated explicitly
@@ -1465,6 +1619,11 @@ def main(argv=None) -> int:
     print(f"[{card}] built {sorted(reports) or 'nothing (cached)'} in "
           f"{build_s:.2f} s (ptxas report: {out_dir / 'ptxas.txt'})",
           flush=True)
+    ASSIGN_PTXAS.update(ptxas_usage(reports.get("assign", "")))
+    print(f"[{card}] K-A kernels (registers, spill bytes): "
+          + (", ".join(f"{k} {v[0]}, {v[1]}" for k, v in ASSIGN_PTXAS.items())
+             or "not rebuilt"), flush=True)
+    record_assign_shapes(ka)
 
     cfg = rt.JoinConfig(k=10, n_pivots=256, tile_r=128, tile_s=512)
     s_np = rt.forest_like(N_ROWS, DIM, seed=0)
@@ -1480,7 +1639,7 @@ def main(argv=None) -> int:
     rows = [phase_assign(card, torch, rt, s_dev, pivots), g_row]
 
     # ---- 4. the serving path, counted
-    ops.reset_launch_counts()
+    begin_path(ops, "megastep")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     idx = rt.build_index(s_np, cfg, device=DEV)
@@ -1490,7 +1649,7 @@ def main(argv=None) -> int:
     res = rt.knn_join_batched(r_np, index=idx, batch_size=BUCKET,
                               megastep=True, device=DEV)
     t_join = time.perf_counter() - t0
-    launches = {"megastep": ops.launch_counts()}
+    launches = {"megastep": end_path(ops)}
     steps = res.stats.n_batches
     print(f"[{card}] slice: build_index {t_build:.3f} s, join {t_join:.3f} s "
           f"over {N_ROWS} queries = {N_ROWS / t_join:.1f} queries/s, "
@@ -1542,14 +1701,14 @@ def main(argv=None) -> int:
     rows.append(phase_quant(card, torch, rt, idx_q, r_np, cfg_q))
 
     # ---- 8. the quantized path, counted
-    ops.reset_launch_counts()
+    begin_path(ops, "quantized")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     idx_q = rt.build_index(s_np, cfg_q, quantize="int8", device=DEV)
     res_q = rt.knn_join_batched(r_np, index=idx_q, batch_size=BUCKET,
                                 quantized=True, device=DEV)
     t_quant = time.perf_counter() - t0
-    launches["quantized"] = ops.launch_counts()
+    launches["quantized"] = end_path(ops)
     st = res_q.stats
     print(f"[{card}] quantized path: build_index(int8) "
           f"{t_build_q:.3f} s alone; build + join {t_quant:.3f} s over "
@@ -1601,13 +1760,13 @@ def main(argv=None) -> int:
     # from R, on a sample of R
     cfg_h = dataclasses.replace(cfg, n_groups=8, reducer="gather")
     r_h = r_np[:HOST_ROWS]
-    ops.reset_launch_counts()
+    begin_path(ops, "host_planned")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plan = rt.core.plan_join(r_h, s_np, cfg_h, device=DEV)
     res_h = rt.knn_join(r_h, plan=plan, device=DEV)
     t_host = time.perf_counter() - t0
-    launches["host_planned"] = ops.launch_counts()
+    launches["host_planned"] = end_path(ops)
     st = res_h.stats
     print(f"[{card}] host-planned knn_join (gather reducer, pivots from R) "
           f"over {HOST_ROWS} queries: {t_host:.3f} s with planning = "
@@ -1654,12 +1813,17 @@ def main(argv=None) -> int:
     # ---- 14. the LM serving path at full width
     rows.append(phase_lm(card, torch, rt, launches, out_dir))
 
+    # ---- 15. K-A at the other shapes the counted paths handed it
+    assign_paths = phase_assign_paths(card, torch, rt)
+
     owner = {"assign": "megastep", "distance_topk_gather": "megastep",
              "quant_coarse_gather": "quantized", "distance_topk": "retrieval",
              "flash_attention": "lm_serve"}
     for row in rows:
         if row["name"] in caps:
             row["cap_shapes"] = caps[row["name"]]
+        if row["name"] == "assign":
+            row["path_shapes"] = assign_paths
         row["launches"] = launches[owner[row["name"]]][row["name"]]
         row["launches_by_path"] = {path: n[row["name"]]
                                    for path, n in launches.items()}

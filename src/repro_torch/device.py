@@ -16,7 +16,8 @@ __all__ = ["resolve_device", "SMS", "BLOCKS_PER_SM"]
 
 # The card the kernels' grids are cut for: an H100 SXM's streaming
 # multiprocessors, and the blocks per SM that K-D's, K-G's and K-F's
-# host-side split planners aim at.
+# host-side split planners aim at. K-A's (``plan_assign``) and K-Q's
+# planners cut for SMS too, with blocks per SM of their own.
 SMS = 132
 BLOCKS_PER_SM = 4
 

@@ -26,6 +26,30 @@ def cuda():
     return torch.device("cuda")
 
 
+def _pair_tol(a2, b2, d):
+    """chip_smoke.py's limit on |d²_kernel − d²_plain| for rows with
+    squared norms a2, b2: each version's expanded fp32 sum is off the
+    exact d² by at most (2d + 4)·u·(a2 + b2), its √ output rounds d² by 4u
+    more (u = 2⁻²⁴); the limit is the sum of both bounds."""
+    return (a2 + b2) * (2 * (2 * d + 8)) * 2.0 ** -24
+
+
+def _assign_near_ties(x, p, pid, dist, ref_pid):
+    """K-A's ids equal ``ref_pid`` except at near-ties: where they differ,
+    both picks' exact d² (float64) lie within the pair's limit of each
+    other; and every distance's d² within the limit of its pick's exact
+    d²."""
+    x64, p64 = x.double(), p.double()
+    x2, p2 = (x64 * x64).sum(1), (p64 * p64).sum(1)
+    a, b = pid.long(), ref_pid.long()
+    assert bool(((a >= 0) & (a < p.shape[0])).all())
+    rows = torch.arange(x.shape[0], device=x.device)
+    ex = x2[:, None] + p2[None, :] - 2.0 * (x64 @ p64.T)
+    tol = _pair_tol(x2, torch.maximum(p2[a], p2[b]), x.shape[1])
+    assert bool(((ex[rows, a] - ex[rows, b]).abs() <= tol).all())
+    assert bool(((dist.double() ** 2 - ex[rows, a]).abs() <= tol).all())
+
+
 @pytest.mark.parametrize("n,m,dim", [(1000, 16, 6), (2570, 300, 12),
                                      (64, 7, 40)])
 def test_assign_kernel_matches_plain(cuda, n, m, dim):
@@ -36,7 +60,7 @@ def test_assign_kernel_matches_plain(cuda, n, m, dim):
                         device=cuda)
     pid, dist = ka.assign_cuda(x, p)
     rpid, rdist = ka.assign_plain(x, p)
-    assert (pid == rpid).float().mean() > 0.999
+    _assign_near_ties(x, p, pid, dist, rpid)
     torch.testing.assert_close(dist, rdist, atol=1e-3, rtol=1e-4)
 
 
@@ -306,7 +330,7 @@ def test_assign_kernel_any_width(cuda):
                         device=cuda)
     pid, dist = ka.assign_cuda(x, p)
     rpid, rdist = ka.assign_plain(x, p)
-    assert (pid == rpid).float().mean() > 0.999
+    _assign_near_ties(x, p, pid, dist, rpid)
     x64, p64 = x.double(), p.double()
     tol = ((x64 * x64).sum(1) + (p64 * p64).sum(1).max()) \
         * 2 * (2 * dim + 8) * 2.0 ** -24
@@ -654,3 +678,103 @@ def test_quant_coarse_whole_tile_matches_plain(cuda, dim, mp):
         assert kq.last_plan.splits == splits
         assert torch.equal(got[0].view(torch.int32), lb.view(torch.int32))
         assert torch.equal(got[1], pos)
+
+
+# ---- K-A's two forms and its splits
+
+
+def _assign_inputs(cuda, n, m, d):
+    """Gaussian rows and pivots, the later half of the pivots copies of
+    earlier ones (exact ties across every cut), a few rows copies of
+    pivots (d² = 0). Returns (x, pivots, the ids that have a lower twin)."""
+    rng = np.random.default_rng(n + 10 * m + 1000 * d)
+    p = rng.normal(size=(m, d)).astype(np.float32)
+    if m > 1:
+        p[m // 2:] = p[rng.integers(0, m // 2, m - m // 2)]
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[:min(n, 8)] = p[rng.integers(0, m, min(n, 8))]
+    twins = [j for j in range(m // 2, m) if (p[:m // 2] == p[j]).all(1).any()]
+    return (torch.as_tensor(x, device=cuda), torch.as_tensor(p, device=cuda),
+            torch.as_tensor(twins, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("m", [1, 7, 128, 257])
+@pytest.mark.parametrize("d", [1, 4, 10, 31, 32, 33, 300, 3072])
+def test_assign_forms_splits_and_dense_k1_are_bitwise_equal(cuda, d, m):
+    """K-A's forms (both where d <= 32) and every split count give the
+    bits of the planner's launch, which are K-D's at k = 1 (the same
+    chains); ids equal the float64 argmin but at near-ties, and a
+    duplicated pivot never beats its lower twin."""
+    from repro_torch.kernels import distance_topk as kd
+    for n in (1, 1023, 4097):
+        x, p, twins = _assign_inputs(cuda, n, m, d)
+        pid, dist = ka.assign_cuda(x, p)
+        assert ka.last_assign_plan == ka.plan_assign(n, m, d)
+        bits = dist.view(torch.int32)
+        for form in (("narrow", "tile") if d <= 32 else ("tile",)):
+            for splits in (1, 2, 3, 7, 10 ** 6):
+                got_p, got_d = ka.assign_cuda(x, p, form=form, splits=splits)
+                assert ka.last_assign_plan == ka.plan_assign(
+                    n, m, d, form=form, splits=splits)
+                assert torch.equal(got_p, pid)
+                assert torch.equal(got_d.view(torch.int32), bits)
+        dk, ik = kd.distance_topk_cuda(x, p, 1)
+        assert torch.equal(ik[:, 0], pid)
+        assert torch.equal(dk[:, 0].view(torch.int32), bits)
+        torch.cuda.synchronize()
+        x64, p64 = x.double(), p.double()
+        ex = ((x64 * x64).sum(1)[:, None] + (p64 * p64).sum(1)[None, :]
+              - 2.0 * (x64 @ p64.T))
+        _assign_near_ties(x, p, pid, dist, ex.argmin(1))
+        assert not bool(torch.isin(pid, twins).any())
+
+
+@pytest.mark.parametrize("d", [10, 33])
+def test_assign_non_finite_rows_take_the_clamp(cuda, d):
+    """A NaN d² clamps to 0 in K-A's chain (fmaxf), so a row with a NaN
+    coordinate picks pivot 0 at distance 0, and a row with one +inf
+    coordinate the first pivot whose coordinate there is >= 0 (its t is
+    inf − inf or NaN: clamped to 0; a negative one gives +inf); every form
+    and split agrees bit for bit."""
+    rng = np.random.default_rng(d)
+    p = rng.normal(size=(300, d)).astype(np.float32)
+    p[:5, 2] = -1.0                    # pivots 0-4 negative in column 2
+    p[7, 2] = 0.0
+    x = rng.normal(size=(700, d)).astype(np.float32)
+    x[3, 4] = np.nan
+    x[10, 2] = np.inf
+    x[11, 2], x[11, 4] = np.inf, np.nan
+    xt, pt = torch.as_tensor(x, device=cuda), torch.as_tensor(p, device=cuda)
+    pid, dist = ka.assign_cuda(xt, pt)
+    first = int(np.argmax(p[:, 2] >= 0))
+    assert pid[3].item() == 0 and dist[3].item() == 0.0
+    assert pid[10].item() == first and dist[10].item() == 0.0
+    assert pid[11].item() == 0 and dist[11].item() == 0.0
+    fin = np.ones(700, bool)
+    fin[[3, 10, 11]] = False
+    assert bool(torch.isfinite(dist[torch.as_tensor(fin, device=cuda)]).all())
+    for form in (("narrow", "tile") if d <= 32 else ("tile",)):
+        for splits in (1, 3, 40):
+            got_p, got_d = ka.assign_cuda(xt, pt, form=form, splits=splits)
+            assert torch.equal(got_p, pid)
+            assert torch.equal(got_d.view(torch.int32), dist.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [3, 10, 32, 33])
+def test_assign_unaligned_rows_take_the_same_bits(cuda, d):
+    """Rows and pivots 4 bytes off a 16-byte boundary (a view into a
+    larger buffer) take K-A's 4-byte staging: the same bits as the aligned
+    copies, in every form."""
+    rng = np.random.default_rng(40 + d)
+    n, m = 3000, 70
+    flat_x = torch.as_tensor(rng.normal(size=n * d + 1).astype(np.float32),
+                             device=cuda)
+    flat_p = torch.as_tensor(rng.normal(size=m * d + 1).astype(np.float32),
+                             device=cuda)
+    x, p = flat_x[1:].view(n, d), flat_p[1:].view(m, d)
+    assert x.data_ptr() % 16 and p.data_ptr() % 16 and x.is_contiguous()
+    for form in (("narrow", "tile") if d <= 32 else ("tile",)):
+        pid, dist = ka.assign_cuda(x, p, form=form)
+        ref_p, ref_d = ka.assign_cuda(x.clone(), p.clone(), form=form)
+        assert torch.equal(pid, ref_p)
+        assert torch.equal(dist.view(torch.int32), ref_d.view(torch.int32))

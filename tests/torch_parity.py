@@ -217,3 +217,27 @@ def quant_split_plain(args, mp, schedule, counts, plan, *, bm=128, bn=512):
         cand_p.append(pos.to(torch.int64))
     lb, pos = _merge_runs(torch.cat(cand_d, 1), torch.cat(cand_p, 1), mp)
     return lb, torch.where(torch.isfinite(lb), pos, -1).to(torch.int32)
+
+
+def assign_split_plain(x, pivots, groups):
+    """K-A's cut in plain torch: d² by the plain version's arithmetic (one
+    row block), each group of pivot ids (a split's range, or the pivots one
+    thread of a tile sees) reduced to its first minimum, and the groups'
+    minima folded as the kernel folds them — as the 64-bit keys (d² bits
+    << 32) | id under a minimum. Returns (int32 ids, float32 √d²)."""
+    import torch
+    p = pivots.to(torch.float32)
+    d2 = torch.clamp((x * x).sum(-1, keepdim=True)
+                     + (p * p).sum(-1, keepdim=True).T - 2.0 * (x @ p.T),
+                     min=0.0)
+    keys = []
+    for ids in groups:
+        ids = torch.as_tensor(ids, dtype=torch.int64)
+        sub = d2[:, ids]
+        at = torch.argmin(sub, dim=1)
+        best = torch.gather(sub, 1, at[:, None])[:, 0]
+        keys.append((best.view(torch.int32).to(torch.int64) << 32) | ids[at])
+    key = torch.stack(keys).amin(0)
+    best = (key >> 32).to(torch.int32).view(torch.float32)
+    return ((key & 0xFFFFFFFF).to(torch.int32),
+            torch.sqrt(best[:, None])[:, 0])
