@@ -12,9 +12,11 @@ quantized tier (``build_index(quantize="int8")`` →
 ``knn_join_batched(quantized=True)``), both over all of R in 4096-query
 batches, the paper's host-planned one-shot ``knn_join`` on a sample
 of R, the mutable segmented index, and kNN-LM retrieval over a mutable
-``Datastore`` — and the LM serving path at full width (llama3.2-3b in
-bf16 through ``BatchedServer`` with the kNN-LM hook), and checks each
-against a float64 brute force and against each other. Phases:
+``Datastore`` — the LM serving path at full width (llama3.2-3b in
+bf16 through ``BatchedServer`` with the kNN-LM hook), the paper's §6
+comparison against its baselines (PBJ, H-BRJ) and the deadline-aware
+serving scheduler under load, and checks each against a float64 brute
+force and against each other. Phases:
 
 1. card, versions, kernel build;
 2. K-A (nearest pivot) vs its plain version, n = 581,012, M = 256, d = 10,
@@ -64,9 +66,12 @@ against a float64 brute force and against each other. Phases:
    thousands of rows;
 12. kNN-LM retrieval: a ``Datastore`` over the base rows, 16 decode
    steps of 4,096 queries through both ``knn_logits`` routes (K-D
-   launched once a step), with 1,024 entries added and 16 removed
-   between steps and a ``compact`` after step 8; each step's join route
-   exact, the routes' distances and log-probabilities in agreement;
+   launched once a step) and through ``knn_logits(scheduler=
+   ServeScheduler.for_datastore(store))``, with 1,024 entries added and
+   16 removed between steps and a ``compact`` after step 8; each step's
+   join route exact, the routes' distances and log-probabilities in
+   agreement, the scheduler route's log-probabilities bitwise the join
+   route's;
 13. the shapes the kernels refused before: K-A at d = 3,072, K-G at d =
    256 / 1,024 (65,536 Gaussian rows) and at k = 100 / 1,024 (phase 3's
    bucket), K-D at k = 128 (phase 10 (a)), K-Q at d = 256 and mp =
@@ -82,11 +87,34 @@ against a float64 brute force and against each other. Phases:
    tokens, counted (K-F once per layer per forward, K-G every decode
    step, K-A in the build), every retrieval exact against float64,
    every layer's K-F output of one prefill and one decode step against
-   the plain version; the reduced model on the card and the CPU with
+   the plain version; one more wave (8 requests, 8 greedy tokens) with
+   ``make_knn_hook(scheduler=...)``, counted, its tokens equal to the
+   direct hook's; the reduced model on the card and the CPU with
    the same weights (logits within 2e-5 + 2e-5·|logit|, tokens equal);
 15. K-A at the other shapes the counted paths handed it (recorded as
    they ran: the LM datastore build, the host-planned R sample, the
-   seals, the quantized fallback batches), as in phase 2.
+   seals, the quantized fallback batches), as in phase 2;
+16. the paper's §6 comparison at its settings (k = 10, 9 reducers, 128
+   pivots): PGBJ (``knn_join``), PBJ and H-BRJ self-joins of 32,768
+   Forest-like and 32,768 OSM-like rows, each counted (K-A and K-G
+   launches per path), timed, with its selectivity, shuffle and α, and
+   held bitwise against the float64 oracle (ids: near-ties); one L1 and
+   one L∞ ``knn_join`` of the Forest rows against the L1 / L∞ oracle;
+   ``python -m repro_torch.launch.join --n 581012 --expand 2 --verify``
+   (Forest×2, 1,162,024 rows) in a subprocess;
+17. serving under load: ``ServeScheduler`` in front of a quantized
+   ``StreamJoinEngine`` over phase 8's index — ``dispatch`` (fp32 and
+   quantized) under the sync debug mode; ``join_now`` bitwise
+   ``join_batch`` with ``max_inflight`` 1 and 2; faults at
+   ``sched.dispatch`` and ``megastep.fetch`` retried onto the host
+   path with the same bits; open-loop bursty traffic of 16-row slices
+   of R (a quarter bulk) on a ``VirtualClock`` with measured service
+   times, ≥ 2,000 requests at 0.8× and 2× the saturation rate measured
+   in the run, under the default ``SchedulerConfig`` and under
+   ``batch_rows=4096``: every ``LoadReport`` field printed,
+   ``n_expired_dispatched == 0``, exact tickets bitwise phase 4,
+   degraded tickets' certified recall bounds at most their true recall
+   against the float64 brute force. Each new phase prints its time.
 
 Every time printed stands beside the card's name and power limit. The
 line before the last two is one JSON object with each kernel's launches,
@@ -95,8 +123,8 @@ power limit; the last is ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before those lines, with its message on stdout and stderr
 (also without a card, or where the script stands alone, away from the
 repository's ``src/``). Long reports (nvcc's ``ptxas``
-output, the two profiles by kernel) go to ``--out`` (default
-``build/chip_smoke/``). Needs one card, no network; imports nothing of
+output, the profiles by kernel, phases 16 and 17's numbers as JSON) go
+to ``--out`` (default ``build/chip_smoke/``). Needs one card, no network; imports nothing of
 JAX.
 """
 from __future__ import annotations
@@ -118,6 +146,11 @@ LM_QUERIES, LM_KEYS, LM_DIM = 256, 262_144, 1024   # phase 10 (c)
 DECODE_STEPS, ADD_ROWS, REMOVE_IDS = 16, 1024, 16  # phase 12
 PROBES, PROBE_DEAD = 4, 80  # phase 11 stage B: the over-fetch probes
 CAP_ROWS = 65_536           # phase 13: Gaussian rows of the wide shapes
+PAPER_ROWS = 32_768         # phase 16: rows of each §6 self-join (cut
+                            # from 65,536 to keep the phase near 90 s)
+PAPER_K, PAPER_REDUCERS, PAPER_PIVOTS = 10, 9, 128   # _three_way's settings
+SERVE_ROWS, SERVE_REQUESTS = 16, 2000   # phase 17: rows a request, requests
+SCHED_NEW = 8               # phase 14: tokens of the scheduler's wave
 LM_ARCH = "llama3.2-3b"     # phase 14: the LM serving path at full width
 LM_REQUESTS, LM_BATCH, LM_NEW = 16, 8, 32
 LM_PROMPT = (512, 2048)     # prompt lengths, seeded
@@ -944,7 +977,8 @@ def phase_retrieval(card, torch, rt, s_np, r_np, launches) -> None:
     store is compacted after step 8."""
     import numpy as np
     from repro_torch.kernels import ops
-    from repro_torch.serve import Datastore, KnnLMConfig, knn_logits
+    from repro_torch.serve import (Datastore, KnnLMConfig, SchedulerConfig,
+                                   ServeScheduler, knn_logits)
     vocab, k, n_steps = 7, 10, DECODE_STEPS
     labels = np.random.default_rng(12).integers(0, vocab, N_ROWS) \
         .astype(np.int32)
@@ -962,7 +996,11 @@ def phase_retrieval(card, torch, rt, s_np, r_np, launches) -> None:
           flush=True)
     rng = np.random.default_rng(13)
     next_add = N_BASE
-    ms = {"join": [], "kernel": []}
+    ms = {"join": [], "kernel": [], "scheduler": []}
+    # the scheduler route: one request of a whole step, on the exact rung
+    sched = ServeScheduler.for_datastore(store, config=SchedulerConfig(
+        batch_rows=BUCKET, degrade_queued_rows=BUCKET,
+        shed_queued_rows=BUCKET, max_queued_rows=BUCKET))
     n_lp, n_swapped, lp_used = 0, 0, 0.0
     begin_path(ops, "retrieval")
     for step in range(n_steps):
@@ -979,6 +1017,13 @@ def phase_retrieval(card, torch, rt, s_np, r_np, launches) -> None:
         lg_j, (d_j, i_j) = out["join"]
         lg_k, (d_k, i_k) = out["kernel"]
         what = f"retrieval step {step}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg_s = knn_logits(q, store, kcfg, vocab, scheduler=sched,
+                          deadline_s=60.0)
+        ms["scheduler"].append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(lg_s, lg_j), f"{what}: the scheduler route's "
+              f"log-probs are not bitwise the join route's")
         rows, gids = check_exact_live(card, rt, f"{what} join route", q,
                                       store.index, d_j, i_j, k,
                                       n_sample=256, report=False)
@@ -1024,13 +1069,17 @@ def phase_retrieval(card, torch, rt, s_np, r_np, launches) -> None:
           and counts["distance_topk_gather"] >= n_steps,
           f"retrieval: expected {n_steps} K-D launches and at least as "
           f"many K-G launches, got {counts}")
+    check(sched.stats.n_completed == n_steps
+          and sched.stats.n_degraded_requests == 0,
+          f"retrieval: the scheduler route served {sched.stats}")
     print(f"[{card}] retrieval: {n_steps} decode steps x {BUCKET} queries, "
           f"vocab {vocab}; join route exact vs fp64 brute force (256 "
           f"sampled queries a step), routes' distances within the pair "
           f"limit; log-probs agree on {n_lp} rows (max {lp_used:.3e} of the "
           f"limit 4·max δ/τ + 2^-15), {n_swapped} rows with tie-swapped "
-          f"ids; launches {counts}", flush=True)
-    for route in ("join", "kernel"):
+          f"ids; the scheduler route (ServeScheduler.for_datastore) bitwise "
+          f"the join route every step; launches {counts}", flush=True)
+    for route in ("join", "kernel", "scheduler"):
         print(f"[{card}] retrieval {route} route ms per step (refresh "
               f"included): " + ", ".join(f"{x:.3f}" for x in ms[route]),
               flush=True)
@@ -1173,8 +1222,8 @@ def phase_lm(card, torch, rt, launches, out_dir: Path) -> dict:
     from repro_torch.models import (ModelOptions, count_params, forward,
                                     init_cache, init_params)
     from repro_torch.serve import (BatchedServer, Datastore, KnnLMConfig,
-                                   ServeConfig, make_knn_hook,
-                                   make_serve_step)
+                                   ServeConfig, ServeScheduler,
+                                   make_knn_hook, make_serve_step)
     cfg = configs.get_arch(LM_ARCH)
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
 
@@ -1394,6 +1443,37 @@ def phase_lm(card, torch, rt, launches, out_dir: Path) -> dict:
     print(f"[{card}] LM serving decode ms per step without the hook (one "
           f"wave; median {float(np.median(plain_ms)):.3f}): "
           + ", ".join(f"{x:.3f}" for x in plain_ms), flush=True)
+
+    # one more wave with the hook through the serving scheduler, counted:
+    # its tokens equal the direct hook's on the same prompts
+    store.retrieve = retrieve
+    sched = ServeScheduler.for_datastore(store)
+    begin_path(ops, "lm_serve_sched")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    via = BatchedServer(
+        cfg, ServeConfig(batch=LM_BATCH), params, opts,
+        logits_hook=make_knn_hook(store, kcfg, cfg.vocab, scheduler=sched,
+                                  deadline_s=60.0)).generate(
+        prompts[:LM_BATCH], max_new_tokens=SCHED_NEW)
+    torch.cuda.synchronize()
+    t_sched = time.perf_counter() - t0
+    counts_s = launches["lm_serve_sched"] = end_path(ops)
+    check(all(np.array_equal(a, b[:SCHED_NEW])
+              for a, b in zip(via, outs[:LM_BATCH])),
+          "LM serving: tokens through the scheduler's hook differ from the "
+          "direct hook's")
+    st = sched.snapshot()
+    check(st.n_completed == SCHED_NEW and st.n_degraded_requests == 0
+          and st.n_expired_dispatched == 0,
+          f"LM serving: the scheduler's hook served {st}")
+    check(counts_s["flash_attention"] == cfg.n_layers * (SCHED_NEW + 1)
+          and counts_s["distance_topk_gather"] >= SCHED_NEW,
+          f"LM serving through the scheduler: launches {counts_s}")
+    print(f"[{card}] LM serving through ServeScheduler: {LM_BATCH} requests "
+          f"x {SCHED_NEW} greedy tokens in {t_sched:.3f} s, tokens equal to "
+          f"the direct hook's; {st.n_completed} retrievals served exact; "
+          f"launches {counts_s}", flush=True)
     del params, srv, srv0, store
     torch.cuda.empty_cache()
 
@@ -1580,6 +1660,325 @@ def profile_device(card, torch, fn, what: str, out_file: Path,
     print(f"[{card}] {what} profile: {len(kernels)} kernels, device busy "
           f"{busy:.4f} ms of {wall:.4f} ms under the profiler "
           f"({busy / wall:.1%}); top: {top}", flush=True)
+
+
+def check_oracle(what: str, x_q, x_s, d, i, bd, bi, metric: str = "l2"
+                 ) -> float:
+    """A join's result against the float64 oracle's ``(bd, bi)`` over
+    every query: distances bit for bit (both report the canonical
+    chain), every reported id at most the true k-th distance away under
+    the metric (float64, near-ties allowed: 1e-6 relative), no duplicate
+    ids in a row. Returns the share of ids equal to the oracle's."""
+    import numpy as np
+    check(d.shape == bd.shape and bool(np.isfinite(d).all())
+          and bool((i >= 0).all()), f"{what}: malformed result")
+    check(np.array_equal(d, bd),
+          f"{what}: distances not bitwise the float64 oracle's")
+    srt = np.sort(i, axis=1)
+    check(bool((srt[:, 1:] != srt[:, :-1]).all()),
+          f"{what}: duplicate ids in a row")
+    q64, s64 = x_q.astype(np.float64), x_s.astype(np.float64)
+
+    def dist(ids):
+        out = np.empty(ids.shape)
+        for lo in range(0, ids.shape[0], 8192):
+            diff = np.abs(q64[lo:lo + 8192, None, :] - s64[ids[lo:lo + 8192]])
+            out[lo:lo + 8192] = (np.sqrt((diff ** 2).sum(-1)) if metric == "l2"
+                                 else diff.sum(-1) if metric == "l1"
+                                 else diff.max(-1))
+        return out
+
+    check(bool((dist(i) <= dist(bi[:, -1:]) * (1 + 1e-6) + 1e-6).all()),
+          f"{what}: a reported id lies beyond the true k-th distance")
+    return float((i == bi).mean())
+
+
+def phase_paper(card, torch, rt, launches) -> dict:
+    """16. The paper's §6 comparison at its ``_three_way`` settings (k =
+    10, 9 reducers, 128 pivots): PGBJ (``knn_join``), PBJ and H-BRJ
+    self-joins of ``PAPER_ROWS`` Forest-like and OSM-like rows, each
+    counted and held bitwise against the float64 oracle; one L1 and one
+    L∞ ``knn_join`` of the Forest rows against the new oracle; and
+    ``launch.join --expand 2 --verify`` over 1,162,024 rows (Forest×2)
+    in a subprocess."""
+    import os
+    import numpy as np
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    k, out = PAPER_K, {}
+    data = {"forest": rt.forest_like(PAPER_ROWS, DIM, seed=16),
+            "osm": rt.osm_like(PAPER_ROWS, seed=16)}
+    for name, x in data.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bd, bi = rt.brute_force_knn(x, x, k, device=DEV)
+        t_oracle = time.perf_counter() - t0
+        runs = {
+            "pgbj": lambda: rt.knn_join(x, x, config=rt.JoinConfig(
+                k=k, n_pivots=PAPER_PIVOTS, n_groups=PAPER_REDUCERS),
+                device=DEV),
+            "pbj": lambda: rt.pbj_join(
+                x, x, k, rt.JoinConfig(k=k, n_pivots=PAPER_PIVOTS),
+                n_reducers=PAPER_REDUCERS, device=DEV),
+            "hbrj": lambda: rt.hbrj_join(x, x, k, n_reducers=PAPER_REDUCERS,
+                                         device=DEV)}
+        for method, run in runs.items():
+            path = f"paper_{method}_{name}"
+            begin_path(ops, path)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launches[path] = end_path(ops)
+            same = check_oracle(f"{method} on {name}", x, x, res.distances,
+                                res.indices, bd, bi)
+            st = res.stats
+            out[path] = dict(wall_s=wall, selectivity=st.selectivity,
+                             shuffle_tuples=st.shuffle_tuples,
+                             alpha=st.replicas_s / st.n_s,
+                             tile_selectivity=st.tile_selectivity)
+            print(f"[{card}] paper §6 {method} on {name} ({PAPER_ROWS} rows, "
+                  f"self-join, k {k}, {PAPER_REDUCERS} reducers, "
+                  f"{PAPER_PIVOTS} pivots): wall {wall:.3f} s, selectivity "
+                  f"{st.selectivity:.6f}, shuffle_tuples {st.shuffle_tuples}, "
+                  f"alpha {st.replicas_s / st.n_s:.4f}; distances bitwise the "
+                  f"float64 oracle's ({t_oracle:.3f} s), ids equal "
+                  f"{same:.6f} (rest ties); launches {counts}", flush=True)
+        # the §6 setting's reducer is "auto" = pruned (host ops, as in the
+        # JAX package), so K-G does not run; K-A assigns R and S
+        check(launches[f"paper_pgbj_{name}"]["assign"] > 0,
+              f"paper §6: PGBJ on {name} did not run K-A: "
+              f"{launches[f'paper_pgbj_{name}']}")
+        check(launches[f"paper_pbj_{name}"]["assign"] >= 2,
+              f"paper §6: PBJ on {name} did not run K-A on R and S: "
+              f"{launches[f'paper_pbj_{name}']}")
+    x = data["forest"]
+    for metric in ("l1", "linf"):
+        path = f"paper_{metric}_forest"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bd, bi = rt.brute_force_knn(x, x, k, metric=metric, device=DEV)
+        t_oracle = time.perf_counter() - t0
+        begin_path(ops, path)
+        t0 = time.perf_counter()
+        res = rt.knn_join(x, x, config=rt.JoinConfig(
+            k=k, n_pivots=PAPER_PIVOTS, n_groups=PAPER_REDUCERS,
+            metric=metric), device=DEV)
+        wall = time.perf_counter() - t0
+        counts = launches[path] = end_path(ops)
+        same = check_oracle(f"{metric} knn_join on forest", x, x,
+                            res.distances, res.indices, bd, bi, metric)
+        out[path] = dict(wall_s=wall, selectivity=res.stats.selectivity,
+                         oracle_s=t_oracle)
+        print(f"[{card}] paper §6 {metric} knn_join on forest ({PAPER_ROWS} "
+              f"rows, self-join): wall {wall:.3f} s, selectivity "
+              f"{res.stats.selectivity:.6f}; distances bitwise the {metric} "
+              f"float64 oracle's ({t_oracle:.3f} s), ids equal {same:.6f}; "
+              f"launches {counts}", flush=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.join", "--dataset",
+           "forest", "--n", str(N_ROWS), "--expand", "2", "--k", "10",
+           "--pivots", "256", "--groups", "9", "--verify"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.strip().splitlines():
+        print(f"[{card}] launch.join: {line}", flush=True)
+    check(proc.returncode == 0
+          and f"n={2 * N_ROWS} " in proc.stdout
+          and "verified vs brute force on 500 samples: True" in proc.stdout,
+          f"launch.join --expand 2 --verify failed (rc {proc.returncode}): "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    out["launch_join_expand2_s"] = wall
+    print(f"[{card}] phase 16 (paper §6 comparison) took "
+          f"{time.perf_counter() - t_phase:.3f} s (launch.join subprocess "
+          f"{wall:.3f} s)", flush=True)
+    return out
+
+
+def phase_serving(card, torch, rt, idx_q, cfg_q, r_np, s_np, ref_d,
+                  launches) -> dict:
+    """17. Serving under load through ``ServeScheduler`` in front of a
+    quantized ``StreamJoinEngine`` over phase 8's Forest index: ``dispatch``
+    under the sync debug mode; ``join_now`` bitwise ``join_batch``,
+    synchronously and with ``max_inflight=2``; faults at ``sched.dispatch``
+    and ``megastep.fetch`` retried onto the host path; then open-loop
+    bursty traffic of ``SERVE_ROWS``-row requests (a quarter bulk) on a
+    ``VirtualClock`` with measured service times, at 0.8× and 2× the
+    saturation rate measured here, under the default ``SchedulerConfig``
+    and under ``batch_rows=4096``."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (Arrival, FaultPlan, LoadReport, Priority,
+                                   SchedulerConfig, ServeScheduler,
+                                   VirtualClock, bursty_times, run_open_loop)
+    t_phase = time.perf_counter()
+    k = cfg_q.k
+    eng = rt.StreamJoinEngine(idx_q, cfg_q, quantized=True, device=DEV)
+    me = eng.megastep_engine
+    check(me.mode == "int8" and me.resident,
+          "serving: expected the resident int8 engine")
+    fp32 = rt.StreamJoinEngine(idx_q, cfg_q, megastep=True, quantized=False,
+                               device=DEV)
+    # (a) dispatch makes no host sync: the upload is a pinned async copy
+    q = r_np[:BUCKET]
+    for what, e in (("fp32 megastep", fp32), ("quantized", eng)):
+        want = e.join_batch(q)         # warm: payload, staging buffer
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handle = e.dispatch(q)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got = e.finalize(handle)
+        check(np.array_equal(got[0], want[0])
+              and np.array_equal(got[1], want[1]),
+              f"serving: {what} dispatch + finalize differs from join_batch")
+    print(f"[{card}] serving: dispatch of a {BUCKET}-query batch (fp32 "
+          f"megastep and quantized engine) under set_sync_debug_mode("
+          f"'error'): no host sync; finalize bitwise join_batch", flush=True)
+    # (b) the gate of the JAX package's bench, and (c) faults, counted
+    q = r_np[BUCKET:BUCKET + 512]
+    want = eng.join_batch(q)
+    begin_path(ops, "serving_faults")
+    for mi in (1, 2):
+        t = ServeScheduler(eng, config=SchedulerConfig(max_inflight=mi)) \
+            .join_now(q, deadline_s=60.0)
+        check(t.done and not t.degraded
+              and np.array_equal(t.distances, want[0])
+              and np.array_equal(t.indices, want[1]),
+              f"serving: join_now (max_inflight={mi}) is not bitwise "
+              f"join_batch")
+    for site, mi in (("sched.dispatch", 1), ("megastep.fetch", 2)):
+        with FaultPlan().fail(site, times=1) as plan:
+            sched = ServeScheduler(eng, config=SchedulerConfig(
+                max_inflight=mi), sleep=lambda _s: None)
+            t = sched.join_now(q, deadline_s=60.0)
+        check(plan.fired[site] >= 1 and t.done and t.attempts == 2
+              and sched.stats.n_retries == 1,
+              f"serving: a fault at {site} (max_inflight={mi}) was not "
+              f"retried onto the host path")
+        # the host path reports the same canonical distances; Forest-like
+        # rows tie, and a tie may list another id
+        check_same_distances(f"serving: the host-path retry after a fault "
+                             f"at {site}", t.distances, want[0], t.indices,
+                             want[1])
+    counts = launches["serving_faults"] = end_path(ops)
+    check(counts["distance_topk_gather"] > 0 and counts["assign"] > 0,
+          f"serving: the host-path retries ran no K-A / K-G: {counts}")
+    print(f"[{card}] serving: join_now bitwise join_batch (max_inflight 1 "
+          f"and 2); faults at sched.dispatch and megastep.fetch retried "
+          f"onto the host path, distances bitwise (ids but at ties); "
+          f"launches {counts}", flush=True)
+    # does the double-buffered rung overlap now that dispatch is async?
+    # 32 whole buckets through the fp32 megastep, max_inflight 1 and 2 in
+    # turns (1, 2, 2, 1), wall time of the drain
+    reqs = [r_np[j * BUCKET:(j + 1) * BUCKET] for j in range(32)]
+    walls = {1: [], 2: []}
+    for mi in (1, 2, 2, 1):
+        sched = ServeScheduler(fp32, config=SchedulerConfig(
+            batch_rows=BUCKET, max_queued_rows=32 * BUCKET,
+            degrade_queued_rows=32 * BUCKET, shed_queued_rows=32 * BUCKET,
+            max_inflight=mi))
+        tickets = [sched.submit(q, deadline_s=600.0) for q in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.drain()
+        walls[mi].append(time.perf_counter() - t0)
+        check(all(t.done and not t.degraded for t in tickets)
+              and np.array_equal(tickets[0].distances, ref_d[:BUCKET]),
+              f"serving: the max_inflight={mi} drain is not exact")
+    print(f"[{card}] serving: 32 x {BUCKET}-query batches through the fp32 "
+          f"megastep, drain wall s with max_inflight 1: "
+          + ", ".join(f"{w:.4f}" for w in walls[1]) + "; with 2: "
+          + ", ".join(f"{w:.4f}" for w in walls[2]), flush=True)
+
+    # (d) open loop at 0.8x and 2x of the saturation rate, counted
+    rng = np.random.default_rng(17)
+
+    def service_s(rows: int) -> float:
+        """Median wall time of one exact batch of ``rows`` query rows."""
+        ts = []
+        for j in range(5):
+            lo = (j * rows * 7) % (N_ROWS - rows)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.join_batch(r_np[lo:lo + rows])
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts))
+
+    out = {"pipelined_drain_s": walls}
+    begin_path(ops, "serving_load")
+    for label, scfg in (("default", SchedulerConfig()),
+                        (f"batch_rows={BUCKET}",
+                         SchedulerConfig(batch_rows=BUCKET))):
+        svc = service_s(scfg.batch_rows)
+        sat = scfg.batch_rows / svc / SERVE_ROWS     # requests/s
+        for load in (0.8, 2.0):
+            rate = load * sat
+            dur = SERVE_REQUESTS * 1.05 / rate
+            times = bursty_times(rate, dur, rng)
+            while times.size < SERVE_REQUESTS:
+                dur *= 1.2
+                times = bursty_times(rate, dur, rng)
+            starts = rng.integers(0, N_ROWS - SERVE_ROWS, times.size)
+            arrivals = [Arrival(t=float(tt), rows=r_np[s0:s0 + SERVE_ROWS],
+                                priority=Priority.BULK if j % 4 == 0
+                                else Priority.INTERACTIVE)
+                        for j, (tt, s0) in enumerate(zip(times, starts))]
+            vc = VirtualClock()
+            sched = ServeScheduler(eng, config=scfg, clock=vc.now,
+                                   sleep=vc.advance)
+            t0 = time.perf_counter()
+            tickets = run_open_loop(sched, arrivals, vc)
+            wall = time.perf_counter() - t0
+            rep = LoadReport.from_tickets(tickets, sched.stats)
+            what = f"serving {label} at {load}x"
+            check(rep.n_expired_dispatched == 0,
+                  f"{what}: {rep.n_expired_dispatched} expired requests "
+                  f"dispatched")
+            done = [(t, s0) for t, s0 in zip(tickets, starts) if t.done]
+            exact = [(t, s0) for t, s0 in done if not t.degraded]
+            check(all(np.array_equal(t.distances, ref_d[s0:s0 + SERVE_ROWS])
+                      for t, s0 in exact),
+                  f"{what}: an exact ticket's distances differ from phase 4's")
+            degraded = [(t, s0) for t, s0 in done if t.degraded]
+            if degraded:
+                rows = np.concatenate([r_np[s0:s0 + SERVE_ROWS]
+                                       for _, s0 in degraded])
+                bd, _ = rt.brute_force_knn(rows, s_np, k, device=DEV)
+                got = np.concatenate([t.distances for t, _ in degraded])
+                bound = np.concatenate([t.recall_bound for t, _ in degraded])
+                true = (got <= bd[:, -1:]).sum(axis=1) / k
+                check(bool((true >= bound).all()),
+                      f"{what}: a certified recall bound exceeds the true "
+                      f"recall against the float64 brute force")
+                tightness = float((true - bound).mean())
+            else:
+                tightness = 0.0
+            row = dataclasses.asdict(rep)
+            row.update(service_ms=svc * 1e3, saturation_req_s=sat,
+                       offered_req_s=rate, wall_s=wall,
+                       n_dispatches=sched.stats.n_dispatches,
+                       mean_true_minus_bound=tightness)
+            out[f"{label}@{load}x"] = row
+            print(f"[{card}] {what} ({len(arrivals)} requests of "
+                  f"{SERVE_ROWS} rows, offered {rate:.1f} req/s, saturation "
+                  f"{sat:.1f} req/s from a {scfg.batch_rows}-row batch of "
+                  f"{svc * 1e3:.3f} ms; {wall:.3f} s wall): "
+                  + ", ".join(f"{key} {val}" for key, val in
+                              dataclasses.asdict(rep).items())
+                  + f"; {len(exact)} exact tickets bitwise phase 4, "
+                  f"{len(degraded)} degraded with sound bounds (true recall "
+                  f"- bound, mean {tightness:.4f})", flush=True)
+    counts = launches["serving_load"] = end_path(ops)
+    check(counts["quant_coarse_gather"] > 0,
+          f"serving: the load runs never launched K-Q: {counts}")
+    print(f"[{card}] serving under load: launches {counts}; phase 17 took "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -1815,6 +2214,15 @@ def main(argv=None) -> int:
 
     # ---- 15. K-A at the other shapes the counted paths handed it
     assign_paths = phase_assign_paths(card, torch, rt)
+
+    # ---- 16. the paper's §6 comparison: PGBJ, PBJ, H-BRJ, L1 / L∞
+    paper = phase_paper(card, torch, rt, launches)
+
+    # ---- 17. serving under load through the deadline-aware scheduler
+    serving = phase_serving(card, torch, rt, idx_q, cfg_q, r_np, s_np,
+                            res.distances, launches)
+    (out_dir / "phases_16_17.json").write_text(json.dumps(
+        {"paper_three_way": paper, "serving_under_load": serving}))
 
     owner = {"assign": "megastep", "distance_topk_gather": "megastep",
              "quant_coarse_gather": "quantized", "distance_topk": "retrieval",

@@ -10,13 +10,16 @@ versions.
 from . import core, kernels, obs, quant, serve
 from .core import (JoinConfig, JoinResult, JoinStats, MegastepEngine,
                    MutableIndex, Segment, SIndex, StreamJoinEngine,
-                   brute_force_knn, build_index, knn_join, knn_join_batched,
-                   plan_queries, sindex_from_arrays)
-from .data import forest_like
+                   brute_force_knn, build_index, hbrj_join, knn_join,
+                   knn_join_batched, pbj_join, plan_queries,
+                   sindex_from_arrays)
+from .data import clustered_like, expand_dataset, forest_like, osm_like
 from .quant.engine import QuantMegastepEngine
 
 __all__ = ["core", "kernels", "obs", "quant", "serve", "JoinConfig",
            "JoinResult", "JoinStats", "MegastepEngine", "MutableIndex",
            "QuantMegastepEngine", "Segment", "SIndex", "StreamJoinEngine",
-           "brute_force_knn", "build_index", "forest_like", "knn_join",
-           "knn_join_batched", "plan_queries", "sindex_from_arrays"]
+           "brute_force_knn", "build_index", "clustered_like",
+           "expand_dataset", "forest_like", "hbrj_join", "knn_join",
+           "knn_join_batched", "osm_like", "pbj_join", "plan_queries",
+           "sindex_from_arrays"]

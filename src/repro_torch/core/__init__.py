@@ -24,7 +24,7 @@ from .stream import StreamJoinEngine, StreamJoinState, knn_join_batched
 from .segments import MutableIndex, Segment
 from .metrics import (canonical_gathered, canonical_topk, from_cmp,
                       gathered_dist)
-from .baselines import brute_force_knn
+from .baselines import brute_force_knn, hbrj_join, pbj_join
 
 __all__ = [
     "JoinConfig", "JoinResult", "JoinStats", "SummaryTable",
@@ -47,5 +47,5 @@ __all__ = [
     "StreamJoinEngine", "StreamJoinState", "knn_join_batched",
     "MutableIndex", "Segment",
     "canonical_gathered", "canonical_topk", "from_cmp", "gathered_dist",
-    "brute_force_knn",
+    "brute_force_knn", "hbrj_join", "pbj_join",
 ]

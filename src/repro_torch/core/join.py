@@ -26,11 +26,12 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels import ops
 from .bounds import pad_theta
-from .metrics import cmp_dist, from_cmp
+from .metrics import cmp_dist, from_cmp, select_dist, sq_dist64
 from .schedule import TileSchedule, schedule_for_group
 from .types import JoinStats
 
@@ -69,7 +70,8 @@ def join_group_dense(
     for qlo in range(0, nq, tile_r):
         bd, bi = _empty_run(min(tile_r, nq - qlo), k, r.device)
         for slo in range(0, ns, tile_s):
-            d2 = cmp_dist(r[qlo:qlo + tile_r], s[slo:slo + tile_s], metric)
+            d2 = select_dist(r[qlo:qlo + tile_r], s[slo:slo + tile_s],
+                             metric)
             bd, bi = topk_merge(bd, bi, d2,
                                 s_ids[slo:slo + tile_s].expand_as(d2), k)
         out_d[qlo:qlo + tile_r] = bd
@@ -152,8 +154,8 @@ def join_group(g: int, r: torch.Tensor, r_sel: torch.Tensor, index, qplan,
     if reducer == "pruned":
         return join_group_pruned(
             r[r_sel], qplan.r_part[r_sel], ss, sp, sd, sids, index.pivots,
-            index.pivd, qplan.theta, index.t_s.lower, index.t_s.upper, k,
-            tile_s=cfg.tile_s, stats=stats, metric=cfg.metric)
+            index.pivd, qplan.theta, k, tile_s=cfg.tile_s, stats=stats,
+            metric=cfg.metric)
     return join_group_dense(r[r_sel], ss, sids, k, tile_r=cfg.tile_r,
                             tile_s=cfg.tile_s, stats=stats, metric=cfg.metric)
 
@@ -191,18 +193,46 @@ def _join_group_gather_scheduled(r, r_sel, mask, ss, sp, sd, sids, index,
     return gd[inv], gi[inv]
 
 
+def _own_pivot_dist(s: torch.Tensor, s_part: torch.Tensor,
+                    pivots: torch.Tensor, *, block: int = 65536):
+    """Each row's float64 distance to its assigned pivot (rounded to
+    float32), and per pivot the largest excess of a row's squared
+    distance to it over the row's distance to its nearest pivot (float64;
+    0 where the assignment is exact)."""
+    dist = torch.empty((s.shape[0],), dtype=torch.float32, device=s.device)
+    slack = torch.zeros((pivots.shape[0],), dtype=torch.float64,
+                        device=s.device)
+    for lo in range(0, s.shape[0], block):
+        d2 = sq_dist64(s[lo:lo + block], pivots)
+        own = d2.gather(1, s_part[lo:lo + block, None])[:, 0]
+        dist[lo:lo + block] = torch.sqrt(own).to(torch.float32)
+        slack.scatter_reduce_(0, s_part[lo:lo + block],
+                              own - d2.min(1).values, "amax")
+    return dist, slack
+
+
 def join_group_pruned(
     r: torch.Tensor, r_part: torch.Tensor, s: torch.Tensor,
     s_part: torch.Tensor, s_dist: torch.Tensor, s_ids: torch.Tensor,
-    pivots: torch.Tensor, pivd: torch.Tensor, theta: torch.Tensor,
-    t_s_lower: torch.Tensor, t_s_upper: torch.Tensor, k: int,
+    pivots: torch.Tensor, pivd: torch.Tensor, theta: torch.Tensor, k: int,
     *, tile_s: int = 512, stats: Optional[JoinStats] = None,
     metric: str = "l2",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Algorithm 3 (lines 13-25), tile-masked. Returns (dists, ids) in
     the order of ``r``. Parameters mirror what a reducer holds: its R
     rows (+ home partitions), the shipped S rows (+ partitions, pivot
-    distances, global ids) and the summary-table columns it needs."""
+    distances, global ids) and the θ of its R partitions.
+
+    Under L2 the distances the tests compare — |q, p_j| and each row's
+    |p_j, s| — are taken here in float64 and rounded once: the index's
+    phase-1 distances carry the float32 expansion's error, ~u·‖s‖², which
+    on map coordinates exceeds a ring's width and would prune true
+    neighbours (ROADMAP C15). A ring is not clamped to the partition's
+    [L, U]: every row of the partition lies in it, so the clamp would
+    only matter where L or U disagree with the row's own distance. The
+    same error can assign a row near a Voronoi boundary to the farther
+    pivot; Cor. 1 then widens by each partition's largest such excess
+    (0 when every row sits in its own cell)."""
     nq = r.shape[0]
     dev = r.device
     out_d, out_i = _empty_run(nq, k, dev)
@@ -213,6 +243,10 @@ def join_group_pruned(
     s_order = torch.argsort(s_part, stable=True)
     s, s_part = s[s_order], s_part[s_order]
     s_dist, s_ids = s_dist[s_order], s_ids[s_order]
+    slack_h = np.zeros((pivots.shape[0],))
+    if metric == "l2":
+        s_dist, slack = _own_pivot_dist(s, s_part.to(torch.int64), pivots)
+        slack_h = slack.cpu().numpy()
     uniq_t, cnt_t = torch.unique_consecutive(s_part, return_counts=True)
     uniq_sp = uniq_t.cpu().numpy()
     sp_end = cnt_t.cumsum(0).cpu().numpy()
@@ -220,7 +254,6 @@ def join_group_pruned(
     uniq_idx = uniq_t.to(torch.int64)
     pivd_h = pivd.cpu().numpy()
     theta_h = theta.cpu().numpy()
-    lower_h, upper_h = t_s_lower.cpu().numpy(), t_s_upper.cpu().numpy()
     r_part64 = r_part.to(torch.int64)
 
     for pi in torch.unique(r_part64).cpu().tolist():
@@ -231,10 +264,10 @@ def join_group_pruned(
         th = torch.full((q.shape[0],), float(theta_h[pi]), device=dev)
         bd, bi = _empty_run(q.shape[0], k, dev)
         # |q, p_j| for the candidate partitions (Cor. 1 and Thm 2)
-        qp = from_cmp(cmp_dist(q, pivots[uniq_idx], metric), metric)
+        qp = from_cmp(select_dist(q, pivots[uniq_idx], metric), metric)
         if stats is not None:
             stats.pivot_pairs_computed += qp.numel()
-        d_home = from_cmp(cmp_dist(q, pivots[pi:pi + 1], metric),
+        d_home = from_cmp(select_dist(q, pivots[pi:pi + 1], metric),
                           metric)[:, 0]
         for jj in order.tolist():
             j = int(uniq_sp[jj])
@@ -246,15 +279,14 @@ def join_group_pruned(
                                    device=dev)
             else:
                 denom = float(max(2.0 * pivd_h[pi, j], 1e-30))
-                alive = (qp[:, jj] ** 2 - d_home ** 2) / denom <= thp
+                alive = ((qp[:, jj] ** 2 - d_home ** 2 - float(slack_h[j]))
+                         / denom <= thp)
             if not bool(alive.any()):
                 if stats is not None:
                     stats.tiles_total += -(-(hi_j - lo_j) // tile_s)
                 continue
             # Theorem 2 interval for this partition
-            lo_s, hi_s = float(lower_h[j]), float(upper_h[j])
-            ring_lo = torch.clamp(qp[:, jj] - thp, min=lo_s)
-            ring_hi = torch.clamp(qp[:, jj] + thp, max=hi_s)
+            ring_lo, ring_hi = qp[:, jj] - thp, qp[:, jj] + thp
             for slo in range(lo_j, hi_j, tile_s):
                 shi = min(slo + tile_s, hi_j)
                 if stats is not None:
@@ -268,14 +300,14 @@ def join_group_pruned(
                 if stats is not None:
                     stats.tiles_visited += 1
                     stats.pairs_computed += n_pairs
-                d2 = torch.where(mask, cmp_dist(q, s[slo:shi], metric), _INF)
+                d2 = torch.where(mask, select_dist(q, s[slo:shi], metric),
+                                 _INF)
                 bd, bi = topk_merge(bd, bi, d2,
                                     s_ids[slo:shi].expand_as(d2), k)
                 # θ tightens between tiles (block analogue of lines 22-24)
                 th = torch.minimum(th, from_cmp(bd[:, k - 1], metric))
                 thp = pad_theta(th)
-                ring_lo = torch.clamp(qp[:, jj] - thp, min=lo_s)
-                ring_hi = torch.clamp(qp[:, jj] + thp, max=hi_s)
+                ring_lo, ring_hi = qp[:, jj] - thp, qp[:, jj] + thp
         out_d[q_sel] = from_cmp(bd, metric)
         out_i[q_sel] = bi
     return out_d, out_i

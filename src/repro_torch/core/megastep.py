@@ -208,6 +208,10 @@ class JoinHandle:
     n: int
     dev: tuple = ()
     q: Optional[np.ndarray] = None   # the host queries (quantized tier)
+    # the pinned host buffer the queries were copied from: its copy may
+    # still be queued on the stream, so the handle holds it until
+    # finalize, and only then may another batch reuse it
+    staging: Optional[torch.Tensor] = None
 
 
 class MegastepEngine:
@@ -259,6 +263,10 @@ class MegastepEngine:
         # an owner already holding it can query.
         self.refresh_lock: threading.RLock = threading.RLock()
         self.step_count = 0
+        # pinned host buffers per bucket whose copies have completed
+        # (returned by finalize); a dispatch takes one or pins a new one
+        self._staging_free: dict = {}
+        self._staging_lock = threading.Lock()
 
     def bucket_for(self, n: int) -> int:
         return next_pow2(max(self.bucket_min, n))
@@ -369,13 +377,45 @@ class MegastepEngine:
         """Pad one micro-batch to its bucket and upload: returns the
         device queries and the host count of valid rows, ready for
         :meth:`join_batch_device`. The only host→device transfer of a
-        steady-state batch."""
+        steady-state batch; on the card it is asynchronous (see
+        :meth:`_stage`)."""
+        qd, _, n = self._stage(queries)
+        return qd, n
+
+    def _stage(self, queries: np.ndarray):
+        """Pad one micro-batch to its bucket and start its upload:
+        ``(device queries, pinned host buffer or None, n)``. On the card
+        the rows are written into a pinned buffer and copied with
+        ``non_blocking=True``, so the host does not wait for the
+        kernels already queued (a copy from pageable memory would). The
+        buffer comes from the finalized ones of its bucket, or is pinned
+        anew; while its copy may be queued nobody else writes it."""
         q = np.ascontiguousarray(queries, np.float32)
         n = q.shape[0]
         bucket = self.bucket_for(n)
-        if bucket != n:
-            q = np.pad(q, ((0, bucket - n), (0, 0)))
-        return torch.from_numpy(q).to(self.device), n
+        if self.device.type != "cuda":
+            if bucket != n:
+                q = np.pad(q, ((0, bucket - n), (0, 0)))
+            return torch.from_numpy(q).to(self.device), None, n
+        with self._staging_lock:
+            free = self._staging_free.get((bucket, q.shape[1]))
+            buf = free.pop() if free else None
+        if buf is None:
+            buf = torch.empty((bucket, q.shape[1]), dtype=torch.float32,
+                              pin_memory=True)
+        host = buf.numpy()
+        host[:n] = q
+        host[n:] = 0.0
+        return buf.to(self.device, non_blocking=True), buf, n
+
+    def _release(self, handle: "JoinHandle") -> None:
+        """Return a finalized handle's staging buffer for reuse (its copy
+        completed before the fetch that finalize waited for)."""
+        buf, handle.staging = handle.staging, None
+        if buf is not None:
+            with self._staging_lock:
+                self._staging_free.setdefault(tuple(buf.shape), []).append(
+                    buf)
 
     def join_batch_device(self, q_dev: torch.Tensor, n_valid: int, *,
                           state=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -423,8 +463,9 @@ class MegastepEngine:
         payload = self.payload()
         if stats is not None:
             self._count(stats, n, payload)
-        qd, nv = self.enqueue(q)
-        return JoinHandle(kind="mega", n=n, dev=self.join_batch_device(qd, nv))
+        qd, buf, nv = self._stage(q)
+        return JoinHandle(kind="mega", n=n, dev=self.join_batch_device(qd, nv),
+                          staging=buf)
 
     def _count(self, stats: JoinStats, n: int, pl: _Payload) -> None:
         stats.n_r += n
@@ -453,6 +494,7 @@ class MegastepEngine:
             d, ids = handle.dev
             d = d[:handle.n].cpu().numpy()
             ids = ids[:handle.n].cpu().numpy()
+        self._release(handle)
         obs.metrics.REGISTRY.histogram("megastep_finalize_s") \
             .observe(time.perf_counter() - t0)
         return np.ascontiguousarray(d), np.ascontiguousarray(ids)

@@ -13,8 +13,9 @@ import torch
 
 METRICS = ("l2", "l1", "linf")
 
-__all__ = ["METRICS", "pairwise_dist", "cmp_dist", "from_cmp",
-           "canonical_gathered", "gathered_dist", "canonical_topk"]
+__all__ = ["METRICS", "pairwise_dist", "cmp_dist", "select_dist",
+           "sq_dist64", "from_cmp", "canonical_gathered", "gathered_dist",
+           "canonical_topk"]
 
 
 def pairwise_dist(a: torch.Tensor, b: torch.Tensor, metric: str = "l2",
@@ -57,6 +58,35 @@ def cmp_dist(a: torch.Tensor, b: torch.Tensor, metric: str = "l2",
     d2 = ((a * a).sum(-1)[:, None] + (b * b).sum(-1)[None, :]
           - 2.0 * (a @ b.T))
     return torch.clamp(d2, min=0.0)
+
+
+def sq_dist64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distances (na, nb) in float64: the expansion on rows
+    centered by b's mean."""
+    a = a.to(torch.float64)
+    b = b.to(torch.float64)
+    c = (b.mean(0) if b.shape[0]
+         else torch.zeros(b.shape[1], dtype=torch.float64, device=b.device))
+    a = a - c
+    b = b - c
+    d2 = ((a * a).sum(-1)[:, None] + (b * b).sum(-1)[None, :]
+          - 2.0 * (a @ b.T))
+    return torch.clamp(d2, min=0.0)
+
+
+def select_dist(a: torch.Tensor, b: torch.Tensor, metric: str = "l2",
+                *, block: int = 2048) -> torch.Tensor:
+    """:func:`cmp_dist` for top-k *selection* and pruning tests in the
+    host reducers (dense, pruned): the L2 expansion is taken in float64
+    (:func:`sq_dist64`) and rounded once to float32. A tile of
+    pivot-sorted rows spans a whole Voronoi cell, so centering on its
+    mean leaves a float32 cancellation noise of the cell's spread² · eps
+    — on map coordinates (OSM-like rows) more than the gap between a
+    query's k-th and (k+1)-th neighbours (ROADMAP C15). Rounding the
+    float64 value keeps the order up to float32 ties."""
+    if metric != "l2":
+        return pairwise_dist(a, b, metric, block=block)
+    return sq_dist64(a, b).to(torch.float32)
 
 
 def from_cmp(d: torch.Tensor, metric: str) -> torch.Tensor:

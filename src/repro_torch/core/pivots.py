@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 __all__ = ["select_pivots", "pairwise_sqdist"]
 
 
@@ -82,10 +84,12 @@ def select_pivots(
     sample: int = 4096,
     n_sets: int = 8,
     seed: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> np.ndarray:
     """Select ``m`` pivots from ``data`` using a paper §4.1 strategy.
-    Returns a host float32 array (pivots are O(M·dim))."""
+    Returns a host float32 array (pivots are O(M·dim)). The distance
+    work runs on ``device`` (the card by default)."""
+    device = resolve_device(device)
     data = np.asarray(data)
     if m > data.shape[0]:
         raise ValueError(f"cannot select {m} pivots from {data.shape[0]} objects")

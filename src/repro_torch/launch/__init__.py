@@ -1,2 +1,3 @@
 """Command-line launchers of the port
-(``python -m repro_torch.launch.serve``)."""
+(``python -m repro_torch.launch.serve``, ``python -m
+repro_torch.launch.join``)."""

@@ -47,7 +47,6 @@ import torch
 
 from .. import obs
 from ..core.bounds import pad_theta
-from ..core.index import not_ported
 from ..core.megastep import (JoinHandle, MegastepEngine, _Payload,
                              assign_bounds_schedule)
 from ..core.metrics import canonical_gathered, canonical_topk
@@ -301,13 +300,15 @@ class QuantMegastepEngine(MegastepEngine):
         pl = self.payload()
         if stats is not None:
             self._count(stats, n, pl)
-        qd, nv = self.enqueue(q)
+        qd, buf, nv = self._stage(q)
         if self.resident:
             return JoinHandle(kind="quant_resident", n=n,
-                              dev=self.join_batch_device(qd, nv), q=q)
+                              dev=self.join_batch_device(qd, nv), q=q,
+                              staging=buf)
         lb, pos = _quant_coarse(qd, nv, pl, **self._step_args(qd))
         self.step_count += 1
-        return JoinHandle(kind="quant_host", n=n, dev=(lb, pos), q=q)
+        return JoinHandle(kind="quant_host", n=n, dev=(lb, pos), q=q,
+                          staging=buf)
 
     def finalize(self, handle: JoinHandle, *,
                  stats: Optional[JoinStats] = None
@@ -315,19 +316,7 @@ class QuantMegastepEngine(MegastepEngine):
         if handle.kind in ("empty", "mega"):
             return super().finalize(handle, stats=stats)
         k = self.config.k
-        if handle.kind == "quant_resident":
-            faultinject.fire("megastep.fetch")     # a lost fetch
-            d, ids, lm = (x[:handle.n].cpu().numpy() for x in handle.dev)
-            # deflated bounds force certification failures downstream
-            lm = faultinject.transform_value("quant.eps_inflation", lm)
-            if stats is not None:
-                stats.n_resident_rerank += handle.n
-        elif handle.kind == "quant_host":
-            d, ids, lm = self._finalize_host_shortlist(handle)
-            if stats is not None:
-                stats.n_host_rerank += handle.n
-        else:
-            raise ValueError(f"cannot finalize handle kind {handle.kind!r}")
+        d, ids, lm = self._fetch_shortlist_run(handle, stats)
         # certification: excluded coarse candidates all carry lb ≥ the
         # run's largest slot (+inf: nothing was excluded); τ̂ is the
         # exact reported k-th distance
@@ -341,6 +330,31 @@ class QuantMegastepEngine(MegastepEngine):
             if stats is not None:
                 stats.n_quant_fallback += n_bad
         return np.ascontiguousarray(d), np.ascontiguousarray(ids)
+
+    def _fetch_shortlist_run(self, handle: JoinHandle, stats):
+        """Fetch a dispatched two-tier batch through its re-rank variant:
+        numpy ``(d, ids, lm)``, counted as a resident or host re-rank."""
+        if handle.kind == "quant_resident":
+            out = self._fetch_resident(handle)
+            if stats is not None:
+                stats.n_resident_rerank += handle.n
+        elif handle.kind == "quant_host":
+            out = self._finalize_host_shortlist(handle)
+            if stats is not None:
+                stats.n_host_rerank += handle.n
+        else:
+            raise ValueError(f"cannot finalize handle kind {handle.kind!r}")
+        self._release(handle)
+        return out
+
+    def _fetch_resident(self, handle: JoinHandle):
+        """Fetch a fused resident batch: numpy ``(d, ids, lm)`` — the
+        exact top-k and the per-query exclusion bound."""
+        faultinject.fire("megastep.fetch")     # a lost fetch
+        d, ids, lm = (x[:handle.n].cpu().numpy() for x in handle.dev)
+        # deflated bounds force certification failures downstream
+        lm = faultinject.transform_value("quant.eps_inflation", lm)
+        return d, ids, lm
 
     def _finalize_host_shortlist(self, handle: JoinHandle):
         """Host half of the host-gather variant: fetch the shortlist,
@@ -358,10 +372,48 @@ class QuantMegastepEngine(MegastepEngine):
                                 pl.rows_host[pos_c])
         return d[:, :k].numpy(), ids[:, :k].numpy(), lb[:, -1].numpy()
 
-    def join_batch_approx(self, queries, *, stats=None):
-        """The serving scheduler's certified-approximate rung."""
-        raise not_ported("join_batch_approx (the scheduler's degraded "
-                         "rung)", "A3")
+    def join_batch_approx(
+        self, queries: np.ndarray, *, stats: Optional[JoinStats] = None,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Coarse-only certified-*approximate* join — the serving
+        scheduler's degraded rung. The same coarse shortlist and exact
+        re-rank as :meth:`join_batch`, but certification failures are
+        **not** re-run through the fp32 host path; every query reports a
+        *certified recall lower bound* instead.
+
+        Returns ``(dists, ids, recall_bound)`` with ``recall_bound[i] =
+        #{j : dists[i, j] ≤ lm_i} / k``, where ``lm_i`` bounds every
+        excluded row's true distance from below. A reported neighbour
+        with distance ≤ lm has global rank ≤ its shortlist rank ≤ k, so
+        it provably belongs to the true top-k: the bound counts only
+        such neighbours and is sound, never optimistic. An unfilled
+        shortlist (lm = +inf) excluded nothing: the result is exact and
+        the bound is 1. Reported distances are always exact (the re-rank
+        is the canonical fp32 chain); only membership of the true top-k
+        is approximate. In fp32 mode there is no shortlist: the exact
+        scan runs and the bound is 1.
+        """
+        q = self._validated_queries(queries)
+        n = q.shape[0]
+        k = self.config.k
+        if n == 0:
+            return (np.zeros((0, k), np.float32),
+                    np.full((0, k), -1, np.int64),
+                    np.ones((0,), np.float32))
+        if self.mode == "fp32":
+            out_d, out_i = self.join_batch(q, stats=stats)
+            recall = np.ones((n,), np.float32)
+        else:
+            handle = self.dispatch(q, stats=stats)
+            out_d, out_i, lm = self._fetch_shortlist_run(handle, stats)
+            with np.errstate(invalid="ignore"):
+                proven = out_d <= lm[:, None]      # NaN-safe: counts False
+            recall = proven.sum(axis=1).astype(np.float32) / np.float32(k)
+        if stats is not None:
+            stats.n_degraded += n
+            stats.recall_bound = min(stats.recall_bound,
+                                     float(recall.min()))
+        return out_d, out_i, recall
 
     def _oracle_join(self, q: np.ndarray):
         """The fp32 host-planned path for certification failures — it

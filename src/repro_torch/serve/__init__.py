@@ -1,9 +1,10 @@
 """Serving, PyTorch port of the JAX package's ``serve``: batched
-generation (``serve_step``), the kNN-LM datastore (``retrieval``) and
-the fault-injection hooks (``faultinject``).
+generation (``serve_step``), the kNN-LM datastore (``retrieval``), the
+deadline-aware request scheduler (``scheduler``) and the
+fault-injection hooks (``faultinject``).
 
-Lazy (PEP 562) exports of only what the port has: ``core.megastep``
-fires ``faultinject`` sites, so importing this package must stay light.
+Lazy (PEP 562) exports: ``core.megastep`` fires ``faultinject`` sites,
+so importing this package must stay light.
 """
 import importlib
 
@@ -21,13 +22,25 @@ _EXPORTS = {
     "InjectedFault": "faultinject",
     "ShardFault": "faultinject",
     "ShardFailedError": "faultinject",
+    "Arrival": "scheduler",
+    "LoadReport": "scheduler",
+    "Priority": "scheduler",
+    "SchedulerConfig": "scheduler",
+    "SchedulerStats": "scheduler",
+    "ServeScheduler": "scheduler",
+    "Ticket": "scheduler",
+    "VirtualClock": "scheduler",
+    "bursty_times": "scheduler",
+    "poisson_times": "scheduler",
+    "run_open_loop": "scheduler",
 }
 
-__all__ = sorted(_EXPORTS) + ["faultinject", "retrieval", "serve_step"]
+_MODULES = ("faultinject", "retrieval", "scheduler", "serve_step")
+__all__ = sorted(_EXPORTS) + list(_MODULES)
 
 
 def __getattr__(name):
-    if name in ("faultinject", "retrieval", "serve_step"):
+    if name in _MODULES:
         return importlib.import_module(f".{name}", __name__)
     mod = _EXPORTS.get(name)
     if mod is None:

@@ -25,10 +25,14 @@ Hook sites the port fires:
   errors would do, so a transform there forces certification failures
   and exercises the fp32 fallback.
 
-The serving scheduler's ``sched.dispatch`` and the sharded engines'
-``sharded.*`` sites come with those modules (ROADMAP Queue A3, A5);
-:class:`ShardFault` and :class:`ShardFailedError` are here already.
-All sites compose in one armed plan.
+* ``sched.dispatch`` — ``serve.scheduler.ServeScheduler``, just before
+  it hands a batch to an engine (every attempt of the synchronous retry
+  ladder, and the pipelined ``dispatch``); failing it simulates a
+  poisoned batch.
+
+The sharded engines' ``sharded.*`` sites come with those modules
+(ROADMAP Queue A5); :class:`ShardFault` and :class:`ShardFailedError`
+are here already. All sites compose in one armed plan.
 
 Usage::
 

@@ -226,14 +226,17 @@ def knn_logits(queries, store: Datastore, kcfg: KnnLMConfig, vocab: int, *,
     ``use_kernel=True`` runs the dense top-k kernel over the store's
     live rows, centered. Distances are squared before
     ``softmax(−d²/τ)``; padded slots are excluded, and a query with no
-    finite neighbour gets the flat log-floor row. Routing through the
-    serving scheduler (``scheduler=``, with ``deadline_s=``) is not
-    ported yet. ``return_neighbors=True`` also returns the neighbours
-    the distribution came from: ``(logits, (dists, global ids))``.
+    finite neighbour gets the flat log-floor row.
+
+    ``scheduler`` (a ``serve.scheduler.ServeScheduler``) routes the
+    batch through admission control instead of calling the engine
+    directly: under overload the result may be certified-approximate,
+    and a shed or rejected batch degrades to the log-floor rows — the
+    interpolation then falls back to the LM distribution alone.
+    ``deadline_s`` bounds the retrieval's staleness on that route.
+    ``return_neighbors=True`` also returns the neighbours the
+    distribution came from: ``(logits, (dists, global ids))``.
     """
-    if scheduler is not None:
-        raise not_ported("knn_logits(scheduler=...) (the serving "
-                         "scheduler)", "A3")
     queries = as_float32_rows(queries, what="queries").cpu().numpy()
     nq = queries.shape[0]
     k_eff = min(kcfg.k, store.index.n_s)
@@ -244,7 +247,16 @@ def knn_logits(queries, store: Datastore, kcfg: KnnLMConfig, vocab: int, *,
                            np.zeros((nq, 0), np.int64))
         return floor
     values = None
-    if use_kernel:
+    if scheduler is not None:
+        t = scheduler.join_now(queries, deadline_s=deadline_s)
+        if not t.done:               # shed / rejected: LM-only this step
+            floor = np.full((nq, vocab), _LOG_FLOOR, np.float32)
+            if return_neighbors:
+                return floor, (np.full((nq, k_eff), np.inf, np.float32),
+                               np.full((nq, k_eff), -1, np.int64))
+            return floor
+        d, idx = t.distances, t.indices
+    elif use_kernel:
         with store._lock:
             rows_c, center, gids = store.index.live_device_centered()
             values = store.values

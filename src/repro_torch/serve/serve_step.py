@@ -21,7 +21,6 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from ..core.index import not_ported
 from ..models import ModelOptions, forward, init_cache
 
 __all__ = ["ServeConfig", "make_serve_step", "make_knn_hook", "sample",
@@ -59,13 +58,14 @@ def make_knn_hook(store, kcfg, vocab: int, *, scheduler=None,
                   query_fn: Optional[Callable] = None) -> Callable:
     """A ``logits_hook`` for :class:`BatchedServer` that interpolates each
     step's logits with kNN-LM retrieval from ``store`` (a
-    ``serve.Datastore``). ``query_fn(logits, cache) -> (B, D) float32``
-    maps the decode state to retrieval queries; the default takes the
-    leading logit slice, as the JAX package's (a stand-in for the hidden
-    state). Routing through the serving scheduler is not ported yet."""
-    if scheduler is not None:
-        raise not_ported("make_knn_hook(scheduler=...) (the serving "
-                         "scheduler)", "A3")
+    ``serve.Datastore``) — optionally *through* a
+    ``serve.scheduler.ServeScheduler`` (``scheduler=``, with
+    ``deadline_s=``), which puts admission control, deadlines and
+    graceful degradation in front of the retrieval join: an overloaded
+    or past-deadline step falls back to the LM distribution alone.
+    ``query_fn(logits, cache) -> (B, D) float32`` maps the decode state
+    to retrieval queries; the default takes the leading logit slice, as
+    the JAX package's (a stand-in for the hidden state)."""
     from .retrieval import interpolate, knn_logits
 
     if query_fn is None:
@@ -76,7 +76,8 @@ def make_knn_hook(store, kcfg, vocab: int, *, scheduler=None,
 
     def hook(logits, cache):
         q = query_fn(logits, cache)
-        lg = knn_logits(q, store, kcfg, vocab, deadline_s=deadline_s)
+        lg = knn_logits(q, store, kcfg, vocab, scheduler=scheduler,
+                        deadline_s=deadline_s)
         return interpolate(logits, lg, kcfg.lam)
 
     return hook

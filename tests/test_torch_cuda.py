@@ -778,3 +778,110 @@ def test_assign_unaligned_rows_take_the_same_bits(cuda, d):
         ref_p, ref_d = ka.assign_cuda(x.clone(), p.clone(), form=form)
         assert torch.equal(pid, ref_p)
         assert torch.equal(dist.view(torch.int32), ref_d.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the serving scheduler, the pinned upload and the §6 baselines on the card
+
+
+def _sched_engine(cuda, quantized, n=3000, dim=10, k=10):
+    s = rt.forest_like(n, dim, seed=31)
+    cfg = rt.JoinConfig(k=k, n_pivots=32, tile_r=32, tile_s=128,
+                        quantize="int8" if quantized else "none",
+                        quant_slack=22)
+    idx = rt.build_index(s, cfg, device=cuda)
+    return rt.StreamJoinEngine(idx, cfg, megastep=True, quantized=quantized,
+                               device=cuda), s
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_scheduler_exact_rung_bitwise_engine(cuda, quantized):
+    """Through the scheduler, synchronously and with two megasteps in
+    flight, every ticket carries the engine's own bits."""
+    from repro_torch.serve import SchedulerConfig, ServeScheduler, VirtualClock
+    eng, _ = _sched_engine(cuda, quantized)
+    qs = [rt.forest_like(n, 10, seed=40 + n) for n in (9, 40, 13, 64, 7)]
+    want = [eng.join_batch(q) for q in qs]
+    for mi in (1, 2):
+        vc = VirtualClock()
+        sched = ServeScheduler(eng, config=SchedulerConfig(
+            batch_rows=48, max_inflight=mi), clock=vc.now, sleep=vc.advance)
+        tickets = [sched.submit(q) for q in qs]
+        sched.drain()
+        for t, (d, i) in zip(tickets, want):
+            assert t.done and not t.degraded
+            np.testing.assert_array_equal(t.distances, d)
+            np.testing.assert_array_equal(t.indices, i)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_dispatch_makes_no_host_sync(cuda, quantized):
+    eng, _ = _sched_engine(cuda, quantized)
+    q = rt.forest_like(256, 10, seed=50)
+    want = eng.join_batch(q)                  # warm: payload and staging
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = eng.dispatch(q)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    d, i = eng.finalize(handle)
+    np.testing.assert_array_equal(d, want[0])
+    np.testing.assert_array_equal(i, want[1])
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_staging_not_reused_while_in_flight(cuda, quantized):
+    """Four batches of one bucket dispatched, then finalized in order:
+    each holds its own pinned buffer, so the bits equal one at a time."""
+    eng, _ = _sched_engine(cuda, quantized)
+    qs = [rt.forest_like(200 + j, 10, seed=60 + j) for j in range(4)]
+    one = [eng.join_batch(q) for q in qs]
+    handles = [eng.dispatch(q) for q in qs]
+    bufs = {h.staging.data_ptr() for h in handles}
+    assert len(bufs) == 4 and all(h.staging.is_pinned() for h in handles)
+    for (d1, i1), h in zip(one, handles):
+        d, i = eng.finalize(h)
+        np.testing.assert_array_equal(d, d1)
+        np.testing.assert_array_equal(i, i1)
+    # the finalized buffers are reused, not pinned anew
+    again = eng.dispatch(qs[0])
+    assert again.staging.data_ptr() in bufs
+    eng.finalize(again)
+
+
+@pytest.mark.parametrize("method", ["hbrj", "pbj"])
+@pytest.mark.parametrize("kind", ["forest", "osm"])
+def test_baselines_card_equal_cpu(cuda, method, kind):
+    x = (rt.forest_like(2500, 10, seed=70) if kind == "forest"
+         else rt.osm_like(2500, seed=70))
+    run = {"hbrj": lambda dev: rt.hbrj_join(x, x, 8, n_reducers=9,
+                                            device=dev),
+           "pbj": lambda dev: rt.pbj_join(x, x, 8, rt.JoinConfig(
+               k=8, n_pivots=32), n_reducers=9, device=dev)}[method]
+    got, want = run(cuda), run("cpu")
+    np.testing.assert_array_equal(got.distances, want.distances)
+    mism = got.indices != want.indices
+    np.testing.assert_array_equal(got.distances[mism],
+                                  want.distances[mism])
+    bd, _ = rt.brute_force_knn(x, x, 8, device=cuda)
+    np.testing.assert_array_equal(got.distances, bd)
+    assert got.stats.replicas_s == want.stats.replicas_s
+    assert got.stats.pivot_pairs_computed == want.stats.pivot_pairs_computed
+
+
+@pytest.mark.parametrize("metric", ["l1", "linf"])
+def test_metric_oracle_small_tile_same_bits(cuda, metric, monkeypatch):
+    """The L1 / L∞ oracle with a difference tile that memory cuts to one
+    row or a few gives the default's bits, and the CPU's."""
+    from repro_torch.core import baselines as tb
+    s = rt.forest_like(4000, 10, seed=80)
+    r = rt.forest_like(300, 10, seed=81)
+    d0, i0 = rt.brute_force_knn(r, s, 10, metric=metric, device=cuda)
+    for cap in (1, 8 * 4000 * 10 * 3):
+        monkeypatch.setattr(tb, "DIFF_TILE_BYTES", cap)
+        d, i = rt.brute_force_knn(r, s, 10, metric=metric, device=cuda)
+        np.testing.assert_array_equal(d, d0)
+        np.testing.assert_array_equal(i, i0)
+    dc, _ = rt.brute_force_knn(r, s, 10, metric=metric, device="cpu")
+    np.testing.assert_array_equal(d0, dc)

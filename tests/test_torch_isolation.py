@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, its entry points run on the card unless asked for the CPU, and
-the routes it has not ported yet refuse loudly."""
+the routes it has not ported yet (the mesh, ROADMAP Queue A5) refuse
+loudly."""
 import os
 import re
 import subprocess
@@ -29,6 +30,8 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch.configs, repro_torch.models\n"
         "import repro_torch.serve.serve_step, repro_torch.launch.serve\n"
         "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.serve.scheduler, repro_torch.launch.join\n"
+        "import repro_torch.obs.export, repro_torch.data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n")
@@ -59,7 +62,8 @@ def _small():
     "build_index", "knn_join_batched", "MegastepEngine", "StreamJoinEngine",
     "sindex_from_arrays", "brute_force_knn", "knn_join",
     "QuantMegastepEngine", "MutableIndex", "Datastore", "init_params",
-    "init_cache", "params_from_jax", "BatchedServer", "launch.serve"])
+    "init_cache", "params_from_jax", "BatchedServer", "launch.serve",
+    "hbrj_join", "pbj_join", "select_pivots", "launch.join"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises;
     it never carries on silently on the CPU."""
@@ -67,6 +71,7 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
     cfg = rt.JoinConfig(k=3, n_pivots=8, tile_r=16, tile_s=32)
     idx = rt.build_index(s, cfg, device="cpu")
     from repro_torch import configs, models, serve
+    from repro_torch.launch import join as launch_join
     from repro_torch.launch import serve as launch_serve
     lm = configs.get_reduced("llama3.2-3b")
     cpu_params = models.init_params(lm, torch.Generator(), device="cpu")
@@ -97,6 +102,10 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
                 lm, torch.Generator())),
         "launch.serve": lambda: launch_serve.main(
             ["--arch", "llama3.2-3b", "--reduced"]),
+        "hbrj_join": lambda: rt.hbrj_join(r, s, 3, n_reducers=4),
+        "pbj_join": lambda: rt.pbj_join(r, s, 3, cfg, n_reducers=4),
+        "select_pivots": lambda: rt.core.select_pivots(s, 8),
+        "launch.join": lambda: launch_join.main(["--n", "200", "--k", "3"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -104,12 +113,10 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
 
 @pytest.mark.parametrize("route,item", [
     ("sharded stream", "A5"), ("sharded batched", "A5"),
-    ("knn_logits scheduler", "A3"), ("sharded datastore", "A5"),
-    ("datastore recover_shards", "A5"), ("join_batch_approx", "A3"),
-    ("nbytes per shard", "A5"), ("hbrj_join", "A1"), ("pbj_join", "A1"),
-    ("l1 oracle", "A1")])
+    ("sharded datastore", "A5"), ("datastore recover_shards", "A5"),
+    ("nbytes per shard", "A5")])
 def test_unported_routes_raise(route, item):
-    from repro_torch.serve import Datastore, KnnLMConfig, knn_logits
+    from repro_torch.serve import Datastore
     s, r = _small()
     cfg = rt.JoinConfig(k=3, n_pivots=8, tile_r=16, tile_s=32)
     idx = rt.build_index(s, cfg, device="cpu")
@@ -120,18 +127,10 @@ def test_unported_routes_raise(route, item):
                                                    device="cpu"),
         "sharded batched": lambda: rt.knn_join_batched(
             r, index=idx, n_shards=2, megastep=True, device="cpu"),
-        "knn_logits scheduler": lambda: knn_logits(
-            r, store, KnnLMConfig(k=3), 5, scheduler=object()),
         "sharded datastore": lambda: Datastore.build(
             s, values, k=3, n_pivots=8, n_shards=2, device="cpu"),
         "datastore recover_shards": lambda: store.recover_shards(),
-        "join_batch_approx": lambda: rt.QuantMegastepEngine(
-            idx, cfg, device="cpu").join_batch_approx(r),
         "nbytes per shard": lambda: idx.nbytes_resident(n_shards=2),
-        "hbrj_join": lambda: rt.core.baselines.hbrj_join(r, s, cfg),
-        "pbj_join": lambda: rt.core.baselines.pbj_join(r, s, cfg),
-        "l1 oracle": lambda: rt.brute_force_knn(r, s, 3, metric="l1",
-                                                device="cpu"),
     }
     with pytest.raises(NotImplementedError, match=f"Queue {item}"):
         calls[route]()

@@ -66,7 +66,8 @@ def test_select_pivots_matches_jax(strategy):
     """Same numpy draw order → the same candidate sets and pivots."""
     data = rt.forest_like(2000, 6, seed=5)
     jp = j_select(data, 24, strategy, sample=500, n_sets=4, seed=3)
-    tp = t_select(data, 24, strategy, sample=500, n_sets=4, seed=3)
+    tp = t_select(data, 24, strategy, sample=500, n_sets=4, seed=3,
+                  device="cpu")
     if strategy == "kmeans":     # ten Lloyd steps of float32 sums
         np.testing.assert_allclose(tp, jp, rtol=1e-4, atol=1e-3)
     else:
