@@ -1910,11 +1910,14 @@ def phase_serving(card, torch, rt, idx_q, cfg_q, r_np, s_np, ref_d,
         return float(np.median(ts))
 
     out = {"pipelined_drain_s": walls}
+    # service times first: their warm-up joins run no scheduler, so the
+    # counts below are the scheduler runs' alone
+    configs = [(label, scfg, service_s(scfg.batch_rows))
+               for label, scfg in (("default", SchedulerConfig()),
+                                   (f"batch_rows={BUCKET}",
+                                    SchedulerConfig(batch_rows=BUCKET)))]
     begin_path(ops, "serving_load")
-    for label, scfg in (("default", SchedulerConfig()),
-                        (f"batch_rows={BUCKET}",
-                         SchedulerConfig(batch_rows=BUCKET))):
-        svc = service_s(scfg.batch_rows)
+    for label, scfg, svc in configs:
         sat = scfg.batch_rows / svc / SERVE_ROWS     # requests/s
         for load in (0.8, 2.0):
             rate = load * sat
@@ -1939,12 +1942,24 @@ def phase_serving(card, torch, rt, idx_q, cfg_q, r_np, s_np, ref_d,
             check(rep.n_expired_dispatched == 0,
                   f"{what}: {rep.n_expired_dispatched} expired requests "
                   f"dispatched")
+            # no fault is armed: a retry, a failover or a failed ticket
+            # means the engine raised and the host rung answered instead
+            st = sched.stats
+            check(rep.n_completed > 0 and rep.n_failed == 0
+                  and st.n_retries == 0 and st.n_failovers == 0,
+                  f"{what}: completed {rep.n_completed}, failed "
+                  f"{rep.n_failed}, retries {st.n_retries}, failovers "
+                  f"{st.n_failovers} with no fault armed")
             done = [(t, s0) for t, s0 in zip(tickets, starts) if t.done]
             exact = [(t, s0) for t, s0 in done if not t.degraded]
+            check(load != 0.8 or bool(exact),
+                  f"{what}: no exact ticket below saturation")
             check(all(np.array_equal(t.distances, ref_d[s0:s0 + SERVE_ROWS])
                       for t, s0 in exact),
                   f"{what}: an exact ticket's distances differ from phase 4's")
             degraded = [(t, s0) for t, s0 in done if t.degraded]
+            check(load != 2.0 or bool(degraded),
+                  f"{what}: no degraded ticket at twice saturation")
             if degraded:
                 rows = np.concatenate([r_np[s0:s0 + SERVE_ROWS]
                                        for _, s0 in degraded])

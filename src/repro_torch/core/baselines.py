@@ -25,7 +25,8 @@ from ..device import resolve_device
 from . import bounds as B
 from .join import join_group_dense, join_group_pruned, topk_merge
 from .metrics import canonical_topk
-from .partition import assign_and_summarize, build_summary
+from .partition import (assign_and_summarize, assignment_excess,
+                        build_summary)
 from .pivots import select_pivots
 from .types import JoinConfig, JoinResult, JoinStats
 
@@ -161,6 +162,7 @@ def pbj_join(
     pivots = torch.as_tensor(piv_np, device=dev)
     r_part, _, t_r = assign_and_summarize(r32, pivots)
     s_part, s_dist, _ = assign_and_summarize(s32, pivots, k=k)
+    s_excess = assignment_excess(s32, pivots, s_part)
     pivd = B.pivot_distance_matrix(pivots)
 
     stats = JoinStats(n_r=r.shape[0], n_s=s.shape[0])
@@ -187,8 +189,8 @@ def pbj_join(
             theta = B.compute_theta(pivd, t_r, sub_t_s, kk)
             gd, gi = join_group_pruned(
                 r32[r_sel], r_part[r_sel], s32[sj], s_part[sj], s_dist[sj],
-                s_ids[sj], pivots, pivd, theta, kk, tile_s=config.tile_s,
-                stats=stats)
+                s_ids[sj], pivots, pivd, theta, kk, s_excess=s_excess,
+                tile_s=config.tile_s, stats=stats)
             bd, bi = topk_merge(bd, bi, gd ** 2, gi, k)
         out_i[r_sel] = bi
     return _finish(r32, s32, out_i, stats)

@@ -26,7 +26,8 @@ from ..device import resolve_device
 from ..quant.quantize import QuantizedRows, quantize_rows
 from . import bounds as B
 from . import grouping as G
-from .partition import assign_and_summarize, assign_to_pivots, build_summary
+from .partition import (assign_and_summarize, assign_to_pivots,
+                        assignment_excess, build_summary)
 from .pivots import select_pivots
 from .schedule import segment_tile_stats
 from .types import JoinConfig, SummaryTable
@@ -80,6 +81,10 @@ class SIndex:
     s_dist_sorted: torch.Tensor  # (|S|,) float32
     s_ids_sorted: torch.Tensor   # (|S|,) int64 == s_order
     s_inv: torch.Tensor          # (|S|,) int64 original row -> sorted position
+    # (M,) float64 per partition, how far its rows may lie outside the
+    # pivot's Voronoi cell (L2; ``partition.assignment_excess``); None:
+    # exact cells assumed (an index carried in by ``sindex_from_arrays``)
+    s_excess: Optional[torch.Tensor] = None
     _tile_stats: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
     _quant: dict = dataclasses.field(
@@ -209,7 +214,9 @@ def build_index(
         s_sorted=s_t[order].contiguous(),
         s_part_sorted=s_part[order].contiguous(),
         s_dist_sorted=s_dist[order].contiguous(),
-        s_ids_sorted=order.clone(), s_inv=inv)
+        s_ids_sorted=order.clone(), s_inv=inv,
+        s_excess=(assignment_excess(s_t, piv, s_part)
+                  if config.metric == "l2" else None))
     if config.quantize == "int8":
         index.ensure_quant(config.tile_s)
     return index

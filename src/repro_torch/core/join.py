@@ -31,7 +31,7 @@ import torch
 
 from ..kernels import ops
 from .bounds import pad_theta
-from .metrics import cmp_dist, from_cmp, select_dist, sq_dist64
+from .metrics import cmp_dist, from_cmp, select_dist
 from .schedule import TileSchedule, schedule_for_group
 from .types import JoinStats
 
@@ -154,8 +154,8 @@ def join_group(g: int, r: torch.Tensor, r_sel: torch.Tensor, index, qplan,
     if reducer == "pruned":
         return join_group_pruned(
             r[r_sel], qplan.r_part[r_sel], ss, sp, sd, sids, index.pivots,
-            index.pivd, qplan.theta, k, tile_s=cfg.tile_s, stats=stats,
-            metric=cfg.metric)
+            index.pivd, qplan.theta, k, s_excess=index.s_excess,
+            tile_s=cfg.tile_s, stats=stats, metric=cfg.metric)
     return join_group_dense(r[r_sel], ss, sids, k, tile_r=cfg.tile_r,
                             tile_s=cfg.tile_s, stats=stats, metric=cfg.metric)
 
@@ -193,46 +193,25 @@ def _join_group_gather_scheduled(r, r_sel, mask, ss, sp, sd, sids, index,
     return gd[inv], gi[inv]
 
 
-def _own_pivot_dist(s: torch.Tensor, s_part: torch.Tensor,
-                    pivots: torch.Tensor, *, block: int = 65536):
-    """Each row's float64 distance to its assigned pivot (rounded to
-    float32), and per pivot the largest excess of a row's squared
-    distance to it over the row's distance to its nearest pivot (float64;
-    0 where the assignment is exact)."""
-    dist = torch.empty((s.shape[0],), dtype=torch.float32, device=s.device)
-    slack = torch.zeros((pivots.shape[0],), dtype=torch.float64,
-                        device=s.device)
-    for lo in range(0, s.shape[0], block):
-        d2 = sq_dist64(s[lo:lo + block], pivots)
-        own = d2.gather(1, s_part[lo:lo + block, None])[:, 0]
-        dist[lo:lo + block] = torch.sqrt(own).to(torch.float32)
-        slack.scatter_reduce_(0, s_part[lo:lo + block],
-                              own - d2.min(1).values, "amax")
-    return dist, slack
-
-
 def join_group_pruned(
     r: torch.Tensor, r_part: torch.Tensor, s: torch.Tensor,
     s_part: torch.Tensor, s_dist: torch.Tensor, s_ids: torch.Tensor,
     pivots: torch.Tensor, pivd: torch.Tensor, theta: torch.Tensor, k: int,
-    *, tile_s: int = 512, stats: Optional[JoinStats] = None,
-    metric: str = "l2",
+    *, s_excess: Optional[torch.Tensor] = None, tile_s: int = 512,
+    stats: Optional[JoinStats] = None, metric: str = "l2",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Algorithm 3 (lines 13-25), tile-masked. Returns (dists, ids) in
     the order of ``r``. Parameters mirror what a reducer holds: its R
     rows (+ home partitions), the shipped S rows (+ partitions, pivot
     distances, global ids) and the θ of its R partitions.
 
-    Under L2 the distances the tests compare — |q, p_j| and each row's
-    |p_j, s| — are taken here in float64 and rounded once: the index's
-    phase-1 distances carry the float32 expansion's error, ~u·‖s‖², which
-    on map coordinates exceeds a ring's width and would prune true
-    neighbours (ROADMAP C15). A ring is not clamped to the partition's
-    [L, U]: every row of the partition lies in it, so the clamp would
-    only matter where L or U disagree with the row's own distance. The
-    same error can assign a row near a Voronoi boundary to the farther
-    pivot; Cor. 1 then widens by each partition's largest such excess
-    (0 when every row sits in its own cell)."""
+    ``s_excess`` (per pivot, float64;
+    :func:`core.partition.assignment_excess`) widens Cor. 1 by how far a
+    row may sit outside its pivot's Voronoi cell after the float32
+    assignment (ROADMAP C15); ``None`` is the paper's exact cells. Under
+    L2 |q, p_j| is taken in float64 and rounded once, as the shipped
+    rows' |p_j, s| were at assignment. A ring is not clamped to the
+    partition's [L, U]: every row of the partition lies in it."""
     nq = r.shape[0]
     dev = r.device
     out_d, out_i = _empty_run(nq, k, dev)
@@ -243,10 +222,8 @@ def join_group_pruned(
     s_order = torch.argsort(s_part, stable=True)
     s, s_part = s[s_order], s_part[s_order]
     s_dist, s_ids = s_dist[s_order], s_ids[s_order]
-    slack_h = np.zeros((pivots.shape[0],))
-    if metric == "l2":
-        s_dist, slack = _own_pivot_dist(s, s_part.to(torch.int64), pivots)
-        slack_h = slack.cpu().numpy()
+    slack_h = (np.zeros((pivots.shape[0],)) if s_excess is None
+               else s_excess.cpu().numpy())
     uniq_t, cnt_t = torch.unique_consecutive(s_part, return_counts=True)
     uniq_sp = uniq_t.cpu().numpy()
     sp_end = cnt_t.cumsum(0).cpu().numpy()

@@ -208,10 +208,6 @@ class JoinHandle:
     n: int
     dev: tuple = ()
     q: Optional[np.ndarray] = None   # the host queries (quantized tier)
-    # the pinned host buffer the queries were copied from: its copy may
-    # still be queued on the stream, so the handle holds it until
-    # finalize, and only then may another batch reuse it
-    staging: Optional[torch.Tensor] = None
 
 
 class MegastepEngine:
@@ -263,10 +259,6 @@ class MegastepEngine:
         # an owner already holding it can query.
         self.refresh_lock: threading.RLock = threading.RLock()
         self.step_count = 0
-        # pinned host buffers per bucket whose copies have completed
-        # (returned by finalize); a dispatch takes one or pins a new one
-        self._staging_free: dict = {}
-        self._staging_lock = threading.Lock()
 
     def bucket_for(self, n: int) -> int:
         return next_pow2(max(self.bucket_min, n))
@@ -377,45 +369,24 @@ class MegastepEngine:
         """Pad one micro-batch to its bucket and upload: returns the
         device queries and the host count of valid rows, ready for
         :meth:`join_batch_device`. The only host→device transfer of a
-        steady-state batch; on the card it is asynchronous (see
-        :meth:`_stage`)."""
-        qd, _, n = self._stage(queries)
-        return qd, n
-
-    def _stage(self, queries: np.ndarray):
-        """Pad one micro-batch to its bucket and start its upload:
-        ``(device queries, pinned host buffer or None, n)``. On the card
-        the rows are written into a pinned buffer and copied with
-        ``non_blocking=True``, so the host does not wait for the
-        kernels already queued (a copy from pageable memory would). The
-        buffer comes from the finalized ones of its bucket, or is pinned
-        anew; while its copy may be queued nobody else writes it."""
+        steady-state batch; on the card it is asynchronous."""
         q = np.ascontiguousarray(queries, np.float32)
         n = q.shape[0]
         bucket = self.bucket_for(n)
         if self.device.type != "cuda":
             if bucket != n:
                 q = np.pad(q, ((0, bucket - n), (0, 0)))
-            return torch.from_numpy(q).to(self.device), None, n
-        with self._staging_lock:
-            free = self._staging_free.get((bucket, q.shape[1]))
-            buf = free.pop() if free else None
-        if buf is None:
-            buf = torch.empty((bucket, q.shape[1]), dtype=torch.float32,
-                              pin_memory=True)
+            return torch.from_numpy(q).to(self.device), n
+        # a pinned buffer and a non-blocking copy: the host does not wait
+        # for the kernels already queued (a copy from pageable memory
+        # would). PyTorch's caching host allocator records the copy's
+        # event and reuses the block only once the copy has completed.
+        buf = torch.empty((bucket, q.shape[1]), dtype=torch.float32,
+                          pin_memory=True)
         host = buf.numpy()
         host[:n] = q
         host[n:] = 0.0
-        return buf.to(self.device, non_blocking=True), buf, n
-
-    def _release(self, handle: "JoinHandle") -> None:
-        """Return a finalized handle's staging buffer for reuse (its copy
-        completed before the fetch that finalize waited for)."""
-        buf, handle.staging = handle.staging, None
-        if buf is not None:
-            with self._staging_lock:
-                self._staging_free.setdefault(tuple(buf.shape), []).append(
-                    buf)
+        return buf.to(self.device, non_blocking=True), n
 
     def join_batch_device(self, q_dev: torch.Tensor, n_valid: int, *,
                           state=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -463,9 +434,8 @@ class MegastepEngine:
         payload = self.payload()
         if stats is not None:
             self._count(stats, n, payload)
-        qd, buf, nv = self._stage(q)
-        return JoinHandle(kind="mega", n=n, dev=self.join_batch_device(qd, nv),
-                          staging=buf)
+        qd, nv = self.enqueue(q)
+        return JoinHandle(kind="mega", n=n, dev=self.join_batch_device(qd, nv))
 
     def _count(self, stats: JoinStats, n: int, pl: _Payload) -> None:
         stats.n_r += n
@@ -494,7 +464,6 @@ class MegastepEngine:
             d, ids = handle.dev
             d = d[:handle.n].cpu().numpy()
             ids = ids[:handle.n].cpu().numpy()
-        self._release(handle)
         obs.metrics.REGISTRY.histogram("megastep_finalize_s") \
             .observe(time.perf_counter() - t0)
         return np.ascontiguousarray(d), np.ascontiguousarray(ids)

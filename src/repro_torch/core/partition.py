@@ -7,6 +7,16 @@ aggregated into the summary table. On a CUDA tensor the L2 assignment
 runs the hand-written kernel (``kernels.assign``, through
 ``kernels.ops``); on a CPU tensor its plain version, which is the JAX
 package's ``_assign_blocked`` arithmetic.
+
+Under L2 the kernel's float32 ‖x‖² + ‖p‖² − 2x·p is off by ~u·‖x‖², which
+on map coordinates exceeds a small distance many times over (ROADMAP
+C15). Every bound of PGBJ reads the distance to the *assigned* pivot
+(θ through U and T_S, Cor. 2's replication, Thm 2's ring), so that
+distance is taken again in float64 from the row's difference to its
+pivot and rounded once: within half an ulp, which ``pad_theta`` covers.
+Cor. 1 also assumes that each row lies in its pivot's Voronoi cell,
+which the float32 choice can miss near a boundary;
+:func:`assignment_excess` measures by how much, per partition.
 """
 from __future__ import annotations
 
@@ -15,10 +25,11 @@ from typing import Tuple
 import torch
 
 from ..kernels import ops
-from .metrics import pairwise_dist
+from .metrics import pairwise_dist, sq_dist64
 from .types import SummaryTable
 
-__all__ = ["assign_to_pivots", "assign_and_summarize", "build_summary"]
+__all__ = ["assign_to_pivots", "assign_and_summarize", "build_summary",
+           "own_pivot_dist", "assignment_excess"]
 
 
 def assign_to_pivots(
@@ -30,9 +41,11 @@ def assign_to_pivots(
     Tie-break: the lowest pivot index wins exact ties. The paper breaks
     ties toward the smaller partition; the join is correct under any
     deterministic tie-break (the bounds only use the *assigned*
-    distance)."""
+    distance). Under L2 the ids are the kernel's and the distances
+    :func:`own_pivot_dist`'s."""
     if metric == "l2":
-        return ops.assign(data, pivots)
+        pid, _ = ops.assign(data, pivots)
+        return pid, own_pivot_dist(data, pivots, pid)
     pid = torch.empty((data.shape[0],), dtype=torch.int32, device=data.device)
     dist = torch.empty((data.shape[0],), dtype=torch.float32,
                        device=data.device)
@@ -41,6 +54,42 @@ def assign_to_pivots(
         dist[lo:lo + block], idx = d.min(dim=1)
         pid[lo:lo + block] = idx.to(torch.int32)
     return pid, dist
+
+
+def own_pivot_dist(data: torch.Tensor, pivots: torch.Tensor,
+                   part_ids: torch.Tensor, *, block: int = 65536
+                   ) -> torch.Tensor:
+    """Each row's L2 distance to its assigned pivot, float32 (n,): the
+    difference, its squares summed and the √ taken in float64, rounded
+    once."""
+    out = torch.empty((data.shape[0],), dtype=torch.float32,
+                      device=data.device)
+    pid = part_ids.to(torch.int64)
+    for lo in range(0, data.shape[0], block):
+        diff = (data[lo:lo + block].to(torch.float64)
+                - pivots[pid[lo:lo + block]].to(torch.float64))
+        out[lo:lo + block] = torch.sqrt((diff * diff).sum(1)).to(
+            torch.float32)
+    return out
+
+
+def assignment_excess(data: torch.Tensor, pivots: torch.Tensor,
+                      part_ids: torch.Tensor, *, block: int = 65536
+                      ) -> torch.Tensor:
+    """Per pivot j, the largest |s, p_j|² − min_l |s, p_l|² over the rows
+    assigned to j, float64 (M,): 0 where every row of P_j lies in p_j's
+    Voronoi cell. A row of P_j lies within excess_j / (2 |p_i, p_j|) on
+    p_i's side of HP(p_i, p_j) at most, so Cor. 1 holds with
+    |q,p_j|² − |q,p_i|² − excess_j in place of |q,p_j|² − |q,p_i|²."""
+    out = torch.zeros((pivots.shape[0],), dtype=torch.float64,
+                      device=data.device)
+    pid = part_ids.to(torch.int64)
+    for lo in range(0, data.shape[0], block):
+        d2 = sq_dist64(data[lo:lo + block], pivots)
+        own = d2.gather(1, pid[lo:lo + block, None])[:, 0]
+        out.scatter_reduce_(0, pid[lo:lo + block], own - d2.min(1).values,
+                            "amax")
+    return out
 
 
 def lexsort_part_dist(part_ids: torch.Tensor, dists: torch.Tensor

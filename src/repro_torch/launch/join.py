@@ -8,7 +8,8 @@ the JAX package's ``launch.join``.
 A self-join of the dataset (``--expand T``: the paper's "Forest×T").
 Runs on the card; ``--device cpu`` runs the plain PyTorch versions of
 the kernels. ``--verify`` holds 500 sampled rows against the float64
-brute force and exits 1 on a miss.
+brute force (distances bit for bit, ids within the true k-th distance)
+and exits 1 on a miss.
 """
 from __future__ import annotations
 
@@ -73,12 +74,33 @@ def main(argv=None):
     if args.verify:
         sample = np.random.default_rng(0).choice(
             data.shape[0], min(500, data.shape[0]), replace=False)
-        bd, _ = brute_force_knn(data[sample], data, args.k, device=dev)
-        ok = np.allclose(res.distances[sample], bd, atol=1e-2)
+        bd, bi = brute_force_knn(data[sample], data, args.k, device=dev)
+        ok = verify_sample(data, sample, res.distances[sample],
+                           res.indices[sample], bd, bi)
         print(f"  verified vs brute force on {len(sample)} samples: {ok}")
         if not ok:
             raise SystemExit(1)
     return res
+
+
+def verify_sample(data: np.ndarray, sample: np.ndarray, d: np.ndarray,
+                  ids: np.ndarray, bd: np.ndarray, bi: np.ndarray) -> bool:
+    """A join's rows ``sample`` against the float64 oracle's ``(bd, bi)``:
+    distances bit for bit (both report the canonical chain), no
+    duplicate or missing id in a row, and every reported id within the
+    true k-th distance (float64; ties and near-ties within 1e-6
+    relative may list another id)."""
+    if not np.array_equal(d, bd) or (ids < 0).any():
+        return False
+    srt = np.sort(ids, axis=1)
+    if (srt[:, 1:] == srt[:, :-1]).any():
+        return False
+    q = data[sample].astype(np.float64)[:, None, :]
+
+    def dist(rows):
+        return np.sqrt(((q - data[rows].astype(np.float64)) ** 2).sum(-1))
+
+    return bool((dist(ids) <= dist(bi[:, -1:]) * (1 + 1e-6) + 1e-6).all())
 
 
 if __name__ == "__main__":

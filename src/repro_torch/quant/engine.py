@@ -300,15 +300,13 @@ class QuantMegastepEngine(MegastepEngine):
         pl = self.payload()
         if stats is not None:
             self._count(stats, n, pl)
-        qd, buf, nv = self._stage(q)
+        qd, nv = self.enqueue(q)
         if self.resident:
             return JoinHandle(kind="quant_resident", n=n,
-                              dev=self.join_batch_device(qd, nv), q=q,
-                              staging=buf)
+                              dev=self.join_batch_device(qd, nv), q=q)
         lb, pos = _quant_coarse(qd, nv, pl, **self._step_args(qd))
         self.step_count += 1
-        return JoinHandle(kind="quant_host", n=n, dev=(lb, pos), q=q,
-                          staging=buf)
+        return JoinHandle(kind="quant_host", n=n, dev=(lb, pos), q=q)
 
     def finalize(self, handle: JoinHandle, *,
                  stats: Optional[JoinStats] = None
@@ -344,7 +342,6 @@ class QuantMegastepEngine(MegastepEngine):
                 stats.n_host_rerank += handle.n
         else:
             raise ValueError(f"cannot finalize handle kind {handle.kind!r}")
-        self._release(handle)
         return out
 
     def _fetch_resident(self, handle: JoinHandle):

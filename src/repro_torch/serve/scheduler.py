@@ -63,7 +63,7 @@ degraded fraction at an offered load (``chip_smoke.py`` phase 17).
 On the card the double-buffered dispatch overlaps only if ``dispatch``
 returns before the device finishes: the engines upload each batch from
 a pinned host buffer with a non-blocking copy
-(``core.megastep.MegastepEngine._stage``), so ``dispatch`` makes no
+(``core.megastep.MegastepEngine.enqueue``), so ``dispatch`` makes no
 host sync.
 """
 from __future__ import annotations

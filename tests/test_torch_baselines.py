@@ -84,10 +84,11 @@ def test_hbrj_matches_jax(kind):
 @pytest.mark.parametrize("kind", ["forest", "osm", "clustered"])
 def test_pbj_matches_jax(kind):
     """Results exact and equal to the JAX package's but at ties; the
-    shuffle and pivot counts equal. The port's pruned reducer takes
-    |q, p_j| and |p_j, s| in float64 where the JAX package compares
-    K-A's float32 distances (ROADMAP C15), so a pair on a ring's edge
-    may flip: the pair and tile counts are held within 0.1 %."""
+    shuffle and pivot counts equal. The port's rings compare |q, p_j|
+    and |p_j, s| taken in float64 where the JAX package compares K-A's
+    float32 distances (ROADMAP C15), so a pair on a ring's edge may
+    flip: the pair and tile counts are held within 0.1 % (2 pairs of
+    100,307 differ on the clustered rows)."""
     x = _dataset(kind)
     kw = dict(k=6, n_pivots=24, tile_s=128, seed=1)
     want = jb.pbj_join(x, x, 6, JConfig(**kw), n_reducers=9)
@@ -119,6 +120,69 @@ def test_pruned_reducer_exact_on_map_coordinates():
                       n_reducers=9, device="cpu")
     for res in (pgbj, pbj):
         np.testing.assert_array_equal(res.distances, bd)
+
+
+# map coordinates where the float32 expansion under-reads |r, p_i| and
+# |p_i, s'| by more than θ's pad (found by a seeded search; every one
+# made the pruned reducer miss while θ was built from those distances)
+THETA_ATTACK_ORIGINS = [(148.53086853027344, 76.4748306274414),
+                        (143.49000549316406, 86.75362396240234),
+                        (165.26828002929688, 40.136924743652344)]
+
+
+@pytest.mark.parametrize("origin", THETA_ATTACK_ORIGINS)
+@pytest.mark.parametrize("route", ["pruned", "dense", "gather", "megastep"])
+def test_theta_sound_when_tight(route, origin):
+    """θ (Thm 3) made tight by construction: r, p_i and s' collinear with
+    |r, s'| = U + |p_i, s'| = θ, and the true nearest neighbour s* ∈ P_j
+    at θ − 1e-3, where Thm 2's ring for P_j keeps it only while θ is not
+    under-read. The padded θ must cover the true k-th distance, and
+    every route must find s*."""
+    o = np.asarray(origin, np.float64)
+    a, b, c, eps = 0.1, 0.1, 0.05, 1e-3
+    th = a + b
+    piv = np.stack([o + [a, 0], o + [0, th + c]]).astype(np.float32)
+    r = o[None].astype(np.float32)
+    s = np.stack([o + [a + b, 0], o + [0, th - eps]]).astype(np.float32)
+    cfg = rt.JoinConfig(k=1, n_pivots=2, n_groups=1,
+                        reducer="gather" if route == "megastep" else route)
+    idx = rt.build_index(s, cfg, pivots=piv, device="cpu")
+    bd, bi = rt.brute_force_knn(r, s, 1, device="cpu")
+    assert bi[0, 0] == 1
+    plan = rt.core.plan_queries(r, idx, cfg)
+    theta = rt.core.pad_theta(plan.theta[plan.r_part.long()]).numpy()
+    true = np.sqrt(((r.astype(np.float64) - s[1]) ** 2).sum())
+    assert theta[0] >= true
+    res = rt.knn_join(r, index=idx, megastep=route == "megastep",
+                      device="cpu")
+    np.testing.assert_array_equal(res.distances, bd)
+    np.testing.assert_array_equal(res.indices, bi)
+
+
+def test_assignment_excess_covers_a_misassigned_row():
+    """Rows within float32 noise of the bisector of two pivots at map
+    coordinates: where K-A picks the farther pivot, the partition's
+    excess is the float64 |s, p_j|² − min_l |s, p_l|², and 0 where every
+    row sits in its own cell."""
+    from repro_torch.core.partition import assignment_excess
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(19)
+    piv = np.array([[171.25, 61.5], [171.5, 61.5], [-20.0, 5.0]],
+                   np.float32)
+    y = rng.uniform(61.0, 62.0, 400)
+    x = 171.375 + rng.uniform(-2e-5, 2e-5, 400)
+    rows = np.stack([x, y], 1).astype(np.float32)
+    rows_t, piv_t = torch.from_numpy(rows), torch.from_numpy(piv)
+    pid, _ = ops.assign(rows_t, piv_t)
+    pid = pid.numpy()
+    d2 = ((rows[:, None, :].astype(np.float64) - piv[None]) ** 2).sum(-1)
+    gap = d2[np.arange(400), pid] - d2.min(1)
+    assert (gap > 0).any()               # K-A misassigned some rows
+    want = np.zeros(3)
+    np.maximum.at(want, pid, gap)
+    got = assignment_excess(rows_t, piv_t, torch.from_numpy(pid)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9)
+    assert got[2] == 0.0
 
 
 @pytest.mark.parametrize("n_reducers", [1, 4, 16])
@@ -198,3 +262,24 @@ def test_launch_join_osm_and_distributed():
     assert res.indices.shape == (800, 4)
     with pytest.raises(NotImplementedError, match="Queue A5"):
         launch_join.main(["--n", "100", "--distributed", "--device", "cpu"])
+
+
+def test_launch_join_verify_catches_a_near_miss():
+    """``--verify`` holds distances bit for bit (on Forest-like rows a
+    neighbour one unit of d² farther is less than 1e-2 away): a distance
+    one ulp off fails it, as does a duplicated id or an id beyond the
+    true k-th distance."""
+    x = rt.forest_like(1500, 10, seed=12)
+    sample = np.arange(0, 1500, 7)
+    bd, bi = rt.brute_force_knn(x[sample], x, 5, device="cpu")
+    assert launch_join.verify_sample(x, sample, bd, bi, bd, bi)
+    d = bd.copy()
+    d[3, -1] = np.nextafter(d[3, -1], np.float32(np.inf))
+    assert not launch_join.verify_sample(x, sample, d, bi, bd, bi)
+    ids = bi.copy()
+    ids[4, -1] = ids[4, 0]
+    assert not launch_join.verify_sample(x, sample, bd, ids, bd, bi)
+    far = np.argmax(((x - x[sample[5]]) ** 2).sum(1))
+    ids = bi.copy()
+    ids[5, -1] = far
+    assert not launch_join.verify_sample(x, sample, bd, ids, bd, bi)

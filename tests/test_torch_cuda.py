@@ -832,22 +832,19 @@ def test_dispatch_makes_no_host_sync(cuda, quantized):
 
 @pytest.mark.parametrize("quantized", [False, True])
 def test_staging_not_reused_while_in_flight(cuda, quantized):
-    """Four batches of one bucket dispatched, then finalized in order:
-    each holds its own pinned buffer, so the bits equal one at a time."""
+    """Four batches of one bucket dispatched, then finalized in order.
+    Each upload's pinned buffer is freed as ``dispatch`` returns, while
+    its copy is still queued behind the earlier batches' kernels; the
+    caching host allocator must not hand it to the next batch before
+    the copy completes, so the bits equal one at a time."""
     eng, _ = _sched_engine(cuda, quantized)
     qs = [rt.forest_like(200 + j, 10, seed=60 + j) for j in range(4)]
     one = [eng.join_batch(q) for q in qs]
     handles = [eng.dispatch(q) for q in qs]
-    bufs = {h.staging.data_ptr() for h in handles}
-    assert len(bufs) == 4 and all(h.staging.is_pinned() for h in handles)
     for (d1, i1), h in zip(one, handles):
         d, i = eng.finalize(h)
         np.testing.assert_array_equal(d, d1)
         np.testing.assert_array_equal(i, i1)
-    # the finalized buffers are reused, not pinned anew
-    again = eng.dispatch(qs[0])
-    assert again.staging.data_ptr() in bufs
-    eng.finalize(again)
 
 
 @pytest.mark.parametrize("method", ["hbrj", "pbj"])

@@ -45,7 +45,8 @@ def test_sources_import_no_jax_or_repro():
     pat = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_torch)"
                      r"|from\s+(jax|jaxlib|repro)\b(?!_torch))", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "bench_assign.py"]
+                                         ROOT / "tools" / "bench_assign.py",
+                                         ROOT / "tools" / "bench_select.py"]
     assert len(files) >= 15
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]

@@ -532,12 +532,13 @@ def test_max_inflight_validation():
 
 
 # ---------------------------------------------------------------------------
-# the port's own: staging, no host sync in dispatch, the coverage rung
+# the port's own: batches in flight, no host sync in dispatch, the
+# coverage rung
 
 
 def test_dispatch_in_flight_then_finalize_in_order():
     """Four dispatches in flight, then four finalizes in order: each
-    batch's bits equal a one-at-a-time join (no staging is shared)."""
+    batch's bits equal a one-at-a-time join."""
     for quantized in (False, True):
         eng, _, _ = _engine(quantized=quantized)
         qs = [_data(n, seed=160 + n) for n in (5, 16, 9, 16)]
