@@ -114,16 +114,34 @@ force and against each other. Phases:
    ``batch_rows=4096``: every ``LoadReport`` field printed,
    ``n_expired_dispatched == 0``, exact tickets bitwise phase 4,
    degraded tickets' certified recall bounds at most their true recall
-   against the float64 brute force. Each new phase prints its time.
+   against the float64 brute force. Each new phase prints its time;
+18. the mesh, every shard simulated on the one card from an explicit
+   device list: ``knn_join_batched(mesh=...)`` over all of R with 2, 4
+   and 8 shards (K-G launched shards × batches times, bitwise phase 4),
+   one steady-state sharded ``join_batch_device`` and ``dispatch`` under
+   the sync debug mode; the sharded int8 tier on 4 shards (K-Q,
+   bitwise phase 8's distances); a sharded ``Datastore`` over phase
+   14's 1,048,576 × 32 keys (4 shards, r = 2: 16 retrieval steps
+   bitwise a single-device store, a shard lost and failed over with the
+   same bits, re-uploading masks only, ``recover_shards`` with the same
+   bits; r = 1 with a shard lost: ``join_batch_covered`` and the
+   scheduler's coverage rung, every certified recall bound at most the
+   true recall); ``distributed_phase1`` on 8 shards (the bits of
+   ``assign_and_summarize``, K-A 8 times); the shuffle join at the §6
+   settings on 9 shards in L2 (K-D), L1 and L∞, each bitwise the
+   float64 oracle; the OSM-like rows' misses (ROADMAP C15) of the
+   sharded and the single-device megastep, the same bits; and
+   ``python -m repro_torch.launch.join --n 581012 --distributed
+   --shards 4 --simulate --verify`` in a subprocess.
 
 Every time printed stands beside the card's name and power limit. The
-line before the last two is one JSON object with each kernel's launches,
-error, times and bound; the line before the last is the card's name and
+line before the last two is one JSON object with each kernel's launches
+(its main path's plus phase 18's), error, times and bound; the line before the last is the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before those lines, with its message on stdout and stderr
 (also without a card, or where the script stands alone, away from the
 repository's ``src/``). Long reports (nvcc's ``ptxas``
-output, the profiles by kernel, phases 16 and 17's numbers as JSON) go
+output, the profiles by kernel, phases 16–18's numbers as JSON) go
 to ``--out`` (default ``build/chip_smoke/``). Needs one card, no network; imports nothing of
 JAX.
 """
@@ -695,15 +713,37 @@ def check_exact_live(card, rt, what: str, r_np, mi, d, i, k: int,
     return rows, gids
 
 
-def check_same_distances(what: str, d, ref_d, i, ref_i) -> None:
+def check_same_distances(what: str, d, ref_d, i, ref_i, q, s, *,
+                         gids=None) -> None:
     """Two routes' canonical distances bit for bit; ids may differ only
-    where the distances tie."""
+    among exactly tied rows: at every slot where they differ, both ids
+    name rows of ``s`` whose float64 distances to the slot's query (row
+    of ``q``) are equal, and the route's row holds no id twice. ``gids``
+    (ascending) maps global ids to rows of ``s`` (a mutable index's live
+    rows)."""
     import numpy as np
     check(np.array_equal(d, ref_d),
           f"{what}: distances not bitwise the reference route's")
-    mism = i != ref_i
-    check(np.array_equal(d[mism], ref_d[mism]),
-          f"{what}: ids differ beyond ties")
+    rows, cols = np.nonzero(i != ref_i)
+    if not rows.size:
+        return
+    a, b = i[rows, cols], ref_i[rows, cols]
+    if gids is not None:
+        a, b = live_positions(what, gids, a), live_positions(what, gids, b)
+    n_s = s.shape[0]
+    check(bool(((a >= 0) & (a < n_s) & (b >= 0) & (b < n_s)).all()),
+          f"{what}: an id out of range")
+    q64 = np.asarray(q, np.float64)[rows]
+    s_a = np.asarray(s[a], np.float64)
+    s_b = np.asarray(s[b], np.float64)
+    d_a = ((s_a - q64) ** 2).sum(1)
+    d_b = ((s_b - q64) ** 2).sum(1)
+    off = int((d_a != d_b).sum())
+    check(off == 0, f"{what}: {off} of the {rows.size} slots whose ids "
+                    f"differ are not exact float64 ties")
+    k = i.shape[1]
+    check(all(len(set(i[r].tolist())) == k for r in np.unique(rows)),
+          f"{what}: duplicate ids in a row")
 
 
 def dense_case(card, torch, kd, what: str, q, s, k: int, mask, *,
@@ -885,7 +925,7 @@ def phase_mutable(card, torch, rt, s_np, r_np, cfg, launches,
                                   megastep=True, device=DEV)
         check_same_distances(f"stage {name}: mutable vs fresh index",
                              res.distances, ref.distances, res.indices,
-                             gids[ref.indices])
+                             gids[ref.indices], r_np, rows, gids=gids)
         print(f"[{card}] stage {name} ({key}): mutation {t_mut:.3f} s"
               + (f" (compact {mi.last_compact_s:.3f} s)" if name == "C"
                  else "")
@@ -916,14 +956,16 @@ def phase_mutable(card, torch, rt, s_np, r_np, cfg, launches,
                                                   config=cfg_h, device=DEV))
         check_same_distances("stage A: host route vs megastep",
                              host.distances, res.distances[:HOST_ROWS],
-                             host.indices, res.indices[:HOST_ROWS])
+                             host.indices, res.indices[:HOST_ROWS], r_h,
+                             rows, gids=gids)
         cfg_q = dataclasses.replace(cfg_h, quant_slack=118)
         quant, t_quant = synced(lambda: rt.knn_join_batched(
             r_h, index=mi, config=cfg_q, batch_size=BUCKET, quantized=True,
             device=DEV))
         check_same_distances("stage A: quantized route vs megastep",
                              quant.distances, res.distances[:HOST_ROWS],
-                             quant.indices, res.indices[:HOST_ROWS])
+                             quant.indices, res.indices[:HOST_ROWS], r_h,
+                             rows, gids=gids)
         fb = quant.stats.n_quant_fallback
         print(f"[{card}] stage A: one {n_segs}-segment join_batch_device with "
               f"no host sync under set_sync_debug_mode('error'); host route "
@@ -960,9 +1002,11 @@ def host_route_overfetch(card, rt, mi, cfg, r_np, res) -> None:
     check(bool(ks) and max(ks) > 64,
           f"stage B: the host route never asked K-G for more than 64 rows "
           f"(k = {sorted(set(ks))})")
+    rows, gids = mi.live_rows()
     check_same_distances("stage B: host route vs megastep", host.distances,
                          res.distances[:HOST_ROWS], host.indices,
-                         res.indices[:HOST_ROWS])
+                         res.indices[:HOST_ROWS], r_np[:HOST_ROWS], rows,
+                         gids=gids)
     print(f"[{card}] stage B: host route (gather reducer) over {HOST_ROWS} "
           f"queries {t_host:.3f} s, K-G asked for k in {sorted(set(ks))} "
           f"(the over-fetch of the {PROBES} probe queries' segment), "
@@ -1864,7 +1908,7 @@ def phase_serving(card, torch, rt, idx_q, cfg_q, r_np, s_np, ref_d,
         # rows tie, and a tie may list another id
         check_same_distances(f"serving: the host-path retry after a fault "
                              f"at {site}", t.distances, want[0], t.indices,
-                             want[1])
+                             want[1], q, s_np)
     counts = launches["serving_faults"] = end_path(ops)
     check(counts["distance_topk_gather"] > 0 and counts["assign"] > 0,
           f"serving: the host-path retries ran no K-A / K-G: {counts}")
@@ -1992,6 +2036,322 @@ def phase_serving(card, torch, rt, idx_q, cfg_q, r_np, s_np, ref_d,
     check(counts["quant_coarse_gather"] > 0,
           f"serving: the load runs never launched K-Q: {counts}")
     print(f"[{card}] serving under load: launches {counts}; phase 17 took "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    return out
+
+
+MESH_SHARDS = (2, 4, 8)     # phase 18: simulated shards of the fp32 megastep
+MESH_P1_SHARDS = 8          # phase 18: shards of distributed_phase1
+MESH_STORE_STEPS = 16       # phase 18: retrieval steps of the sharded store
+
+
+def mesh_of(n: int, name: str = "shard"):
+    """A mesh of ``n`` shards simulated on the one card (the explicit
+    device list is what allows more shards than cards)."""
+    from repro_torch.distributed import make_mesh
+    return make_mesh((n,), (name,), devices=[DEV] * n)
+
+
+def true_recall(torch, keys64, kn64, queries, ids, k: int):
+    """Per-query recall of ``ids`` against the float64 brute force."""
+    import numpy as np
+    q = torch.as_tensor(queries, device=DEV).double()
+    d2 = torch.clamp((q * q).sum(1)[:, None] + kn64[None, :]
+                     - 2.0 * (q @ keys64.T), min=0.0)
+    true = torch.topk(d2, k, dim=1, largest=False).indices.cpu().numpy()
+    return np.array([len(set(a.tolist()) & set(b.tolist())) / k
+                     for a, b in zip(ids, true)])
+
+
+def phase_mesh(card, torch, rt, launches, *, s_np, r_np, cfg, idx, res,
+               idx_q, cfg_q, res_q, pivots, paper) -> dict:
+    """18. The mesh, every shard simulated on the one card from an
+    explicit device list: the sharded fp32 megastep over Forest (n = 2,
+    4, 8; K-G n × batches; bitwise phase 4) and one steady-state sharded
+    ``join_batch_device`` and ``dispatch`` under the sync debug mode; the
+    sharded int8 tier (n = 4; bitwise phase 8); the sharded kNN-LM
+    datastore over phase 14's keys (r = 2: failover and
+    ``recover_shards`` bitwise; r = 1 with a shard lost: certified recall
+    bounds at most the true recall, through ``join_batch_covered`` and
+    the scheduler's coverage rung); ``distributed_phase1`` on 8 shards
+    (the bits of ``assign_and_summarize``, K-A 8 times); the shuffle join
+    at ``_three_way``'s settings (9 shards) in L2, L1 and L∞ against the
+    float64 oracle; the OSM-like rows' misses of the sharded and the
+    single-device megastep (C15); ``launch.join --distributed``."""
+    import os
+    import numpy as np
+    from repro_torch.core.distributed import (distributed_knn_join,
+                                              distributed_phase1)
+    from repro_torch.core.partition import assign_and_summarize
+    from repro_torch.core.sharded import ShardedMegastepEngine
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Datastore
+    from repro_torch.serve.faultinject import FaultPlan, ShardFault
+    from repro_torch.serve.scheduler import SchedulerConfig, ServeScheduler
+    t_phase = time.perf_counter()
+    out = {}
+
+    # ---- the sharded fp32 megastep over all of R
+    for n in MESH_SHARDS:
+        mesh = mesh_of(n)
+        path = f"mesh_fp32_{n}"
+        begin_path(ops, path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = rt.knn_join_batched(r_np, index=idx, batch_size=BUCKET,
+                                  megastep=True, mesh=mesh, device=DEV)
+        wall = time.perf_counter() - t0
+        counts = launches[path] = end_path(ops)
+        batches = got.stats.n_batches
+        check(counts["distance_topk_gather"] == n * batches,
+              f"sharded megastep n={n}: K-G launched "
+              f"{counts['distance_topk_gather']} times, expected {n} x "
+              f"{batches}")
+        check_same_distances(f"sharded megastep n={n} vs phase 4",
+                             got.distances, res.distances, got.indices,
+                             res.indices, r_np, s_np)
+        per = idx.shard_packing(n, cfg.tile_s).nbytes_per_shard()
+        out[path] = dict(wall_s=wall, queries_s=N_ROWS / wall,
+                         nbytes_per_shard=per.tolist(), launches=counts)
+        print(f"[{card}] mesh: sharded megastep n={n} over {N_ROWS} "
+              f"queries: {wall:.3f} s = {N_ROWS / wall:.1f} queries/s "
+              f"(build included), {batches} batches, K-G {n} x {batches}; "
+              f"bitwise phase 4's distances, ids equal "
+              f"{float((got.indices == res.indices).mean()):.6f} (rest "
+              f"ties); bytes per shard {per.tolist()}; launches {counts}",
+              flush=True)
+    eng = ShardedMegastepEngine(idx, cfg, mesh=mesh_of(4))
+    qd, nv = eng.enqueue(r_np[:BUCKET])
+    warm = eng.join_batch_device(qd, nv)
+    h0 = eng.dispatch(r_np[:BUCKET])
+    eng.finalize(h0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step = eng.join_batch_device(qd, nv)
+        h = eng.dispatch(r_np[:BUCKET])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    d_h, i_h = eng.finalize(h)
+    check(all(torch.equal(a, b) for a, b in zip(step, warm)),
+          "sharded steady state: repeated step differs")
+    check(np.array_equal(d_h, res.distances[:BUCKET]),
+          "sharded dispatch: distances differ from phase 4's")
+    step_ms = time_ms(lambda: eng.join_batch_device(qd, nv), iters=10)
+    out["mesh_step_ms_n4"] = step_ms
+    print(f"[{card}] mesh: steady-state sharded join_batch_device and "
+          f"dispatch (n=4): no host sync under set_sync_debug_mode('error');"
+          f" {step_ms:.4f} ms per {BUCKET}-query step", flush=True)
+    del eng, warm, step
+
+    # ---- the sharded int8 tier
+    begin_path(ops, "mesh_quant_4")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = rt.knn_join_batched(r_np, index=idx_q, batch_size=BUCKET,
+                              quantized=True, mesh=mesh_of(4),
+                              device=DEV)
+    wall = time.perf_counter() - t0
+    counts = launches["mesh_quant_4"] = end_path(ops)
+    st = got.stats
+    check(counts["quant_coarse_gather"] > 0 and st.quant_mode == "int8",
+          f"sharded int8 tier: K-Q never launched: {counts}")
+    check_same_distances("sharded int8 tier n=4 vs phase 8",
+                         got.distances, res_q.distances, got.indices,
+                         res_q.indices, r_np, s_np)
+    out["mesh_quant_4"] = dict(wall_s=wall, fallback=st.n_quant_fallback,
+                               launches=counts)
+    print(f"[{card}] mesh: sharded int8 tier n=4 over {N_ROWS} queries: "
+          f"{wall:.3f} s = {N_ROWS / wall:.1f} queries/s, certification "
+          f"fallbacks {st.n_quant_fallback} ({st.n_quant_fallback / N_ROWS:.4%})"
+          f"; bitwise phase 8's distances; launches {counts}", flush=True)
+
+    # ---- the sharded datastore at the LM scale (phase 14's keys)
+    rng = np.random.default_rng(14)
+    keys = rng.standard_normal((LM_STORE_KEYS, LM_STORE_DIM),
+                               dtype=np.float32)
+    vals = rng.integers(0, 128_256, LM_STORE_KEYS).astype(np.int32)
+    qs = np.random.default_rng(18).standard_normal(
+        (MESH_STORE_STEPS, BUCKET, LM_STORE_DIM), dtype=np.float32)
+    kw = dict(k=8, n_pivots=128, n_groups=8, device=DEV)
+    single = Datastore.build(keys, vals, **kw)
+    ref = [single.retrieve(q)[:2] for q in qs]
+    del single
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = Datastore.build(keys, vals, n_shards=4, replication=2,
+                            mesh=mesh_of(4), **kw)
+    got = [store.retrieve(q)[:2] for q in qs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for i, ((d, ids), (rd, ri)) in enumerate(zip(got, ref)):
+        check_same_distances(f"sharded store step {i}", d, rd, ids, ri,
+                             qs[i], keys)
+    keys64 = torch.as_tensor(keys, device=DEV).double()
+    kn64 = (keys64 * keys64).sum(1)
+    check_retrieval(card, torch, "sharded store step 0", qs[0][:512],
+                    keys64, kn64, got[0][0][:512], got[0][1][:512], 8)
+    me = store.engine().megastep_engine
+    with FaultPlan().fail("sharded.shard_compute", times=1, exc=ShardFault(
+            "sharded.shard_compute", shard=1)) as plan:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, ids, _ = store.retrieve(qs[0])
+        failover_ms = (time.perf_counter() - t0) * 1e3
+    n_seg = len(me._index_parts()[0])
+    uploads = plan.fired.get("sharded.shard_upload", 0)
+    check(me.health.failed == frozenset({1}) and not me.coverage_degraded,
+          f"sharded store failover: health {me.health.failed}")
+    check(np.array_equal(d, got[0][0]) and np.array_equal(ids, got[0][1]),
+          "sharded store: failover (r = 2) changed the bits")
+    check(uploads == 4 * (1 + n_seg),
+          f"sharded store failover re-uploaded {uploads} pieces, expected "
+          f"the masks only: 4 x (1 alive + {n_seg} present)")
+    t0 = time.perf_counter()
+    store.recover_shards(wait=True)
+    recover_s = time.perf_counter() - t0
+    d, ids, _ = store.retrieve(qs[0])
+    check(not me.health.failed and np.array_equal(d, got[0][0])
+          and np.array_equal(ids, got[0][1]),
+          "sharded store: recover_shards changed the bits")
+    print(f"[{card}] mesh: sharded Datastore ({LM_STORE_KEYS} keys x "
+          f"{LM_STORE_DIM}, 4 shards, r=2): build + {MESH_STORE_STEPS} steps "
+          f"of {BUCKET} queries {wall:.3f} s, every step bitwise the "
+          f"single-device store; failover of shard 1 {failover_ms:.3f} ms "
+          f"(bitwise; {uploads} mask pieces re-uploaded, no rows); "
+          f"recover_shards {recover_s:.3f} s (bitwise)", flush=True)
+    out["mesh_store"] = dict(wall_s=wall, failover_ms=failover_ms,
+                             recover_s=recover_s, mask_uploads=uploads)
+    del store, got, ref, me
+    # r = 1 with one shard lost: certified degraded coverage
+    store = Datastore.build(keys, vals, n_shards=4, replication=1,
+                            mesh=mesh_of(4), **kw)
+    me = store.engine().megastep_engine
+    qc = np.random.default_rng(19).standard_normal(
+        (2, 1024, LM_STORE_DIM), dtype=np.float32)
+    store.retrieve(qc[0][:16])
+    q = qc[0]
+    with FaultPlan().fail("sharded.shard_compute", times=1, exc=ShardFault(
+            "sharded.shard_compute", shard=2)):
+        d, ids, rb = me.join_batch_covered(q)
+    rec = true_recall(torch, keys64, kn64, q, ids, 8)
+    check(me.coverage_degraded and bool((rb <= rec + 1e-6).all()),
+          f"r=1 covered join: a certified recall bound exceeds the true "
+          f"recall ({int((rb > rec + 1e-6).sum())} queries)")
+    sched = ServeScheduler.for_datastore(store, config=SchedulerConfig(
+        batch_rows=1024, max_inflight=1))
+    tk = sched.join_now(qc[1])
+    rec2 = true_recall(torch, keys64, kn64, qc[1], tk.indices, 8)
+    check(tk.done and tk.degraded and tk.recall_bound is not None
+          and bool((tk.recall_bound <= rec2 + 1e-6).all()),
+          "the scheduler's coverage rung: degraded ticket without a sound "
+          "recall bound")
+    print(f"[{card}] mesh: r=1 with shard 2 lost: coverage "
+          f"{me.coverage_fraction():.4f}; join_batch_covered rb mean "
+          f"{float(rb.mean()):.4f} min {float(rb.min()):.4f} <= true recall "
+          f"(mean {float(rec.mean()):.4f}); the scheduler's coverage rung "
+          f"rb mean {float(tk.recall_bound.mean()):.4f} <= true recall "
+          f"(mean {float(rec2.mean()):.4f})", flush=True)
+    out["mesh_covered"] = dict(coverage=me.coverage_fraction(),
+                               rb_mean=float(rb.mean()),
+                               recall_mean=float(rec.mean()))
+    del store, me, keys64, kn64, keys
+    torch.cuda.empty_cache()
+
+    # ---- phase 1 over 8 shards: assign_and_summarize's bits
+    s_dev = torch.as_tensor(s_np, device=DEV)
+    p0, d0, t0_ = assign_and_summarize(s_dev, pivots, k=cfg.k)
+    begin_path(ops, "mesh_phase1")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p1, d1, t1 = distributed_phase1(s_np, pivots,
+                                    mesh_of(MESH_P1_SHARDS, "data"),
+                                    k=cfg.k)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches["mesh_phase1"] = end_path(ops)
+    check(counts["assign"] == MESH_P1_SHARDS,
+          f"distributed_phase1: K-A launched {counts['assign']} times, "
+          f"expected {MESH_P1_SHARDS}")
+    check(torch.equal(p0, p1) and torch.equal(d0, d1) and all(
+        torch.equal(getattr(t0_, f), getattr(t1, f))
+        for f in ("counts", "lower", "upper", "knn_dists")),
+        "distributed_phase1: not the bits of assign_and_summarize")
+    out["mesh_phase1"] = dict(wall_s=wall, launches=counts)
+    print(f"[{card}] mesh: distributed_phase1 over {N_ROWS} rows on "
+          f"{MESH_P1_SHARDS} shards: {wall:.3f} s, the bits of "
+          f"assign_and_summarize; launches {counts}", flush=True)
+    del s_dev
+
+    # ---- the shuffle join at _three_way's settings (9 shards)
+    x = rt.forest_like(PAPER_ROWS, DIM, seed=16)
+    mesh9 = mesh_of(PAPER_REDUCERS, "data")
+    for metric in ("l2", "l1", "linf"):
+        bd, bi = rt.brute_force_knn(x, x, PAPER_K, metric=metric, device=DEV)
+        pcfg = rt.JoinConfig(k=PAPER_K, n_pivots=PAPER_PIVOTS,
+                             n_groups=PAPER_REDUCERS, metric=metric)
+        path = f"mesh_shuffle_{metric}"
+        begin_path(ops, path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = rt.core.plan_join(x, x, pcfg, device=DEV)
+        got = distributed_knn_join(x, x, plan, mesh9, reducer="shuffle")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches[path] = end_path(ops)
+        same = check_oracle(f"shuffle join ({metric})", x, x, got.distances,
+                            got.indices, bd, bi, metric)
+        if metric == "l2":
+            check(counts["distance_topk"] > 0,
+                  f"L2 shuffle join did not run K-D: {counts}")
+        st = got.stats
+        pg = paper.get("paper_pgbj_forest", {}).get("wall_s")
+        out[path] = dict(wall_s=wall, shuffle_tuples=st.shuffle_tuples,
+                         alpha=st.replicas_s / st.n_s, launches=counts)
+        print(f"[{card}] mesh: shuffle join ({metric}, {PAPER_ROWS} "
+              f"Forest-like rows, k {PAPER_K}, {PAPER_REDUCERS} shards, "
+              f"{PAPER_PIVOTS} pivots): wall {wall:.3f} s with planning "
+              f"(phase 16's PGBJ {pg if pg is None else f'{pg:.3f}'} s), "
+              f"shuffle_tuples {st.shuffle_tuples}, alpha "
+              f"{st.replicas_s / st.n_s:.4f}; bitwise the float64 oracle, "
+              f"ids equal {same:.6f}; launches {counts}", flush=True)
+
+    # ---- C15 reported: OSM-like misses, sharded and single-device
+    x = rt.osm_like(PAPER_ROWS, seed=16)
+    bd, _ = rt.brute_force_knn(x, x, PAPER_K, device=DEV)
+    ocfg = rt.JoinConfig(k=PAPER_K, n_pivots=PAPER_PIVOTS)
+    oidx = rt.build_index(x, ocfg, device=DEV)
+    one = rt.knn_join_batched(x, index=oidx, batch_size=BUCKET,
+                              megastep=True, device=DEV)
+    sh = rt.knn_join_batched(x, index=oidx, batch_size=BUCKET,
+                             megastep=True, mesh=mesh_of(4), device=DEV)
+    miss1 = int((one.distances != bd).any(1).sum())
+    miss4 = int((sh.distances != bd).any(1).sum())
+    check(miss1 == miss4 and np.array_equal(one.distances, sh.distances),
+          f"C15 on OSM-like rows: single-device megastep misses {miss1} "
+          f"rows, the sharded one {miss4}; the routes' bits differ")
+    out["mesh_c15"] = dict(single=miss1, sharded=miss4)
+    print(f"[{card}] mesh: OSM-like self-join ({PAPER_ROWS} rows, C15): "
+          f"rows missing a neighbour vs the float64 oracle: single-device "
+          f"megastep {miss1}, sharded (n=4) {miss4} (the same bits)",
+          flush=True)
+
+    # ---- the launcher
+    cmd = [sys.executable, "-m", "repro_torch.launch.join", "--n",
+           str(N_ROWS), "--distributed", "--shards", "4", "--simulate",
+           "--verify"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0 and "verified vs brute force on 500 "
+          "samples: True" in proc.stdout,
+          f"launch.join --distributed failed: {proc.stdout[-2000:]}"
+          f"{proc.stderr[-2000:]}")
+    out["mesh_launch_s"] = wall
+    print(f"[{card}] mesh: {' '.join(cmd[1:])}: {wall:.3f} s; "
+          + " | ".join(proc.stdout.strip().splitlines()), flush=True)
+    print(f"[{card}] phase 18 (the mesh) took "
           f"{time.perf_counter() - t_phase:.3f} s", flush=True)
     return out
 
@@ -2143,7 +2503,8 @@ def main(argv=None) -> int:
     check_exact(card, rt, "quantized join", r_np, s_np, res_q.distances,
                 res_q.indices, cfg.k)
     check_same_distances("quantized join vs megastep", res_q.distances,
-                         res.distances, res_q.indices, res.indices)
+                         res.distances, res_q.indices, res.indices, r_np,
+                         s_np)
     qeng = rt.QuantMegastepEngine(idx_q, cfg_q, device=DEV)
     check(qeng.resident, "quant engine: expected the resident re-rank")
     qd, nv = qeng.enqueue(r_np[:BUCKET])
@@ -2195,7 +2556,8 @@ def main(argv=None) -> int:
                 res_h.distances, res_h.indices, cfg.k)
     mega_h = rt.knn_join(r_h, index=plan.index, megastep=True, device=DEV)
     check_same_distances("host-planned join vs megastep", res_h.distances,
-                         mega_h.distances, res_h.indices, mega_h.indices)
+                         mega_h.distances, res_h.indices, mega_h.indices,
+                         r_h, s_np)
     for reducer, n in (("pruned", PRUNED_ROWS), ("dense", DENSE_ROWS)):
         t0 = time.perf_counter()
         got = rt.knn_join(r_h[:n], index=plan.index,
@@ -2208,7 +2570,8 @@ def main(argv=None) -> int:
                     s_np, got.distances, got.indices, cfg.k)
         check_same_distances(f"{reducer} reducer vs megastep",
                              got.distances, mega_h.distances[:n],
-                             got.indices, mega_h.indices[:n])
+                             got.indices, mega_h.indices[:n], r_h[:n],
+                             s_np)
 
     # ---- 10. K-D against its plain version (retrieval and LM shapes)
     rows.append(phase_dense(card, torch, rt, s_np, r_np))
@@ -2239,6 +2602,17 @@ def main(argv=None) -> int:
     (out_dir / "phases_16_17.json").write_text(json.dumps(
         {"paper_three_way": paper, "serving_under_load": serving}))
 
+    # ---- 18. the mesh: sharded megastep, int8 tier, datastore, shuffle
+    mesh = phase_mesh(card, torch, rt, launches, s_np=s_np, r_np=r_np,
+                      cfg=cfg, idx=idx, res=res, idx_q=idx_q, cfg_q=cfg_q,
+                      res_q=res_q, pivots=pivots, paper=paper)
+    (out_dir / "phase_18.json").write_text(json.dumps(mesh))
+    mesh_paths = [p for p in launches if p.startswith("mesh_")]
+    for name in ("assign", "distance_topk_gather", "quant_coarse_gather",
+                 "distance_topk"):
+        check(sum(launches[p][name] for p in mesh_paths) > 0,
+              f"the mesh paths never launched {name}")
+
     owner = {"assign": "megastep", "distance_topk_gather": "megastep",
              "quant_coarse_gather": "quantized", "distance_topk": "retrieval",
              "flash_attention": "lm_serve"}
@@ -2247,7 +2621,10 @@ def main(argv=None) -> int:
             row["cap_shapes"] = caps[row["name"]]
         if row["name"] == "assign":
             row["path_shapes"] = assign_paths
-        row["launches"] = launches[owner[row["name"]]][row["name"]]
+        # the main path's launches, plus the mesh paths' (phase 18)
+        row["launches"] = (launches[owner[row["name"]]][row["name"]]
+                           + sum(launches[p][row["name"]]
+                                 for p in mesh_paths))
         row["launches_by_path"] = {path: n[row["name"]]
                                    for path, n in launches.items()}
     print(json.dumps({"kernels": rows}))

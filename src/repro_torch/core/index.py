@@ -11,8 +11,10 @@ package's ``core.index``.
   assignment, T_R, θ (Alg. 1 / Thm 3), the replication lower-bound
   matrix (Cor. 2) and the §5 grouping. Assignment and bounds are
   device ops; grouping is a host numpy loop.
-
-Shard packing comes with the mesh slice (ROADMAP Queue A5).
+* ``ShardPacking`` — one segment's packed rows laid out over the shards
+  of a mesh (:meth:`SIndex.shard_packing`): the §5 geometric grouping
+  places pivot groups on shards, ``r`` replicas of each, host numpy
+  arrays the sharded engines upload (``core.sharded``).
 """
 from __future__ import annotations
 
@@ -32,8 +34,8 @@ from .pivots import select_pivots
 from .schedule import segment_tile_stats
 from .types import JoinConfig, SummaryTable
 
-__all__ = ["SIndex", "QueryPlan", "build_index", "plan_queries",
-           "sindex_from_arrays", "as_float32_rows"]
+__all__ = ["SIndex", "QueryPlan", "ShardPacking", "build_index",
+           "plan_queries", "sindex_from_arrays", "as_float32_rows"]
 
 _FLOAT_DTYPES = {"float32", "float64", "float16", "bfloat16"}
 
@@ -56,6 +58,125 @@ def not_ported(feature: str, item: str) -> NotImplementedError:
     yet, naming the ROADMAP Queue A item that brings it."""
     return NotImplementedError(
         f"{feature} is not ported yet (ROADMAP Queue {item})")
+
+
+@dataclasses.dataclass
+class ShardPacking:
+    """One segment's packed payload laid out per shard of a device mesh
+    (host numpy arrays, as in the JAX package's ``ShardPacking``).
+
+    Pivot groups are assigned to shards by the paper's §5 geometric
+    grouping balanced by partition population — the heuristic that
+    balances reducers balances shards. Each shard's rows are a subset of
+    the pivot-sorted packed layout, so its block stays in (partition,
+    pivot distance) order and its tiles partition-coherent; every shard
+    is padded to the same ``tiles_per_shard`` (rows 0, gids/part −1).
+    Per-shard Thm-2 tile stats cover the shard's own rows: partitions it
+    does not hold are never ``present``, so a shard's visit schedule
+    covers only its own tiles.
+
+    With replication ``r > 1`` every pivot group also lands on ``r − 1``
+    backup shards, each replica the same pivot-sorted slice, so any
+    *serving view* (one live owner per partition, :meth:`owner_view`)
+    presents exactly the single-device row set.
+    """
+
+    n_shards: int
+    bn: int
+    shard_of_part: np.ndarray   # (M,) int32 — primary shard per partition
+    tiles_per_shard: int        # uniform (max-padded) S-tile count
+    rows: np.ndarray            # (n_shards, tiles*bn, dim) float32
+    gids_local: np.ndarray      # (n_shards, tiles*bn) int64, -1 padding
+    part: np.ndarray            # (n_shards, tiles*bn) int32, -1 padding
+    dist: np.ndarray            # (n_shards, tiles*bn) float32
+    rows_per_shard: np.ndarray  # (n_shards,) int64 — real rows per shard
+    sd_min: np.ndarray          # (n_shards, tiles, M) per-shard Thm-2 stats
+    sd_max: np.ndarray          # (n_shards, tiles, M)
+    present: np.ndarray         # (n_shards, tiles, M) bool
+    # replication factor and the (r, M) replica table: row 0 is the
+    # primary (== shard_of_part), rows 1..r−1 the backups, all distinct
+    r: int = 1
+    replicas_of_part: Optional[np.ndarray] = None
+    _quant: object = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def owner_view(self, failed=()) -> np.ndarray:
+        """(M,) int32 — the shard that serves each partition under a set
+        of failed shards: the primary while it lives, else the first live
+        backup, else −1 (an **uncovered** pivot group).
+        ``owner_view(())`` is ``shard_of_part`` itself."""
+        failed = frozenset(int(f) for f in failed)
+        if not failed:
+            return self.shard_of_part
+        reps = (self.replicas_of_part if self.replicas_of_part is not None
+                else self.shard_of_part[None, :])
+        bad = np.asarray(sorted(failed), np.int32)
+        owner = np.full((reps.shape[1],), -1, np.int32)
+        for c in range(reps.shape[0]):
+            cand = reps[c]
+            take = (owner < 0) & ~np.isin(cand, bad)
+            owner[take] = cand[take]
+        return owner
+
+    def serve_mask(self, owner: np.ndarray) -> np.ndarray:
+        """(n_shards, tiles*bn) bool — which held rows each shard serves
+        under ``owner``: exactly one shard serves each row of a covered
+        partition, so the served rows are the single-device row set
+        minus the uncovered partitions."""
+        safe = np.clip(self.part, 0, owner.shape[0] - 1)
+        return ((self.part >= 0)
+                & (owner[safe] == np.arange(self.n_shards,
+                                            dtype=np.int32)[:, None]))
+
+    def present_view(self, owner: np.ndarray) -> np.ndarray:
+        """(n_shards, tiles, M) bool — Thm-2 ``present`` gated to the
+        partitions each shard serves, so schedules skip standby
+        replicas."""
+        gate = (owner[None, :] == np.arange(self.n_shards,
+                                            dtype=np.int32)[:, None])
+        return self.present & gate[:, None, :]
+
+    def partition_counts(self) -> np.ndarray:
+        """(M,) int64 — real rows per partition, each counted once."""
+        m = self.shard_of_part.shape[0]
+        cnt = np.bincount(self.part[self.part >= 0].ravel(), minlength=m)
+        return (cnt // max(1, self.r)).astype(np.int64)
+
+    def uncovered_parts(self, owner: np.ndarray) -> np.ndarray:
+        """(M,) bool — populated partitions no live shard serves."""
+        return (owner < 0) & (self.partition_counts() > 0)
+
+    def coverage_fraction(self, owner: np.ndarray) -> float:
+        """Share of the segment's real rows in covered partitions."""
+        cnt = self.partition_counts()
+        tot = int(cnt.sum())
+        if tot == 0:
+            return 1.0
+        return float(cnt[owner >= 0].sum()) / tot
+
+    def ensure_quant(self):
+        """Per-shard int8 twins ``(codes, scales, eps)`` of the shard
+        blocks, stacked on a leading shard axis and quantized per ``bn``
+        tile like the single-device payload. Padding rows quantize to
+        exact zeros and stay masked by liveness."""
+        if self._quant is None:
+            qs = [quantize_rows(self.rows[j], self.bn)
+                  for j in range(self.n_shards)]
+            self._quant = (np.stack([q.q for q in qs]),
+                           np.stack([q.scales for q in qs]),
+                           np.stack([q.eps for q in qs]))
+        return self._quant
+
+    def nbytes_per_shard(self, *, quantized: bool = False) -> np.ndarray:
+        """Resident row-payload bytes each shard holds — its real rows
+        (and their tiles), not the uniform padding."""
+        dim = int(self.rows.shape[-1])
+        rows = self.rows_per_shard.astype(np.int64)
+        if not quantized:
+            return rows * (4 * dim)
+        tiles = -(-rows // self.bn)
+        # int8 codes + one f32 scale per tile + one f16 ε per row
+        return rows * dim + tiles * 4 + rows * 2
 
 
 @dataclasses.dataclass
@@ -91,6 +212,8 @@ class SIndex:
         default_factory=dict, repr=False, compare=False)
     _center: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
+    _shards: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -137,15 +260,102 @@ class SIndex:
             self._quant[bn] = quantize_rows(self.s_sorted.cpu().numpy(), bn)
         return self._quant[bn]
 
+    def shard_packing(self, n_shards: int, bn: Optional[int] = None, *,
+                      r: int = 1) -> ShardPacking:
+        """This segment's payload laid out over ``n_shards`` mesh shards
+        at tile size ``bn`` (default ``config.tile_s``): pivot groups →
+        shards by the §5 geometric grouping balanced by partition
+        population, rows / ids / tile stats per shard. With ``r > 1``
+        each pivot group also lands on ``r − 1`` backup shards (clamped
+        at ``n_shards``), heaviest partition first on the least-loaded
+        shard not yet holding it. Cached per ``(n_shards, bn, r)`` for
+        the index's lifetime; the JAX package's layout, bit for bit."""
+        bn = int(self.config.tile_s if bn is None else bn)
+        n_shards = int(n_shards)
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        r = int(r)
+        if r < 1:
+            raise ValueError(f"replication factor r must be >= 1, got {r}")
+        r = min(r, n_shards)
+        key = (n_shards, bn, r)
+        if key not in self._shards:
+            self._shards[key] = self._pack_shards(n_shards, bn, r)
+        return self._shards[key]
+
+    def _pack_shards(self, n_shards: int, bn: int, r: int) -> ShardPacking:
+        m = self.n_pivots
+        pivd = self.pivd.cpu().numpy()
+        pcount = self.t_s.counts.cpu().numpy().astype(np.int64)
+        part_sorted = self.s_part_sorted.cpu().numpy()
+        # geometric grouping refuses more groups than partitions: surplus
+        # shards hold no partition (their tiles are never present)
+        eff = min(n_shards, m)
+        if eff == 1:
+            shard_of_part = np.zeros((m,), np.int32)
+        else:
+            shard_of_part = np.ascontiguousarray(
+                G.geometric_grouping(pivd, pcount, eff).astype(np.int32))
+        replicas = np.zeros((r, m), np.int32)
+        replicas[0] = shard_of_part
+        if r > 1:
+            load = np.bincount(shard_of_part, weights=pcount,
+                               minlength=n_shards).astype(np.int64)
+            order = np.argsort(-pcount, kind="stable")
+            for c in range(1, r):
+                for p in order:
+                    held = {int(x) for x in replicas[:c, p]}
+                    j = min((s for s in range(n_shards) if s not in held),
+                            key=lambda s: (load[s], s))
+                    replicas[c, p] = j
+                    load[j] += pcount[p]
+        # shard j holds every copy of its partitions; boolean selection
+        # keeps each block in (partition, dist) packed order
+        holds = np.zeros((n_shards, m), bool)
+        holds[replicas, np.arange(m)[None, :]] = True
+        held_rows = holds[:, part_sorted]              # (n_shards, n_s)
+        counts = held_rows.sum(axis=1)
+        tiles = max(1, int(-(-counts.max() // bn)))
+        rpad = tiles * bn
+        rows = np.zeros((n_shards, rpad, self.dim), np.float32)
+        gids = np.full((n_shards, rpad), -1, np.int64)
+        part = np.full((n_shards, rpad), -1, np.int32)
+        dist = np.zeros((n_shards, rpad), np.float32)
+        s_sorted = self.s_sorted.cpu().numpy()
+        ids_sorted = self.s_ids_sorted.cpu().numpy()
+        dist_sorted = self.s_dist_sorted.cpu().numpy()
+        for j in range(n_shards):
+            sel = held_rows[j]
+            nj = int(counts[j])
+            rows[j, :nj] = s_sorted[sel]
+            gids[j, :nj] = ids_sorted[sel]
+            part[j, :nj] = part_sorted[sel]
+            dist[j, :nj] = dist_sorted[sel]
+        stats = [tuple(x.numpy() for x in segment_tile_stats(
+            torch.from_numpy(part[j]), torch.from_numpy(dist[j]), m, bn))
+            for j in range(n_shards)]
+        return ShardPacking(
+            n_shards=n_shards, bn=bn, shard_of_part=shard_of_part,
+            tiles_per_shard=tiles, rows=rows, gids_local=gids, part=part,
+            dist=dist, rows_per_shard=counts.astype(np.int64),
+            sd_min=np.stack([st[0] for st in stats]),
+            sd_max=np.stack([st[1] for st in stats]),
+            present=np.stack([st[2] for st in stats]),
+            r=r, replicas_of_part=replicas)
+
     def nbytes_resident(self, *, quantized: Optional[bool] = None,
                         n_shards: Optional[int] = None) -> int:
         """Device-resident bytes of the index's row payload: the fp32
         packed rows, or — quantized — the int8 codes + per-tile scales +
-        per-row ε. The default mode follows ``config.quantize``."""
-        if n_shards is not None:
-            raise not_ported("nbytes_resident(n_shards=...)", "A5")
+        per-row ε. The default mode follows ``config.quantize``. With
+        ``n_shards``: the **largest shard's** row-payload bytes under
+        :meth:`shard_packing` — what must fit one device when the index
+        runs sharded."""
         if quantized is None:
             quantized = self.config.quantize != "none"
+        if n_shards is not None and int(n_shards) > 0:
+            sp = self.shard_packing(int(n_shards))
+            return int(sp.nbytes_per_shard(quantized=quantized).max())
         if not quantized:
             return int(self.s_sorted.numel() * self.s_sorted.element_size())
         return int(self.ensure_quant().nbytes())

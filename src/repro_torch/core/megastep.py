@@ -67,7 +67,8 @@ from .metrics import canonical_gathered
 from .schedule import compact_visits, visit_mask
 from .types import JoinConfig, JoinStats
 
-__all__ = ["MegastepEngine", "JoinHandle", "assign_bounds_schedule"]
+__all__ = ["MegastepEngine", "JoinHandle", "assign_bounds_schedule",
+           "assign_theta", "schedule_visits", "canonical_run"]
 
 
 @dataclasses.dataclass
@@ -100,17 +101,17 @@ class _Payload:
     n_finite_total: int      # finite T_S candidates over all segments
 
 
-def assign_bounds_schedule(q: torch.Tensor, n_valid: int, pl: _Payload,
-                           *, k: int, bm: int):
-    """Stages 1–3 (assign → union θ → compacted tile schedule) for one
-    bucket-padded batch ``q`` (B, dim), over every segment of ``pl``.
+def assign_theta(q: torch.Tensor, n_valid: int, pl: _Payload, *, k: int):
+    """Stages 1–2 (assign → union θ) for one bucket-padded batch ``q``
+    (B, dim). They read only the payload's replicated geometry (center,
+    pivots, T_S lists, tombstone count), so every shard of a sharded
+    payload computes the same values.
 
-    Returns ``(qs, qcs, inv, th_q, sched, cnt)``: the queries sorted by
-    their home partition in the primary segment (raw and centered), the
-    inverse of that sort, the per-query θ in sorted order (−inf on
-    padding rows), and the compacted schedule over the concatenated
-    tiles (int32 (B // bm, T)) with its per-R-tile counts (int32). The
-    quantized tier's coarse pass runs on the same stages.
+    Returns ``(qs, qcs, valid_s, inv, th_q, qps, homes)``: the queries
+    sorted by their home partition in the primary segment (raw and
+    centered), which of them are real, the inverse of that sort, the
+    per-query θ in sorted order (−inf on padding rows), and per segment
+    the sorted queries' pivot distances and home partitions.
     """
     dev = q.device
     b = q.shape[0]
@@ -153,13 +154,64 @@ def assign_bounds_schedule(q: torch.Tensor, n_valid: int, pl: _Payload,
     else:                                       # no valid bound: visit all
         th = torch.full((b,), inf, device=dev)
     th_q = torch.where(valid_s, th, -inf)       # padding: schedule nothing
+    return qs, qcs, valid_s, inv, th_q, qps, homes
 
-    # ---- 3. per-segment visit masks, concatenated + prefix-compacted
+
+def schedule_visits(qps, homes, th_q: torch.Tensor, valid_s: torch.Tensor,
+                    segs, *, bm: int):
+    """Stage 3: per-segment visit masks against ``segs``' tile stats,
+    concatenated over the segments' tile ranges and prefix-compacted.
+    Returns the compacted schedule (int32 (B // bm, T)) and its per-R-tile
+    counts. A shard runs it against its own tile stats."""
     visit = torch.cat([visit_mask(qp, h, th_q, valid_s, g.pivd, g.sd_min,
                                   g.sd_max, g.present, bm=bm)
-                       for qp, h, g in zip(qps, homes, pl.segs)], dim=1)
-    sched, cnt = compact_visits(visit)
+                       for qp, h, g in zip(qps, homes, segs)], dim=1)
+    return compact_visits(visit)
+
+
+def assign_bounds_schedule(q: torch.Tensor, n_valid: int, pl: _Payload,
+                           *, k: int, bm: int):
+    """Stages 1–3 (assign → union θ → compacted tile schedule) for one
+    bucket-padded batch ``q`` (B, dim), over every segment of ``pl``.
+
+    Returns ``(qs, qcs, inv, th_q, sched, cnt)``: the queries sorted by
+    their home partition in the primary segment (raw and centered), the
+    inverse of that sort, the per-query θ in sorted order (−inf on
+    padding rows), and the compacted schedule over the concatenated
+    tiles (int32 (B // bm, T)) with its per-R-tile counts (int32). The
+    quantized tier's coarse pass runs on the same stages.
+    """
+    qs, qcs, valid_s, inv, th_q, qps, homes = assign_theta(q, n_valid, pl,
+                                                           k=k)
+    sched, cnt = schedule_visits(qps, homes, th_q, valid_s, pl.segs, bm=bm)
     return qs, qcs, inv, th_q, sched, cnt
+
+
+def canonical_run(qs: torch.Tensor, pl: _Payload, pos: torch.Tensor):
+    """Stage 5's re-rank of a run of packed-row positions (−1: empty):
+    canonical distances from the raw rows, int64 global ids, one stable
+    sort. Returns ``(d, ids)`` as wide as ``pos``, (+inf, −1) padded."""
+    valid_sel = pos >= 0
+    pos_c = torch.clamp(pos.to(torch.int64), 0, pl.s.shape[0] - 1)
+    d_can = canonical_gathered(qs, pl.s[pos_c])
+    d_can = torch.where(valid_sel, d_can, float("inf"))
+    ids = torch.where(valid_sel, pl.gids[pos_c], -1)
+    d_can, order = torch.sort(d_can, dim=1, stable=True)
+    return d_can, torch.take_along_dim(ids, order, dim=1)
+
+
+def merge_state(d: torch.Tensor, ids: torch.Tensor, state, k: int):
+    """Dedup-merge a carried ``(dists, ids)`` run for the same query slots
+    into the batch's k-run on the device."""
+    sd, si = state[:2]
+    pad = (0, next_pow2(k) - k)
+    inf = float("inf")
+    md, mi = merge_sorted_runs_unique(
+        torch.nn.functional.pad(sd, pad, value=inf),
+        torch.nn.functional.pad(si, pad, value=-1),
+        torch.nn.functional.pad(d, pad, value=inf),
+        torch.nn.functional.pad(ids, pad, value=-1))
+    return md[:, :k], mi[:, :k]
 
 
 def _megastep(q: torch.Tensor, n_valid: int, pl: _Payload, *, k: int,
@@ -167,34 +219,19 @@ def _megastep(q: torch.Tensor, n_valid: int, pl: _Payload, *, k: int,
     """assign → bounds → schedule → gather-top-k → merge for one
     bucket-padded batch ``q`` (B, dim). Returns device (dists, ids)."""
     kp = next_pow2(k)
-    inf = float("inf")
     qs, qcs, inv, _, sched, cnt = assign_bounds_schedule(q, n_valid, pl,
                                                          k=k, bm=bm)
 
     # ---- 4. gather top-kp over the schedule, in centered coordinates
     _, pos = ops.distance_topk_gather(qcs, pl.s_c, kp, sched, cnt,
                                       alive=pl.alive, bm=bm, bn=bn)
-    valid_sel = pos >= 0
 
     # ---- 5. canonical distances from the raw rows + global ids + the
     # stable exact re-sort of the kp-run
-    pos_c = torch.clamp(pos.to(torch.int64), 0, pl.s.shape[0] - 1)
-    d_can = canonical_gathered(qs, pl.s[pos_c])
-    d_can = torch.where(valid_sel, d_can, inf)
-    ids = torch.where(valid_sel, pl.gids[pos_c], -1)
-    d_can, order = torch.sort(d_can, dim=1, stable=True)
-    ids = torch.take_along_dim(ids, order, dim=1)
+    d_can, ids = canonical_run(qs, pl, pos)
     d_can, ids = d_can[:, :k][inv], ids[:, :k][inv]
-
     if state is not None:
-        sd, si = state
-        pad = (0, kp - k)
-        md, mi = merge_sorted_runs_unique(
-            torch.nn.functional.pad(sd, pad, value=inf),
-            torch.nn.functional.pad(si, pad, value=-1),
-            torch.nn.functional.pad(d_can, pad, value=inf),
-            torch.nn.functional.pad(ids, pad, value=-1))
-        d_can, ids = md[:, :k], mi[:, :k]
+        d_can, ids = merge_state(d_can, ids, state, k)
     return d_can, ids
 
 
@@ -208,6 +245,7 @@ class JoinHandle:
     n: int
     dev: tuple = ()
     q: Optional[np.ndarray] = None   # the host queries (quantized tier)
+    meta: Optional[dict] = None      # what finalize counts (sharded tier)
 
 
 class MegastepEngine:

@@ -9,10 +9,8 @@ default), the fused megastep (``megastep=True``, ``core.megastep``) or
 the int8 two-tier engine (``quantized=True``, ``quant.engine``). A
 query's result depends only on (query row, live rows), so
 ``knn_join_batched`` over any split of R gives the same results as one
-batch.
-
-Sharding raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+batch. ``n_shards=`` / ``mesh=`` run either megastep route over a
+device mesh (``core.sharded``) — the same distances.
 """
 from __future__ import annotations
 
@@ -26,7 +24,7 @@ from .. import obs
 from ..device import resolve_device
 from ..kernels.sorted_merge import merge_sorted_runs_unique, next_pow2
 from .api import execute_join
-from .index import build_index, not_ported, plan_queries
+from .index import build_index, plan_queries
 from .megastep import MegastepEngine
 from .types import JoinConfig, JoinResult, JoinStats
 
@@ -92,32 +90,70 @@ class StreamJoinEngine:
     ``True`` routes every batch through the int8 two-tier engine
     (``quant.engine.QuantMegastepEngine``, L2 only) and takes
     precedence over ``megastep``; ``None`` follows ``config.quantize``.
+
+    ``n_shards`` / ``mesh``: partition the resident payload across a mesh
+    of that many devices (``distributed.make_mesh``: the present cards,
+    or an explicit device list for simulated shards) and run the fused
+    pass per shard (``core.sharded``) — the same distances, no
+    steady-state host sync. Needs a megastep route. ``replication``
+    places every pivot group on that many shards so the fp32 sharded
+    engine survives shard loss with the same bits; ``attempt_timeout``
+    bounds each sharded attempt so a hung collective counts as a shard
+    failure. The quantized sharded engine does not replicate.
     """
 
     def __init__(self, index, config: Optional[JoinConfig] = None,
                  *, megastep: object = False,
                  quantized: Optional[bool] = None,
-                 n_shards: Optional[int] = None,
+                 n_shards: Optional[int] = None, replication: int = 1,
+                 attempt_timeout: Optional[float] = None, mesh=None,
                  device: Union[str, torch.device] = "cuda"):
         self.index = index
         self.config = config or index.config
-        if n_shards is not None:
-            raise not_ported("the sharded megastep", "A5")
         if quantized is None:
             quantized = self.config.quantize != "none"
         if megastep == "auto":
             megastep = self.config.metric == "l2"
-        self._megastep = None
-        if quantized:
-            from ..quant.engine import QuantMegastepEngine
-            self._megastep = QuantMegastepEngine(index, self.config,
-                                                 device=device)
-        elif megastep:
-            self._megastep = MegastepEngine(index, self.config,
-                                            device=device)
-        elif index.device.type != resolve_device(device).type:
+        sharded = n_shards is not None or mesh is not None
+        if (replication != 1 or attempt_timeout is not None) \
+                and not sharded:
+            raise ValueError(
+                "replication/attempt_timeout are sharded-engine knobs — "
+                "pass n_shards or mesh too")
+        if index.device.type != resolve_device(device).type:
             raise ValueError(f"the index lives on {index.device}, the "
                              f"engine was asked for {device}")
+        self._megastep = None
+        if quantized:
+            if replication != 1:
+                raise ValueError(
+                    "replication > 1 is the fp32 sharded engine's "
+                    "fault-tolerance knob; the quantized sharded engine "
+                    "does not replicate (drop quantized, or accept r=1)")
+            if sharded:
+                from ..quant.engine import ShardedQuantMegastepEngine
+                self._megastep = ShardedQuantMegastepEngine(
+                    index, self.config, n_shards=n_shards, mesh=mesh,
+                    device=device)
+            else:
+                from ..quant.engine import QuantMegastepEngine
+                self._megastep = QuantMegastepEngine(index, self.config,
+                                                     device=device)
+        elif megastep:
+            if sharded:
+                from .sharded import ShardedMegastepEngine
+                self._megastep = ShardedMegastepEngine(
+                    index, self.config, n_shards=n_shards, mesh=mesh,
+                    replication=replication,
+                    attempt_timeout=attempt_timeout, device=device)
+            else:
+                self._megastep = MegastepEngine(index, self.config,
+                                                device=device)
+        elif sharded:
+            raise ValueError(
+                "n_shards requires a megastep-mode engine (megastep=True/"
+                "'auto' or quantized=True) — the host-planned path has no "
+                "resident payload to shard")
 
     @property
     def megastep_engine(self):
@@ -212,6 +248,8 @@ def knn_join_batched(
     megastep: object = False,
     quantized: Optional[bool] = None,
     n_shards: Optional[int] = None,
+    replication: int = 1,
+    mesh=None,
     device: Union[str, torch.device] = "cuda",
 ) -> JoinResult:
     """Streaming PGBJ join: R in micro-batches against a build-once index.
@@ -223,7 +261,10 @@ def knn_join_batched(
     ``device`` (pivots sampled from S).
     ``megastep=True`` runs each batch through the fused megastep,
     ``quantized=True`` through the int8 two-tier engine; the default is
-    the host-planned path. Every route equals one batch for any split.
+    the host-planned path. ``n_shards=`` / ``mesh=`` shard either
+    megastep route across a device mesh (``replication=r``: every pivot
+    group on r shards, fp32 only). Every route equals one batch for any
+    split.
     Row ``j`` of the output is the ``j``-th query row seen across the
     batches.
     """
@@ -256,6 +297,7 @@ def knn_join_batched(
 
     engine = StreamJoinEngine(index, config, megastep=megastep,
                               quantized=quantized, n_shards=n_shards,
+                              replication=replication, mesh=mesh,
                               device=device)
     stats = JoinStats(n_s=index.n_s)
     if built_here:   # a reused index's S phase 1 was paid at build time

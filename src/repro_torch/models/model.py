@@ -54,7 +54,7 @@ def _check_arch(cfg: ArchConfig, opts: ModelOptions) -> None:
         raise not_ported("attention with a logit softcap (K-F has none, as "
                          "the TPU kernel)", "A6")
     if opts.readonly_cache:
-        raise not_ported("the read-only serving cache (a mesh layout)", "A5")
+        raise not_ported("the read-only serving cache (a mesh layout)", "A6")
 
 
 def layer_kinds(cfg: ArchConfig) -> List[str]:

@@ -32,6 +32,11 @@ table entry measured int8 as a loss; an explicit slack pins int8),
 and ``resident`` (fits ``REPRO_QUANT_RESIDENT_MAX_BYTES``, default
 1 GiB). The port's tuning table starts empty (``quant.autotune``).
 
+``ShardedQuantMegastepEngine`` runs the same tier over a mesh
+(``core.sharded``): K-Q on each shard's codes, ε and schedule, the exact
+re-rank on the shard, the id-disjoint tree merge of the runs and the
+minimum of the shards' certification bounds.
+
 Soundness (the ε lemma): with ŝ = code·scale and q̂ the quantized query,
 |d(q̂, ŝ) − d(q, s)| ≤ ε_q + ε_s, and ε_num dominates the float32
 rounding of d(q̂, ŝ) itself (``kernels.quant_topk``).
@@ -48,17 +53,21 @@ import torch
 from .. import obs
 from ..core.bounds import pad_theta
 from ..core.megastep import (JoinHandle, MegastepEngine, _Payload,
-                             assign_bounds_schedule)
+                             assign_bounds_schedule, canonical_run,
+                             schedule_visits)
 from ..core.metrics import canonical_gathered, canonical_topk
+from ..core.sharded import (_per_device, _sharded_megastep,
+                            _ShardedPayloadMixin)
 from ..core.types import JoinConfig, JoinStats
 from ..kernels import ops
-from ..kernels.sorted_merge import next_pow2
+from ..kernels.sorted_merge import next_pow2, tree_merge_runs
 from ..serve import faultinject
 from . import autotune
 from .autotune import TunedConfig
 from .quantize import resident_extra_bytes
 
-__all__ = ["QuantMegastepEngine", "quantize_queries"]
+__all__ = ["QuantMegastepEngine", "ShardedQuantMegastepEngine",
+           "quantize_queries"]
 
 # resident re-rank auto-threshold: keep the fp32 rows + ids on the device
 # only while they fit comfortably
@@ -423,3 +432,145 @@ class QuantMegastepEngine(MegastepEngine):
             return self.index.join_batch(q, config=self.config)
         return execute_join(q, self.index,
                             plan_queries(q, self.index, self.config))
+
+
+# ---------------------------------------------------------------------------
+# the sharded quantized engine (core.sharded holds the fp32 twin)
+
+
+def _sharded_quant_megastep(q, n_valid, pl, *, mp, k, bm, bn, devices):
+    """``_quant_megastep`` over every shard: the int8 shortlist against
+    the shard's codes, ε and compacted schedule, the exact re-rank on the
+    shard (kept kp wide), the runs gathered to ``q``'s device and
+    tree-merged, and the certification bound the minimum over shards.
+    Sound: a row shard j left out of its shortlist has lb ≥ lm_j ≥ min_j
+    lm_j; a shortlisted row dropped past rank kp is no nearer than the
+    shard's kp-th ≥ the merged k-th. Returns device ``(d (B, k), ids,
+    lm (B,))``."""
+    kp = next_pow2(k)
+    home = q.device
+    pre = _per_device(q, pl, devices, n_valid, k)
+    qz = {}
+    runs, lm = [], None
+    for sp, dev in zip(pl.shards, devices):
+        _, (qs, qcs, valid_s, inv, th_q, qps, homes) = pre[str(dev)]
+        if str(dev) not in qz:
+            qz[str(dev)] = quantize_queries(qs) + (
+                pad_theta(th_q).contiguous(),)
+        qi, qscale, qeps, theta = qz[str(dev)]
+        sched, cnt = schedule_visits(qps, homes, th_q, valid_s, sp.segs,
+                                     bm=bm)
+        lb, pos = ops.quant_coarse_topk(
+            qi, qscale, qeps, theta, sp.sq, sp.sscale, sp.seps, sp.alive,
+            mp, sched, cnt, bm=bm, bn=bn)
+        d, ids = canonical_run(qs, sp, pos)
+        runs.append((d[:, :kp][inv].to(home, non_blocking=True),
+                     ids[:, :kp][inv].to(home, non_blocking=True)))
+        lm_j = lb[:, -1][inv].to(home, non_blocking=True)
+        lm = lm_j if lm is None else torch.minimum(lm, lm_j)
+    d, ids = runs[0] if len(runs) == 1 else tree_merge_runs(runs)
+    return d[:, :k], ids[:, :k], lm
+
+
+class ShardedQuantMegastepEngine(_ShardedPayloadMixin,
+                                 QuantMegastepEngine):
+    """``QuantMegastepEngine`` over a 1-D "shard" mesh: int8 codes,
+    ε and fp32 rows partitioned by ``SIndex.shard_packing``, the
+    coarse scan and exact re-rank per shard, certification combined
+    across shards. dispatch() / finalize(), the certification with
+    its fp32 fallback and ``join_batch_approx`` are inherited; only
+    the device call underneath is sharded.
+
+    Residency is decided per shard (the largest shard's rows), and
+    the sharded int8 tier requires it: the host-gather re-rank is a
+    host round trip by construction. No replication (its HBM budget
+    is the point of int8)."""
+
+    def __init__(self, index, config: Optional[JoinConfig] = None, *,
+                 n_shards: Optional[int] = None, mesh=None,
+                 slack: Optional[int] = None, bucket_min: int = 16,
+                 resident: Optional[bool] = None, tune="auto",
+                 tune_bn: Optional[int] = None, device=None):
+        self._init_mesh(n_shards, mesh, device)
+        QuantMegastepEngine.__init__(
+            self, index, config, slack=slack, bucket_min=bucket_min,
+            resident=resident, tune=tune, tune_bn=tune_bn,
+            device=index.device)
+        if self.mode == "int8" and resident is None:
+            self.resident = (resident_extra_bytes(
+                self._resident_fit_rows(), index.dim)
+                <= _RESIDENT_MAX_BYTES)
+        if self.mode == "int8" and not self.resident:
+            raise ValueError(
+                f"the sharded int8 engine is resident-only, but the "
+                f"largest shard ({self._resident_fit_rows()} rows) "
+                f"exceeds REPRO_QUANT_RESIDENT_MAX_BYTES "
+                f"({_RESIDENT_MAX_BYTES}); add shards, raise the cap, "
+                f"or use the single-device QuantMegastepEngine")
+        self._place(index)
+
+    def _resident_fit_rows(self) -> int:
+        segs, _, _ = self._index_parts()
+        per = np.zeros((self.n_shards,), np.int64)
+        for si, _ in segs:
+            per += si.shard_packing(self.n_shards,
+                                    self._bn).rows_per_shard
+        return int(per.max()) if per.size else 0
+
+    def _build_struct(self, segs) -> dict:
+        st = super()._build_struct(segs)
+        if self.mode == "fp32":
+            return st
+        for j, sh in enumerate(st["shards"]):
+            sq, sc, ep = (np.concatenate([x[j] for x in parts])
+                          for parts in zip(*(sp.ensure_quant()
+                                             for sp in st["packs"])))
+            sh.update(sq=self._put_shard(sq, j),
+                      sscale=self._put_shard(sc, j),
+                      seps=self._put_shard(ep, j),
+                      gids_host=torch.from_numpy(sh["gids_np"]))
+        return st
+
+    def _shard_payload(self, st, j, sh, segs, alive, dead_total):
+        base = super()._shard_payload(st, j, sh, segs, alive,
+                                      dead_total)
+        if self.mode == "fp32":
+            return base
+        return _QuantPayload(
+            **{f.name: getattr(base, f.name)
+               for f in dataclasses.fields(_Payload)},
+            sq=sh["sq"], sscale=sh["sscale"], seps=sh["seps"],
+            rows_host=None, gids_host=sh["gids_host"])
+
+    def coarse_shortlist(self, queries: np.ndarray):
+        raise NotImplementedError(
+            "coarse_shortlist is the single-device debugging surface; "
+            "the sharded coarse pass never leaves the mesh — use "
+            "join_batch / join_batch_approx")
+
+    def join_batch_device(self, q_dev, n_valid: int, *, state=None):
+        """Device ``(dists, ids, lm)`` of one sharded step, no host
+        sync (fp32 mode: the sharded fp32 megastep's ``(dists,
+        ids)``)."""
+        bucket = int(q_dev.shape[0])
+        bm = min(bucket, self._bm_cap)
+        pl = self.payload()
+        if self.mode == "fp32":
+            d, ids, _ = _sharded_megastep(
+                q_dev, n_valid, pl, k=self.config.k, bm=bm, bn=self._bn,
+                devices=self.mesh.devices, state=state)
+            self.step_count += 1
+            return d, ids
+        if state is not None:
+            raise NotImplementedError(
+                "carried-state merge is the fp32 megastep's API; the "
+                "quant megastep emits a fresh certified run per batch")
+        with obs.span("quant.device_step", bucket=bucket, bm=bm,
+                      bn=self._bn, mp=self.mp,
+                      n_shards=self.n_shards) as sp:
+            out = _sharded_quant_megastep(
+                q_dev, n_valid, pl, mp=self.mp, k=self.config.k, bm=bm,
+                bn=self._bn, devices=self.mesh.devices)
+            sp.set(outcome="launched")
+        self.step_count += 1
+        return out

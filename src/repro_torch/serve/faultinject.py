@@ -30,9 +30,20 @@ Hook sites the port fires:
   ladder, and the pipelined ``dispatch``); failing it simulates a
   poisoned batch.
 
-The sharded engines' ``sharded.*`` sites come with those modules
-(ROADMAP Queue A5); :class:`ShardFault` and :class:`ShardFailedError`
-are here already. All sites compose in one armed plan.
+* ``sharded.shard_upload`` — the sharded engines' ``_put_shard``
+  (``core.sharded``), whenever a shard's piece of the partitioned
+  payload is committed to its device; a :class:`ShardFault` naming the
+  shard simulates a device lost during the upload.
+* ``sharded.shard_compute`` — just before the sharded megastep's launch
+  (``ShardedMegastepEngine.dispatch``); a :class:`ShardFault` here is a
+  shard dying mid-stream.
+* ``sharded.collective`` — a :func:`cross` site over the fetched
+  cross-shard merge result (``ShardedMegastepEngine.finalize``):
+  ``.fail`` is a poisoned gather, a sleeping ``.transform`` a *hung*
+  one, which the engine's ``attempt_timeout`` turns into a
+  :class:`ShardFailedError`.
+
+All sites compose in one armed plan.
 
 Usage::
 

@@ -18,9 +18,11 @@ Retrieval runs one of two routes:
 
 * the join route (default): the datastore's resident engine per k
   (``StreamJoinEngine(megastep="auto")``, the fused megastep over every
-  live segment) through :meth:`Datastore.retrieve`, whose optimistic
-  version check returns the value table of exactly the index version
-  the neighbours came from;
+  live segment — sharded over a mesh, with replica failover, when the
+  store was built with ``n_shards`` / ``mesh``) through
+  :meth:`Datastore.retrieve`, whose optimistic version check returns
+  the value table of exactly the index version the neighbours came
+  from;
 * the kernel route (``use_kernel=True``): the dense top-k kernel K-D
   (``kernels.ops.distance_topk``) over the live rows. It hands K-D the
   live rows and the queries centered by the live rows' mean (cached
@@ -44,7 +46,7 @@ import torch
 
 from .. import obs
 from ..core import JoinConfig, MutableIndex, StreamJoinEngine
-from ..core.index import as_float32_rows, not_ported
+from ..core.index import as_float32_rows
 from ..kernels import ops
 
 __all__ = ["Datastore", "KnnLMConfig", "knn_logits", "interpolate"]
@@ -56,6 +58,14 @@ class Datastore:
     values: np.ndarray     # (N_alloc,) int32 token ids, aligned to keys
     index: MutableIndex    # segmented mutable S side (base + deltas)
     config: JoinConfig
+    # shard the resident payload across a mesh of this many devices and
+    # serve through the sharded megastep (core.sharded); 0 = one device
+    n_shards: int = 0
+    # every pivot group on this many shards (a primary + r−1 backups), so
+    # serving survives shard loss with the same bits (fp32 only)
+    replication: int = 1
+    # the mesh's devices (distributed.make_mesh); None: the present cards
+    mesh: object = None
     # one resident engine per k: the megastep's device payload lives here
     # and survives across decode steps
     _engines: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -77,26 +87,29 @@ class Datastore:
     def build(cls, keys, values, *, k: int = 8, n_pivots: int = 256,
               n_groups: int = 8, seed: int = 0, seal_threshold: int = 4096,
               quantized: bool = False, n_shards: int = 0,
-              replication: int = 1,
+              replication: int = 1, mesh=None,
               device: Union[str, torch.device] = "cuda") -> "Datastore":
         """Phase 1, once, over the initial keys on ``device``; growth
         happens in delta segments. ``keys`` may be bfloat16 / float16
         hidden states (cast to float32 once here). ``quantized=True``
         stamps ``quantize="int8"`` into the config, so every segment
         carries its int8 codes and retrieval serves through the int8
-        tier. A sharded datastore is not ported yet."""
-        if n_shards or replication != 1:
-            raise not_ported("a sharded datastore (Datastore.build("
-                             "n_shards=..., replication=...))", "A5")
+        tier. ``n_shards=N`` (or ``mesh=``, whose devices may repeat for
+        simulated shards) partitions the resident payload across a mesh
+        and serves through the sharded megastep — the same distances;
+        ``replication=r`` keeps every pivot group on r shards (fp32)."""
         keys = as_float32_rows(keys, what="datastore keys").cpu().numpy()
         cfg = JoinConfig(k=k, n_pivots=min(n_pivots, keys.shape[0]),
                          n_groups=n_groups, grouping="geometric", seed=seed,
                          quantize="int8" if quantized else "none")
+        if mesh is not None and not n_shards:
+            n_shards = mesh.size
         return cls(keys=keys, values=np.asarray(values, np.int32),
                    index=MutableIndex.build(keys, cfg,
                                             seal_threshold=seal_threshold,
                                             device=device),
-                   config=cfg)
+                   config=cfg, n_shards=int(n_shards),
+                   replication=int(replication), mesh=mesh)
 
     @property
     def n_entries(self) -> int:
@@ -145,8 +158,14 @@ class Datastore:
             if eng is None:
                 cfg = self.config if kk == self.config.k \
                     else dataclasses.replace(self.config, k=kk)
+                sharded = bool(self.n_shards)
+                rep = (self.replication if sharded and not self.quantized
+                       else 1)
                 eng = StreamJoinEngine(self.index, cfg, megastep="auto",
                                        quantized=self.quantized,
+                                       n_shards=self.n_shards or None,
+                                       mesh=self.mesh if sharded else None,
+                                       replication=rep,
                                        device=self.index.device)
                 me = eng.megastep_engine
                 if me is not None:
@@ -155,8 +174,23 @@ class Datastore:
         return eng
 
     def recover_shards(self, *, wait: bool = False) -> list:
-        """Re-admit failed shards of a sharded datastore."""
-        raise not_ported("Datastore.recover_shards (shard failover)", "A5")
+        """Re-admit failed shards on every cached sharded engine: rebuild
+        and re-upload the shard-partitioned payloads and reset health
+        (``ShardedMegastepEngine.recover``). With ``wait=False`` (the
+        serving default) recovery runs in daemon threads behind each
+        engine's refresh lock, serving on the degraded views meanwhile.
+        Returns the recovery threads (none when nothing sharded is
+        cached or failed)."""
+        with self._lock:
+            engines = list(self._engines.values())
+        out = []
+        for eng in engines:
+            me = eng.megastep_engine
+            if me is not None and hasattr(me, "recover"):
+                t = me.recover(wait=wait)
+                if t is not None:
+                    out.append(t)
+        return out
 
     def retrieve(self, queries, k: Optional[int] = None, *, stats=None,
                  max_retries: int = 8):

@@ -260,8 +260,20 @@ def test_launch_join_osm_and_distributed():
                             "--pivots", "16", "--device", "cpu",
                             "--verify"])
     assert res.indices.shape == (800, 4)
-    with pytest.raises(NotImplementedError, match="Queue A5"):
-        launch_join.main(["--n", "100", "--distributed", "--device", "cpu"])
+    # --distributed: more shards than the one CPU only with --simulate
+    with pytest.raises(ValueError, match="--simulate"):
+        launch_join.main(["--n", "100", "--distributed", "--shards", "2",
+                          "--device", "cpu"])
+    res = launch_join.main(["--n", "800", "--k", "4", "--pivots", "16",
+                            "--device", "cpu", "--distributed", "--shards",
+                            "3", "--simulate", "--verify"])
+    assert res.indices.shape == (800, 4)
+    # on map coordinates the sharded megastep carries the K-G routes'
+    # float32 selection (ROADMAP C15), so the OSM run is not verified
+    res = launch_join.main(["--dataset", "osm", "--n", "800", "--k", "4",
+                            "--pivots", "16", "--device", "cpu",
+                            "--distributed", "--shards", "3", "--simulate"])
+    assert res.indices.shape == (800, 4)
 
 
 def test_launch_join_verify_catches_a_near_miss():

@@ -882,3 +882,99 @@ def test_metric_oracle_small_tile_same_bits(cuda, metric, monkeypatch):
         np.testing.assert_array_equal(i, i0)
     dc, _ = rt.brute_force_knn(r, s, 10, metric=metric, device="cpu")
     np.testing.assert_array_equal(d0, dc)
+
+
+# ---- the mesh (shards simulated on the one card from an explicit list)
+
+def _card_mesh(n, name="shard"):
+    from repro_torch.distributed import make_mesh
+    return make_mesh((n,), (name,), devices=["cuda:0"] * n)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_sharded_megastep_on_card(cuda, n):
+    """The sharded megastep on ``n`` simulated card shards: K-G once per
+    shard a batch, the single-device engine's distances bit for bit; ids
+    may differ only among exactly tied distances (Forest-like rows hold
+    duplicates, and which of a tie's rows a schedule visits past θ
+    depends on the tiles)."""
+    s = rt.forest_like(20_000, 10, seed=90)
+    r = rt.forest_like(1_500, 10, seed=91)
+    cfg = rt.JoinConfig(k=10, n_pivots=64)
+    idx = rt.build_index(s, cfg, device=cuda)
+    want = rt.knn_join_batched(r, index=idx, batch_size=512, megastep=True,
+                               device=cuda)
+    ops.reset_launch_counts()
+    got = rt.knn_join_batched(r, index=idx, batch_size=512, megastep=True,
+                              mesh=_card_mesh(n), device=cuda)
+    assert ops.launch_counts()["distance_topk_gather"] == \
+        n * got.stats.n_batches
+    np.testing.assert_array_equal(got.distances, want.distances)
+    rows, cols = np.nonzero(got.indices != want.indices)
+    s64, r64 = s.astype(np.float64), r[rows].astype(np.float64)
+    d_got = ((s64[got.indices[rows, cols]] - r64) ** 2).sum(1)
+    d_want = ((s64[want.indices[rows, cols]] - r64) ** 2).sum(1)
+    np.testing.assert_array_equal(d_got, d_want)      # exact ties only
+
+
+def test_sharded_dispatch_makes_no_host_sync(cuda):
+    from repro_torch.core.sharded import ShardedMegastepEngine
+    s = rt.forest_like(20_000, 10, seed=92)
+    q = rt.forest_like(512, 10, seed=93)
+    cfg = rt.JoinConfig(k=10, n_pivots=64)
+    eng = ShardedMegastepEngine(rt.build_index(s, cfg, device=cuda), cfg,
+                                mesh=_card_mesh(4), replication=2)
+    want = eng.join_batch(q)
+    qd, nv = eng.enqueue(q)
+    warm = eng.join_batch_device(qd, nv)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step = eng.join_batch_device(qd, nv)
+        handle = eng.dispatch(q)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(a, b) for a, b in zip(step, warm))
+    d, i = eng.finalize(handle)
+    np.testing.assert_array_equal(d, want[0])
+    np.testing.assert_array_equal(i, want[1])
+
+
+def test_sharded_int8_on_card(cuda):
+    from repro_torch.quant.engine import ShardedQuantMegastepEngine
+    s = rt.forest_like(20_000, 10, seed=94)
+    r = rt.forest_like(1_000, 10, seed=95)
+    cfg = rt.JoinConfig(k=10, n_pivots=64, quant_slack=118)
+    idx = rt.build_index(s, cfg, quantize="int8", device=cuda)
+    want = rt.QuantMegastepEngine(idx, cfg, device=cuda).join_batch(r)
+    ops.reset_launch_counts()
+    got = ShardedQuantMegastepEngine(idx, cfg,
+                                     mesh=_card_mesh(4)).join_batch(r)
+    assert ops.launch_counts()["quant_coarse_gather"] >= 4
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+def test_shuffle_join_and_phase1_on_card(cuda):
+    """The L2 shuffle reducer runs K-D once a shard, exact against the
+    oracle; distributed_phase1 runs K-A once a shard with the bits of
+    assign_and_summarize."""
+    from repro_torch.core.distributed import (distributed_knn_join,
+                                              distributed_phase1)
+    from repro_torch.core.partition import assign_and_summarize
+    x = rt.forest_like(6_000, 10, seed=96)
+    plan = rt.core.plan_join(x, x, rt.JoinConfig(k=10, n_pivots=64,
+                                                 n_groups=4), device=cuda)
+    ops.reset_launch_counts()
+    got = distributed_knn_join(x, x, plan, _card_mesh(4, "data"),
+                               reducer="shuffle")
+    assert ops.launch_counts()["distance_topk"] == 4
+    bd, _ = rt.brute_force_knn(x, x, 10, device=cuda)
+    np.testing.assert_array_equal(got.distances, bd)
+    piv = plan.index.pivots
+    ops.reset_launch_counts()
+    p1, d1, t1 = distributed_phase1(x, piv, _card_mesh(4, "data"), k=10)
+    assert ops.launch_counts()["assign"] == 4
+    p0, d0, t0 = assign_and_summarize(torch.as_tensor(x, device=cuda), piv,
+                                      k=10)
+    assert torch.equal(p0, p1) and torch.equal(d0, d1)
+    assert torch.equal(t0.knn_dists, t1.knn_dists)

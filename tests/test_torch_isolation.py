@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, its entry points run on the card unless asked for the CPU, and
-the routes it has not ported yet (the mesh, ROADMAP Queue A5) refuse
-loudly."""
+its mesh routes (ROADMAP Queue A5) run on shards simulated from an
+explicit device list."""
+import dataclasses
 import os
 import re
 import subprocess
@@ -32,6 +33,8 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.serve.scheduler, repro_torch.launch.join\n"
         "import repro_torch.obs.export, repro_torch.data\n"
+        "import repro_torch.distributed, repro_torch.core.sharded\n"
+        "import repro_torch.core.distributed, repro_torch.quant.engine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n")
@@ -64,7 +67,10 @@ def _small():
     "sindex_from_arrays", "brute_force_knn", "knn_join",
     "QuantMegastepEngine", "MutableIndex", "Datastore", "init_params",
     "init_cache", "params_from_jax", "BatchedServer", "launch.serve",
-    "hbrj_join", "pbj_join", "select_pivots", "launch.join"])
+    "hbrj_join", "pbj_join", "select_pivots", "launch.join", "make_mesh",
+    "GroupComm", "distributed_knn_join", "distributed_phase1",
+    "ShardedMegastepEngine", "ShardedQuantMegastepEngine",
+    "sharded Datastore", "launch.join --distributed"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises;
     it never carries on silently on the CPU."""
@@ -79,6 +85,14 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
     np_params = {"embed": cpu_params["embed"].float().numpy(),
                  "final_norm": {"scale": np.ones(lm.d_model, np.float32)},
                  "groups": []}
+    from repro_torch.core.distributed import (distributed_knn_join,
+                                              distributed_phase1)
+    from repro_torch.core.sharded import ShardedMegastepEngine
+    from repro_torch.distributed import GroupComm, make_mesh
+    from repro_torch.quant.engine import ShardedQuantMegastepEngine
+    idx_q = rt.build_index(s, cfg, quantize="int8", device="cpu")
+    plan = rt.core.plan_join(r, s, dataclasses.replace(cfg, n_groups=2),
+                             device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
         "build_index": lambda: rt.build_index(s, cfg),
@@ -107,34 +121,65 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         "pbj_join": lambda: rt.pbj_join(r, s, 3, cfg, n_reducers=4),
         "select_pivots": lambda: rt.core.select_pivots(s, 8),
         "launch.join": lambda: launch_join.main(["--n", "200", "--k", "3"]),
+        # a mesh takes the present cards unless given an explicit list
+        "make_mesh": lambda: make_mesh((2,), ("shard",)),
+        "GroupComm": lambda: GroupComm(),
+        "distributed_knn_join": lambda: distributed_knn_join(
+            r, s, plan, make_mesh((2,), ("data",)), reducer="shuffle"),
+        "distributed_phase1": lambda: distributed_phase1(
+            s, plan.index.pivots, make_mesh((2,), ("data",))),
+        "ShardedMegastepEngine": lambda: ShardedMegastepEngine(
+            idx, cfg, n_shards=2),
+        "ShardedQuantMegastepEngine": lambda: ShardedQuantMegastepEngine(
+            idx_q, cfg, n_shards=2),
+        "sharded Datastore": lambda: rt.serve.Datastore.build(
+            s, np.zeros(300), k=3, n_pivots=8, n_shards=2, replication=2),
+        "launch.join --distributed": lambda: launch_join.main(
+            ["--n", "200", "--k", "3", "--distributed", "--shards", "2",
+             "--simulate"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
 
 
-@pytest.mark.parametrize("route,item", [
-    ("sharded stream", "A5"), ("sharded batched", "A5"),
-    ("sharded datastore", "A5"), ("datastore recover_shards", "A5"),
-    ("nbytes per shard", "A5")])
-def test_unported_routes_raise(route, item):
+@pytest.mark.parametrize("route", [
+    "sharded stream", "sharded batched", "sharded datastore",
+    "datastore recover_shards", "nbytes per shard", "launch.join mesh"])
+def test_mesh_routes_run(route):
+    """The mesh routes (ROADMAP Queue A5) run, on shards simulated from an
+    explicit CPU device list, with the single-device distances."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.launch import join as launch_join
     from repro_torch.serve import Datastore
     s, r = _small()
     cfg = rt.JoinConfig(k=3, n_pivots=8, tile_r=16, tile_s=32)
     idx = rt.build_index(s, cfg, device="cpu")
     values = np.arange(s.shape[0]) % 5
-    store = Datastore.build(s, values, k=3, n_pivots=8, device="cpu")
+    mesh = make_mesh((2,), ("shard",), devices=["cpu", "cpu"])
+    d0, _ = MegastepEngine(idx, cfg, device="cpu").join_batch(r)
+    store = Datastore.build(s, values, k=3, n_pivots=8, n_shards=2,
+                            mesh=mesh, device="cpu")
     calls = {
-        "sharded stream": lambda: StreamJoinEngine(idx, cfg, n_shards=2,
-                                                   device="cpu"),
+        "sharded stream": lambda: StreamJoinEngine(
+            idx, cfg, megastep=True, mesh=mesh,
+            device="cpu").join_batch(r)[0],
         "sharded batched": lambda: rt.knn_join_batched(
-            r, index=idx, n_shards=2, megastep=True, device="cpu"),
-        "sharded datastore": lambda: Datastore.build(
-            s, values, k=3, n_pivots=8, n_shards=2, device="cpu"),
-        "datastore recover_shards": lambda: store.recover_shards(),
+            r, index=idx, mesh=mesh, megastep=True, device="cpu").distances,
+        "sharded datastore": lambda: store.retrieve(r)[0],
+        "datastore recover_shards": lambda: (
+            store.retrieve(r), store.recover_shards(wait=True))[0][0],
         "nbytes per shard": lambda: idx.nbytes_resident(n_shards=2),
+        "launch.join mesh": lambda: launch_join.main(
+            ["--n", "300", "--k", "3", "--pivots", "8", "--device", "cpu",
+             "--distributed", "--shards", "2", "--simulate"]),
     }
-    with pytest.raises(NotImplementedError, match=f"Queue {item}"):
-        calls[route]()
+    got = calls[route]()
+    if route == "nbytes per shard":
+        assert 0 < got < idx.nbytes_resident()
+    elif route == "launch.join mesh":
+        assert got.distances.shape == (300, 3)
+    else:
+        assert np.array_equal(got, d0)
 
 
 @pytest.mark.parametrize("field,bad,message", [
