@@ -13,7 +13,8 @@ quantized tier (``build_index(quantize="int8")`` →
 batches, the paper's host-planned one-shot ``knn_join`` on a sample
 of R, the mutable segmented index, and kNN-LM retrieval over a mutable
 ``Datastore`` — the LM serving path at full width (llama3.2-3b in
-bf16 through ``BatchedServer`` with the kNN-LM hook), the paper's §6
+bf16 through ``BatchedServer`` with the kNN-LM hook; the MoE family's
+deepseek-v2-lite-16b with MLA the same way), the paper's §6
 comparison against its baselines (PBJ, H-BRJ) and the deadline-aware
 serving scheduler under load, and checks each against a float64 brute
 force and against each other. Phases:
@@ -29,11 +30,15 @@ force and against each other. Phases:
 4. the serving path, with both kernels' launch counters reset before it
    and read after it (each must be > 0);
 5. the join against the float64 brute force on 2048 sampled queries;
+   the share of queries whose K-G run the certificate could not prove
+   and that re-ran exactly (ROADMAP C15; 0 expected on Forest);
 6. one steady-state ``join_batch_device`` under
    ``torch.cuda.set_sync_debug_mode("error")``, then its step time, and
    the device's busy share (``torch.profiler``) of a steady-state step
    and of a 32-batch ``knn_join_batched``;
-7. K-Q (int8 coarse scan) vs its plain version on one 4096-query
+7. the port's quant tuning table's card cells (``tools/tune_quant.py``;
+   every counted int8 path pins int8 with ``quant_slack``); K-Q (int8
+   coarse scan) vs its plain version on one 4096-query
    bucket, with the schedule and θ the quant engine's stages 1–3 made
    for it and ~1 % of the rows dead: lb bit-equal, positions equal; its
    form and split count, and the share of the live pairs that passed
@@ -117,7 +122,8 @@ force and against each other. Phases:
    against the float64 brute force. Each new phase prints its time;
 18. the mesh, every shard simulated on the one card from an explicit
    device list: ``knn_join_batched(mesh=...)`` over all of R with 2, 4
-   and 8 shards (K-G launched shards × batches times, bitwise phase 4),
+   and 8 shards (K-G launched shards × batches times, bitwise phase 4,
+   ids included on every slot),
    one steady-state sharded ``join_batch_device`` and ``dispatch`` under
    the sync debug mode; the sharded int8 tier on 4 shards (K-Q,
    bitwise phase 8's distances); a sharded ``Datastore`` over phase
@@ -129,19 +135,36 @@ force and against each other. Phases:
    true recall); ``distributed_phase1`` on 8 shards (the bits of
    ``assign_and_summarize``, K-A 8 times); the shuffle join at the §6
    settings on 9 shards in L2 (K-D), L1 and L∞, each bitwise the
-   float64 oracle; the OSM-like rows' misses (ROADMAP C15) of the
-   sharded and the single-device megastep, the same bits; and
+   float64 oracle; 32,768 OSM-like rows through the sharded and the
+   single-device megastep, each bitwise the float64 oracle with the
+   same ids (ROADMAP C15), their exact re-run share printed; the
+   single-device megastep self-join of 581,012 OSM-like rows, its
+   re-run share and the re-run's wall time, a 4,096-query sample
+   bitwise the float64 oracle; and
    ``python -m repro_torch.launch.join --n 581012 --distributed
-   --shards 4 --simulate --verify`` in a subprocess.
+   --shards 4 --simulate --verify`` in a subprocess;
+19. the MoE family: K-F vs its plain version at MLA's shapes (absorbed
+   decode and prefill at d = 576, v = k; expanded prefill at d = 192, v
+   padded) with SDPA beside each; deepseek-v2-lite-16b at full width
+   and depth (27 layers, bf16) through ``BatchedServer`` +
+   ``make_knn_hook`` over phase 14's keys, 8 requests of 512-2,048
+   tokens, batch 8, 16 greedy tokens, counted (K-F 27 times a forward),
+   every retrieval exact, every layer's K-F output of one prefill and
+   one decode step against the plain version, the MoE's dropped share
+   per layer; arctic-480b at full width cut to 2 layers (one prefill, 8
+   decode steps, batch 4, counted, the layer check); the reduced
+   deepseek and arctic on the card and on the CPU with the same
+   weights (logits within 2e-5 + 2e-5·|logit|, tokens equal).
 
 Every time printed stands beside the card's name and power limit. The
 line before the last two is one JSON object with each kernel's launches
-(its main path's plus phase 18's), error, times and bound; the line before the last is the card's name and
+(its main paths' plus phase 18's; K-F's main paths are phases 14 and 19),
+error, times and bound; the line before the last is the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before those lines, with its message on stdout and stderr
 (also without a card, or where the script stands alone, away from the
 repository's ``src/``). Long reports (nvcc's ``ptxas``
-output, the profiles by kernel, phases 16–18's numbers as JSON) go
+output, the profiles by kernel, phases 16–19's numbers as JSON) go
 to ``--out`` (default ``build/chip_smoke/``). Needs one card, no network; imports nothing of
 JAX.
 """
@@ -167,6 +190,7 @@ CAP_ROWS = 65_536           # phase 13: Gaussian rows of the wide shapes
 PAPER_ROWS = 32_768         # phase 16: rows of each §6 self-join (cut
                             # from 65,536 to keep the phase near 90 s)
 PAPER_K, PAPER_REDUCERS, PAPER_PIVOTS = 10, 9, 128   # _three_way's settings
+EXPAND_ROWS = N_ROWS        # phase 16's Forest×2: Forest expanded twice
 SERVE_ROWS, SERVE_REQUESTS = 16, 2000   # phase 17: rows a request, requests
 SCHED_NEW = 8               # phase 14: tokens of the scheduler's wave
 LM_ARCH = "llama3.2-3b"     # phase 14: the LM serving path at full width
@@ -174,6 +198,7 @@ LM_REQUESTS, LM_BATCH, LM_NEW = 16, 8, 32
 LM_PROMPT = (512, 2048)     # prompt lengths, seeded
 LM_STORE_KEYS, LM_STORE_DIM = 1_048_576, 32   # the kNN-LM datastore
 BUCKET = 4096
+C15_SAMPLE = 4096         # phase 18: OSM-like queries held to the oracle
 HOST_ROWS = 65_536        # R sample of the host-planned gather path
 PRUNED_ROWS = 512         # R samples of the pruned and dense reducers
 DENSE_ROWS = 2048
@@ -1149,29 +1174,33 @@ def attention_err(torch, out, ref) -> tuple[float, float]:
 
 
 def attention_case(card, torch, what: str, q, k, v, *, window=None,
-                   library=None) -> dict:
+                   library=None, scale=None, d_v=None) -> dict:
     """K-F vs its plain version on one shape (causal, queries
     right-aligned), both timed, with ``library`` (one PyTorch call of the
-    same function) timed beside them; the bound is the larger of the
-    bytes of q, k, v and o at the HBM rate and the visible pairs'
-    4·d operations at the bf16 tensor-core peak."""
+    same function) timed beside them. ``d_v`` is the width of v the
+    function uses (default all of it): MLA pads v with zeros (expanded
+    form) or takes v = k and keeps the first 512 output columns
+    (absorbed form). The bound is the larger of the bytes of q, k, the
+    used columns of v (none where v is k) and of the kept output at the
+    HBM rate, and the visible pairs' 2·(d + d_v) operations at the bf16
+    tensor-core peak."""
     from repro_torch.kernels import flash_attention as kf
     b, nq, h, d = q.shape
     nk, kvh = k.shape[1], k.shape[2]
-    out = kf.flash_attention_cuda(q, k, v, window=window)
+    d_v = v.shape[-1] if d_v is None else d_v
+    kw = dict(window=window, scale=scale)
+    out = kf.flash_attention_cuda(q, k, v, **kw)
     plan = kf.last_plan
-    ref = kf.flash_attention_plain(q, k, v, window=window)
+    ref = kf.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out.float()).all()),
           f"K-F ({what}): non-finite output")
     err, used = attention_err(torch, out, ref)
     check(used <= 1.0, f"K-F ({what}): {used:.3f} of the limit against the "
           f"plain version")
-    del ref
-    ms = time_ms(lambda: kf.flash_attention_cuda(q, k, v, window=window),
-                 iters=10)
-    plain_ms = time_ms(lambda: kf.flash_attention_plain(q, k, v,
-                                                        window=window),
+    del ref, out
+    ms = time_ms(lambda: kf.flash_attention_cuda(q, k, v, **kw), iters=10)
+    plain_ms = time_ms(lambda: kf.flash_attention_plain(q, k, v, **kw),
                        warmup=1, iters=2)
     lib_ms = None if library is None else time_ms(library, iters=10)
     pos = torch.arange(nq, device=DEV, dtype=torch.float64) + (nk - nq)
@@ -1179,14 +1208,17 @@ def attention_case(card, torch, what: str, q, k, v, *, window=None,
         torch.clamp(pos - window + 1, min=0)
     pairs = float(b * h * torch.clamp(torch.minimum(pos, torch.full_like(
         pos, nk - 1)) - lo + 1, min=0).sum())
-    n_bytes = float(q.element_size()) * (2 * q.numel() + k.numel()
-                                         + v.numel())
+    n_bytes = float(q.element_size()) * (
+        q.numel() + b * nq * h * d_v + k.numel()
+        + (0 if v is k else b * nk * kvh * d_v))
     t_b = n_bytes / H100_HBM_BYTES_S * 1e3
-    t_f = 4.0 * d * pairs / H100_BF16_FLOPS_S * 1e3
+    t_f = 2.0 * (d + d_v) * pairs / H100_BF16_FLOPS_S * 1e3
     b_ms, b_by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
     # the tensor-core form does 2d operations per pair for q·k and 3 x 2d
-    # for the exact p·v (p split in three bf16 terms): its own floor
-    floor_ms = (max(t_b, 2.0 * t_f) if plan.route == "mma" else b_ms)
+    # for the exact p·v over all d columns of v (p split in three bf16
+    # terms): its own floor
+    floor_ms = (max(t_b, 8.0 * d * pairs / H100_BF16_FLOPS_S * 1e3)
+                if plan.route == "mma" else b_ms)
     print(f"[{card}] K-F flash attention ({what}) q {tuple(q.shape)} kv "
           f"{tuple(k.shape)} {str(q.dtype).removeprefix('torch.')}"
           + ("" if window is None else f" window {window}")
@@ -1195,8 +1227,9 @@ def attention_case(card, torch, what: str, q, k, v, *, window=None,
           f"|err| {err:.3e} ({used:.3f} of the limit) vs the plain "
           f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           + ("" if lib_ms is None else f"SDPA {lib_ms:.4f} ms, ")
-          + f"bound {b_ms:.4f} ms ({b_by}: {pairs:.4e} visible pairs x 4d "
-          f"bf16 operations, {n_bytes:.4e} bytes), this design's floor "
+          + f"bound {b_ms:.4f} ms ({b_by}: {pairs:.4e} visible pairs x "
+          f"2(d + d_v) = {2 * (d + d_v)} bf16 operations, {n_bytes:.4e} "
+          f"bytes), this design's floor "
           f"{floor_ms:.4f} ms", flush=True)
     return dict(shape=what, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
@@ -1743,8 +1776,8 @@ def phase_paper(card, torch, rt, launches) -> dict:
     self-joins of ``PAPER_ROWS`` Forest-like and OSM-like rows, each
     counted and held bitwise against the float64 oracle; one L1 and one
     L∞ ``knn_join`` of the Forest rows against the new oracle; and
-    ``launch.join --expand 2 --verify`` over 1,162,024 rows (Forest×2)
-    in a subprocess."""
+    ``launch.join --expand 2 --verify`` over 2 × ``EXPAND_ROWS`` rows
+    (Forest×2) in a subprocess."""
     import os
     import numpy as np
     from repro_torch.kernels import ops
@@ -1821,7 +1854,7 @@ def phase_paper(card, torch, rt, launches) -> dict:
               f"float64 oracle's ({t_oracle:.3f} s), ids equal {same:.6f}; "
               f"launches {counts}", flush=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.join", "--dataset",
-           "forest", "--n", str(N_ROWS), "--expand", "2", "--k", "10",
+           "forest", "--n", str(EXPAND_ROWS), "--expand", "2", "--k", "10",
            "--pivots", "256", "--groups", "9", "--verify"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
@@ -1831,7 +1864,7 @@ def phase_paper(card, torch, rt, launches) -> dict:
     for line in proc.stdout.strip().splitlines():
         print(f"[{card}] launch.join: {line}", flush=True)
     check(proc.returncode == 0
-          and f"n={2 * N_ROWS} " in proc.stdout
+          and f"n={2 * EXPAND_ROWS} " in proc.stdout
           and "verified vs brute force on 500 samples: True" in proc.stdout,
           f"launch.join --expand 2 --verify failed (rc {proc.returncode}): "
           f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
@@ -2063,6 +2096,51 @@ def true_recall(torch, keys64, kn64, queries, ids, k: int):
                      for a, b in zip(ids, true)])
 
 
+def osm_rerun_at_scale(card, torch, rt, cfg) -> dict:
+    """C15's exact re-run at Forest's scale: the single-device megastep
+    self-join of ``N_ROWS`` OSM-like rows at phase 4's config, the share
+    of its queries whose K-G run was not certified, the wall time of
+    their re-run (``megastep.rerun_scheduled``, over each query's
+    scheduled tiles), and a ``C15_SAMPLE``-query sample bitwise the
+    float64 oracle over every row."""
+    import numpy as np
+    from repro_torch.core import megastep
+    x = rt.osm_like(N_ROWS, seed=17)
+    idx = rt.build_index(x, cfg, device=DEV)
+    rerun = megastep.rerun_scheduled
+    spent = []
+
+    def timed(*args, **kw):
+        t = time.perf_counter()
+        got = rerun(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return got
+
+    megastep.rerun_scheduled = timed
+    try:
+        t0 = time.perf_counter()
+        res = rt.knn_join_batched(x, index=idx, batch_size=BUCKET,
+                                  megastep=True, device=DEV)
+        wall = time.perf_counter() - t0
+    finally:
+        megastep.rerun_scheduled = rerun
+    sample = np.random.default_rng(17).choice(N_ROWS, C15_SAMPLE,
+                                              replace=False)
+    bd, _ = rt.brute_force_knn(x[sample], x, cfg.k, device=DEV)
+    miss = int((res.distances[sample] != bd).any(1).sum())
+    check(miss == 0, f"C15 at {N_ROWS} OSM-like rows: {miss} of "
+          f"{C15_SAMPLE} sampled queries miss a neighbour")
+    n_re = res.stats.n_exact_rerun
+    print(f"[{card}] mesh: OSM-like self-join at {N_ROWS} rows (C15, "
+          f"phase 4's config, single device): wall {wall:.3f} s, exact "
+          f"re-runs {n_re} ({n_re / N_ROWS:.4f} of the queries) in "
+          f"{sum(spent):.3f} s over {len(spent)} batches; {C15_SAMPLE} "
+          f"sampled queries bitwise the float64 oracle", flush=True)
+    return dict(rows=N_ROWS, wall_s=wall, reruns=n_re,
+                rerun_share=n_re / N_ROWS, rerun_s=sum(spent), misses=miss)
+
+
 def phase_mesh(card, torch, rt, launches, *, s_np, r_np, cfg, idx, res,
                idx_q, cfg_q, res_q, pivots, paper) -> dict:
     """18. The mesh, every shard simulated on the one card from an
@@ -2110,16 +2188,20 @@ def phase_mesh(card, torch, rt, launches, *, s_np, r_np, cfg, idx, res,
         check_same_distances(f"sharded megastep n={n} vs phase 4",
                              got.distances, res.distances, got.indices,
                              res.indices, r_np, s_np)
+        # C17: the ids too, on every slot (ties included)
+        off = int((got.indices != res.indices).sum())
+        check(off == 0, f"sharded megastep n={n}: {off} ids differ from "
+                        f"phase 4's")
         per = idx.shard_packing(n, cfg.tile_s).nbytes_per_shard()
         out[path] = dict(wall_s=wall, queries_s=N_ROWS / wall,
-                         nbytes_per_shard=per.tolist(), launches=counts)
+                         nbytes_per_shard=per.tolist(), launches=counts,
+                         exact_reruns=got.stats.n_exact_rerun)
         print(f"[{card}] mesh: sharded megastep n={n} over {N_ROWS} "
               f"queries: {wall:.3f} s = {N_ROWS / wall:.1f} queries/s "
               f"(build included), {batches} batches, K-G {n} x {batches}; "
-              f"bitwise phase 4's distances, ids equal "
-              f"{float((got.indices == res.indices).mean()):.6f} (rest "
-              f"ties); bytes per shard {per.tolist()}; launches {counts}",
-              flush=True)
+              f"bitwise phase 4's distances and ids (every slot); exact "
+              f"re-runs (C15) {got.stats.n_exact_rerun}; bytes per shard "
+              f"{per.tolist()}; launches {counts}", flush=True)
     eng = ShardedMegastepEngine(idx, cfg, mesh=mesh_of(4))
     qd, nv = eng.enqueue(r_np[:BUCKET])
     warm = eng.join_batch_device(qd, nv)
@@ -2316,25 +2398,38 @@ def phase_mesh(card, torch, rt, launches, *, s_np, r_np, cfg, idx, res,
               f"{st.replicas_s / st.n_s:.4f}; bitwise the float64 oracle, "
               f"ids equal {same:.6f}; launches {counts}", flush=True)
 
-    # ---- C15 reported: OSM-like misses, sharded and single-device
+    # ---- C15: OSM-like rows exact, sharded and single-device
     x = rt.osm_like(PAPER_ROWS, seed=16)
     bd, _ = rt.brute_force_knn(x, x, PAPER_K, device=DEV)
     ocfg = rt.JoinConfig(k=PAPER_K, n_pivots=PAPER_PIVOTS)
     oidx = rt.build_index(x, ocfg, device=DEV)
+    t0 = time.perf_counter()
     one = rt.knn_join_batched(x, index=oidx, batch_size=BUCKET,
                               megastep=True, device=DEV)
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
     sh = rt.knn_join_batched(x, index=oidx, batch_size=BUCKET,
                              megastep=True, mesh=mesh_of(4), device=DEV)
+    t_sh = time.perf_counter() - t0
     miss1 = int((one.distances != bd).any(1).sum())
     miss4 = int((sh.distances != bd).any(1).sum())
-    check(miss1 == miss4 and np.array_equal(one.distances, sh.distances),
+    check(miss1 == 0 and miss4 == 0,
           f"C15 on OSM-like rows: single-device megastep misses {miss1} "
-          f"rows, the sharded one {miss4}; the routes' bits differ")
-    out["mesh_c15"] = dict(single=miss1, sharded=miss4)
+          f"rows, the sharded one {miss4}")
+    check(np.array_equal(one.indices, sh.indices),
+          "C15/C17 on OSM-like rows: sharded ids differ from one device's")
+    out["mesh_c15"] = dict(single=miss1, sharded=miss4,
+                           reruns_single=one.stats.n_exact_rerun,
+                           reruns_sharded=sh.stats.n_exact_rerun,
+                           wall_single_s=t_one, wall_sharded_s=t_sh)
     print(f"[{card}] mesh: OSM-like self-join ({PAPER_ROWS} rows, C15): "
           f"rows missing a neighbour vs the float64 oracle: single-device "
-          f"megastep {miss1}, sharded (n=4) {miss4} (the same bits)",
+          f"megastep {miss1} ({t_one:.3f} s), sharded (n=4) {miss4} "
+          f"({t_sh:.3f} s), ids equal; exact re-runs of uncertified K-G runs "
+          f"{one.stats.n_exact_rerun} / {sh.stats.n_exact_rerun} "
+          f"({one.stats.n_exact_rerun / PAPER_ROWS:.4f} of the queries)",
           flush=True)
+    out["mesh_c15_large"] = osm_rerun_at_scale(card, torch, rt, cfg)
 
     # ---- the launcher
     cmd = [sys.executable, "-m", "repro_torch.launch.join", "--n",
@@ -2354,6 +2449,383 @@ def phase_mesh(card, torch, rt, launches, *, s_np, r_np, cfg, idx, res,
     print(f"[{card}] phase 18 (the mesh) took "
           f"{time.perf_counter() - t_phase:.3f} s", flush=True)
     return out
+
+
+MOE_ARCH = "deepseek-v2-lite-16b"   # phase 19: MoE + MLA, full width and depth
+# phase 14's 16 requests x 32 tokens, cut to one wave of 8 x 16
+MOE_REQUESTS, MOE_BATCH, MOE_NEW = 8, 8, 16
+# arctic-480b at full width, its 35 layers cut to 2 (27.3e9 parameters)
+ARCTIC_LAYERS, ARCTIC_BATCH, ARCTIC_PROMPT, ARCTIC_NEW = 2, 4, 512, 8
+
+
+def moe_drops(log, n_moe: int, blocks: int) -> list:
+    """Per MoE layer, the dropped share of routed (token, choice) pairs of
+    ``blocks`` consecutive blocks a layer (the MoE's ``drop_log``)."""
+    out = []
+    for j in range(n_moe):
+        part = log[j * blocks:(j + 1) * blocks]
+        kept, routed = sum(a for a, _ in part), sum(b for _, b in part)
+        out.append(1.0 - kept / routed)
+    return out
+
+
+def attention_err_terms(torch, out, ref, terms) -> tuple:
+    """K-F's bf16 output against its plain version's where an output may
+    cancel to near 0 (MLA's latent, a mean of O(1) values): both sum in
+    float32 in another order, so they agree within one bf16 rounding of
+    the larger output plus 2⁻¹⁴ of ``terms`` = Σ p·|v| (the plain version
+    over |v|), the scale of what was summed. Returns (max |err|, the share
+    of this limit used, the share of ``attention_err``'s limit used, and
+    |out|, |ref|, terms at the element farthest past the latter)."""
+    a, b = out.float(), ref.float()
+    diff = (a - b).abs()
+    big = torch.maximum(a.abs(), b.abs())
+    old = diff / (2.0 ** -7 * big + 1e-6)
+    lim = 2.0 ** -7 * big + 2.0 ** -14 * terms.float() + 1e-6
+    j = int(torch.argmax(old))
+    return (float(diff.max()), float((diff / lim).max()),
+            float(old.flatten()[j]), float(a.abs().flatten()[j]),
+            float(b.abs().flatten()[j]), float(terms.flatten()[j]))
+
+
+def layer_check(card, torch, cfg, params, opts, pad, what: str) -> float:
+    """Every layer's K-F output of one prefill of ``pad`` and one decode
+    step against the plain version on the same inputs (the limit of
+    ``attention_err_terms``); returns the worst share of the limit."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache
+    from repro_torch.serve import ServeConfig, make_serve_step
+    errs = []
+    flash = ops.flash_attention
+
+    def checking(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        errs.append(attention_err_terms(
+            torch, out, kf.flash_attention_plain(q, k, v, **kw),
+            kf.flash_attention_plain(q, k, v.abs(), **kw)))
+        return out
+
+    prefill_step, decode_step = make_serve_step(cfg, ServeConfig(), opts)
+    ops.flash_attention = checking
+    try:
+        cache = init_cache(cfg, pad.shape[0], pad.shape[1] + 2, opts,
+                           device=DEV)
+        logits, cache = prefill_step(params, torch.as_tensor(pad, device=DEV),
+                                     cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        decode_step(params, tok[:, None], cache)
+    finally:
+        ops.flash_attention = flash
+    torch.cuda.synchronize()
+    check(len(errs) == 2 * cfg.n_layers,
+          f"{what} layer check: {len(errs)} K-F calls, expected "
+          f"{2 * cfg.n_layers}")
+    worst = max(e[1] for e in errs)
+    j = max(range(len(errs)), key=lambda i: errs[i][2])
+    far = errs[j]
+    print(f"[{card}] {what} layer check: all {cfg.n_layers} layers' K-F "
+          f"outputs of one prefill (b={pad.shape[0]}, {pad.shape[1]} tokens) "
+          f"and one decode step vs the plain version on the same inputs: max "
+          f"|err| {max(e[0] for e in errs):.3e}, {worst:.3f} of the limit "
+          f"(one bf16 rounding + 2^-14 of sum p|v|); against one bf16 "
+          f"rounding alone at most {far[2]:.3f} (call {j} of {len(errs)}: "
+          f"|out| {far[3]:.3e}, |plain| {far[4]:.3e}, sum p|v| "
+          f"{far[5]:.3e})", flush=True)
+    check(worst <= 1.0, f"{what} layer check: a layer's K-F output is "
+          f"{worst:.3f} of the limit off its plain version")
+    return worst
+
+
+def phase_moe(card, torch, rt, launches) -> tuple:
+    """19. The MoE family on the card: MLA on K-F and the MoE FFN. (a) K-F
+    vs its plain version at MLA's shapes — absorbed decode and prefill
+    (MQA, d = kv_lora + rope = 576, v = k) and the expanded prefill (d =
+    192, v zero-padded from 128) — with SDPA timed beside each; (b)
+    deepseek-v2-lite-16b at full width and depth (27 layers, bf16, seeded
+    weights) through ``BatchedServer`` + ``make_knn_hook`` over phase 14's
+    1,048,576 × 32 keys: 8 requests of 512-2,048 tokens, batch 8, 16
+    greedy tokens, counted (K-F 27 times a forward), every retrieval exact,
+    every layer's K-F output of one prefill and one decode step against
+    the plain version, the MoE's dropped share per layer; (c) arctic-480b
+    at full width with its depth cut to 2 layers: one prefill and 8 decode
+    steps at batch 4, counted, the layer check; (d) the reduced deepseek
+    and arctic on the card and on the CPU with the same weights: logits
+    within 2e-5 + 2e-5·|logit|, greedy tokens equal. Returns (K-F's cases,
+    the phase's numbers)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import (ModelOptions, count_params, forward,
+                                    init_params, moe)
+    from repro_torch.serve import (BatchedServer, Datastore, KnnLMConfig,
+                                   ServeConfig, make_knn_hook)
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = configs.get_arch(MOE_ARCH)
+    c = cfg.mla
+    h, lat, rope = cfg.n_heads, c.kv_lora_rank, c.rope_head_dim
+    dq = c.qk_nope_head_dim + rope
+    scale = dq ** -0.5
+
+    # ---- (a) K-F at MLA's shapes
+    gen = torch.Generator(device=DEV).manual_seed(19)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
+
+    def sdpa(q, k, v, **kw):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale, enable_gqa=True, **kw)
+
+    n = LM_PROMPT[1]
+    nk = n + MOE_NEW
+    q, kv = rand(MOE_BATCH, 1, h, lat + rope), rand(MOE_BATCH, nk, 1,
+                                                   lat + rope)
+    cases = [attention_case(
+        card, torch, f"MLA absorbed decode b={MOE_BATCH} nq=1 nk={nk} "
+        f"h={h} kvh=1 d={lat + rope}", q, kv, kv, scale=scale, d_v=lat,
+        library=sdpa(q, kv, kv))]
+    q, kv = rand(MOE_BATCH, n, h, lat + rope), rand(MOE_BATCH, n, 1,
+                                                   lat + rope)
+    cases.append(attention_case(
+        card, torch, f"MLA absorbed prefill b={MOE_BATCH} nq=nk={n} h={h} "
+        f"kvh=1 d={lat + rope}", q, kv, kv, scale=scale, d_v=lat,
+        library=sdpa(q, kv, kv, is_causal=True)))
+    del q, kv
+    q, k = rand(2, n, h, dq), rand(2, n, h, dq)
+    v = F.pad(rand(2, n, h, c.v_head_dim), (0, dq - c.v_head_dim))
+    cases.append(attention_case(
+        card, torch, f"MLA expanded prefill b=2 nq=nk={n} h={h} d={dq} (v "
+        f"padded from {c.v_head_dim})", q, k, v, scale=scale,
+        d_v=c.v_head_dim, library=sdpa(q, k, v, is_causal=True)))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- (b) deepseek-v2-lite-16b serving with the kNN-LM hook, counted
+    opts = ModelOptions(dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         opts, device=DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = count_params(params)
+    rng = np.random.default_rng(14)          # phase 14's keys
+    keys = rng.standard_normal((LM_STORE_KEYS, LM_STORE_DIM),
+                               dtype=np.float32)
+    vals = rng.integers(0, cfg.vocab, LM_STORE_KEYS).astype(np.int32)
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(
+        LM_PROMPT[0], LM_PROMPT[1] + 1))).astype(np.int32)
+        for _ in range(MOE_REQUESTS)]
+    kcfg = KnnLMConfig(lam=0.2, tau=50.0, k=8)
+    begin_path(ops, "moe_serve")
+    store = Datastore.build(keys, vals, k=8, n_pivots=128, n_groups=8,
+                            device=DEV)
+    retrieved = []
+    retrieve = store.retrieve
+
+    def recording_retrieve(queries, k=None, **kw):
+        d, ids, values = retrieve(queries, k, **kw)
+        retrieved.append((np.array(queries), d, ids))
+        return d, ids, values
+
+    store.retrieve = recording_retrieve
+
+    def timed(fn, into):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            return res
+        return run
+
+    prefill_ms, decode_ms = [], []
+    srv = BatchedServer(cfg, ServeConfig(batch=MOE_BATCH), params, opts,
+                        logits_hook=make_knn_hook(store, kcfg, cfg.vocab))
+    srv.prefill_step = timed(srv.prefill_step, prefill_ms)
+    srv.decode_step = timed(srv.decode_step, decode_ms)
+    moe.drop_log = []
+    try:
+        t0 = time.perf_counter()
+        outs = srv.generate(prompts, max_new_tokens=MOE_NEW)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        log = moe.drop_log
+    finally:
+        moe.drop_log = None
+    counts = launches["moe_serve"] = end_path(ops)
+    peak = torch.cuda.max_memory_allocated()
+    want_fa = cfg.n_layers * (MOE_NEW + 1)
+    check(counts["flash_attention"] == want_fa,
+          f"MoE serving: K-F launched {counts['flash_attention']} times, "
+          f"expected {cfg.n_layers} layers x {MOE_NEW + 1} forwards = "
+          f"{want_fa}")
+    check(counts["distance_topk_gather"] >= MOE_NEW and counts["assign"] > 0,
+          f"MoE serving: K-G must launch once a decode step at least and K-A "
+          f"in the Datastore build: {counts}")
+    check(len(outs) == MOE_REQUESTS and all(
+        o.shape == (MOE_NEW,) and ((o >= 0) & (o < cfg.vocab)).all()
+        for o in outs), "MoE serving: malformed generations")
+    check(len(retrieved) == MOE_NEW,
+          f"MoE serving: {len(retrieved)} retrievals for {MOE_NEW} steps")
+    keys64 = torch.as_tensor(keys, device=DEV).double()
+    kn64 = (keys64 * keys64).sum(1)
+    for i, (qr, d, ids) in enumerate(retrieved):
+        check_retrieval(card, torch, f"MoE decode step {i} retrieval", qr,
+                        keys64, kn64, d, ids, kcfg.k)
+    del keys64, kn64
+    tmax = max(len(p) for p in prompts)
+    n_tok = MOE_BATCH * tmax
+    chunks = n_tok // 4096 if n_tok > 4096 and n_tok % 4096 == 0 else 1
+    n_moe = cfg.n_layers - cfg.moe.first_dense
+    check(len(log) == n_moe * (chunks + MOE_NEW),
+          f"MoE serving: {len(log)} routed blocks, expected {n_moe} x "
+          f"({chunks} + {MOE_NEW})")
+    drop_pre = moe_drops(log, n_moe, chunks)
+    drop_dec = [float(np.mean(x)) for x in zip(*(
+        moe_drops(log[n_moe * (chunks + j):], n_moe, 1)
+        for j in range(MOE_NEW)))]
+    tps = MOE_REQUESTS * MOE_NEW / t_gen
+    mo = cfg.moe
+    dec_cap = max(1, int(mo.top_k * MOE_BATCH * mo.capacity_factor
+                         / mo.n_experts))
+    print(f"[{card}] MoE serving {MOE_ARCH} (bf16, {n_params} parameters, "
+          f"{cfg.n_layers} layers, MLA on K-F, init {t_init:.3f} s): "
+          f"{MOE_REQUESTS} requests of {min(map(len, prompts))}-{tmax} "
+          f"prompt tokens, batch {MOE_BATCH}, {MOE_NEW} greedy tokens each in "
+          f"{t_gen:.3f} s = {tps:.1f} tokens/s with the kNN-LM hook over "
+          f"{LM_STORE_KEYS} keys; prefill {prefill_ms[0]:.3f} ms; decode ms "
+          f"per step median {float(np.median(decode_ms)):.3f}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; launches {counts}; every retrieval "
+          f"({len(retrieved)}) exact vs the float64 brute force", flush=True)
+    print(f"[{card}] MoE dropped share per MoE layer (capacity factor "
+          f"{cfg.moe.capacity_factor}): prefill ({n_tok} tokens, {chunks} "
+          f"routed block(s) a layer) "
+          + ", ".join(f"{x:.4f}" for x in drop_pre) + "; decode (batch "
+          f"{MOE_BATCH}, cap {dec_cap}; mean over {MOE_NEW} steps) "
+          + ", ".join(f"{x:.4f}" for x in drop_dec), flush=True)
+    pad = np.zeros((MOE_BATCH, tmax), np.int32)
+    for r, p in enumerate(prompts):
+        pad[r, tmax - len(p):] = p
+    worst = layer_check(card, torch, cfg, params, opts, pad, MOE_ARCH)
+    out["moe_serve"] = dict(
+        arch=MOE_ARCH, params=n_params, init_s=t_init, tokens_per_s=tps,
+        prefill_ms=prefill_ms, decode_ms_median=float(np.median(decode_ms)),
+        decode_ms=decode_ms, peak_bytes=peak, launches=counts,
+        dropped_prefill=drop_pre, dropped_decode=drop_dec,
+        layer_check_worst=worst)
+    store.retrieve = retrieve
+    del params, srv, store
+    torch.cuda.empty_cache()
+
+    # ---- (c) arctic-480b at full width, 2 layers
+    cfg_a = dataclasses.replace(configs.get_arch("arctic-480b"),
+                                n_layers=ARCTIC_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg_a, torch.Generator(device=DEV).manual_seed(0),
+                         opts, device=DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = count_params(params)
+    init_peak = torch.cuda.max_memory_allocated()
+    prompts = [rng.integers(0, cfg_a.vocab, ARCTIC_PROMPT).astype(np.int32)
+               for _ in range(ARCTIC_BATCH)]
+    begin_path(ops, "moe_arctic")
+    moe.drop_log = []
+    try:
+        t0 = time.perf_counter()
+        outs = BatchedServer(cfg_a, ServeConfig(batch=ARCTIC_BATCH), params,
+                             opts).generate(prompts,
+                                            max_new_tokens=ARCTIC_NEW)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        log = moe.drop_log
+    finally:
+        moe.drop_log = None
+    counts = launches["moe_arctic"] = end_path(ops)
+    peak = torch.cuda.max_memory_allocated()
+    want_fa = ARCTIC_LAYERS * (ARCTIC_NEW + 1)
+    check(counts["flash_attention"] == want_fa,
+          f"arctic: K-F launched {counts['flash_attention']} times, expected "
+          f"{want_fa}")
+    check(all(o.shape == (ARCTIC_NEW,) and ((o >= 0) & (o < cfg_a.vocab))
+              .all() for o in outs), "arctic: malformed generations")
+    drop_pre = moe_drops(log, ARCTIC_LAYERS, 1)
+    drop_dec = [float(np.mean(x)) for x in zip(*(
+        moe_drops(log[ARCTIC_LAYERS * (1 + j):], ARCTIC_LAYERS, 1)
+        for j in range(ARCTIC_NEW)))]
+    pad = np.stack(prompts)
+    worst = layer_check(card, torch, cfg_a, params, opts, pad,
+                        "arctic-480b (2 layers)")
+    print(f"[{card}] arctic-480b at full width, {ARCTIC_LAYERS} of 35 layers "
+          f"(bf16, {n_params} parameters, init {t_init:.3f} s, init peak "
+          f"{init_peak / 2 ** 30:.3f} GiB): {ARCTIC_BATCH} requests of "
+          f"{ARCTIC_PROMPT} tokens, one prefill and {ARCTIC_NEW} decode "
+          f"steps in {t_gen:.3f} s; peak memory {peak / 2 ** 30:.3f} GiB; "
+          f"K-F GQA {cfg_a.n_heads}/{cfg_a.n_kv_heads} heads, "
+          f"{cfg_a.moe.n_experts} experts top-{cfg_a.moe.top_k} beside the "
+          f"dense residual; dropped share prefill "
+          + ", ".join(f"{x:.4f}" for x in drop_pre) + ", decode "
+          + ", ".join(f"{x:.4f}" for x in drop_dec)
+          + f"; launches {counts}", flush=True)
+    out["moe_arctic"] = dict(
+        params=n_params, init_s=t_init, init_peak_bytes=init_peak,
+        wall_s=t_gen, peak_bytes=peak, launches=counts,
+        dropped_prefill=drop_pre, dropped_decode=drop_dec,
+        layer_check_worst=worst)
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- (d) the reduced models: card vs CPU, the same weights
+    opts32 = ModelOptions(dtype=torch.float32)
+
+    def to_dev(tree):
+        if isinstance(tree, dict):
+            return {key: to_dev(val) for key, val in tree.items()}
+        if isinstance(tree, list):
+            return [to_dev(val) for val in tree]
+        return tree.to(DEV)
+
+    for arch in (MOE_ARCH, "arctic-480b"):
+        cfg_r = configs.get_reduced(arch)
+        cpu_params = init_params(cfg_r, torch.Generator().manual_seed(2),
+                                 opts32, device="cpu")
+        dev_params = to_dev(cpu_params)
+        toks = torch.as_tensor(rng.integers(0, cfg_r.vocab, (4, 300)))
+        lg_cpu, _ = forward(cpu_params, cfg_r, toks, opts=opts32)
+        lg_dev, _ = forward(dev_params, cfg_r, toks.to(DEV), opts=opts32)
+        lg_dev = lg_dev.cpu()
+        diff = float((lg_dev - lg_cpu).abs().max())
+        check(bool(((lg_dev - lg_cpu).abs() <= 2e-5 + 2e-5 * lg_cpu.abs())
+                   .all()), f"reduced {arch}: card logits off the CPU's by "
+              f"{diff:.3e}, past 2e-5 + 2e-5·|logit|")
+        small = [rng.integers(0, cfg_r.vocab, int(m)).astype(np.int32)
+                 for m in (5, 130, 3, 260, 40)]
+        got = {where: BatchedServer(cfg_r, ServeConfig(batch=2), p,
+                                    opts32).generate(small, max_new_tokens=8)
+               for where, p in (("cpu", cpu_params), ("card", dev_params))}
+        check(all(np.array_equal(a, b)
+                  for a, b in zip(got["cpu"], got["card"])),
+              f"reduced {arch}: greedy tokens differ between card and CPU")
+        out[f"reduced_{arch}"] = dict(max_abs_logit_diff=diff)
+        print(f"[{card}] reduced {arch} (fp32, {count_params(cpu_params)} "
+              f"parameters): card vs CPU logits over 4 x 300 tokens max "
+              f"|diff| {diff:.3e} (limit 2e-5 + 2e-5·|logit|); greedy tokens "
+              f"of 5 requests (batch 2, 8 tokens, through the decode cache) "
+              f"equal", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 19 (MoE + MLA) {out['phase_s']:.3f} s",
+          flush=True)
+    return cases, out
 
 
 def main(argv=None) -> int:
@@ -2427,7 +2899,9 @@ def main(argv=None) -> int:
     steps = res.stats.n_batches
     print(f"[{card}] slice: build_index {t_build:.3f} s, join {t_join:.3f} s "
           f"over {N_ROWS} queries = {N_ROWS / t_join:.1f} queries/s, "
-          f"{steps} megasteps, launches {launches['megastep']}", flush=True)
+          f"{steps} megasteps, launches {launches['megastep']}; exact "
+          f"re-runs of uncertified K-G runs (C15) {res.stats.n_exact_rerun} "
+          f"({res.stats.n_exact_rerun / N_ROWS:.6f})", flush=True)
     check(launches["megastep"]["assign"] > 0
           and launches["megastep"]["distance_topk_gather"] > 0,
           f"a kernel of the megastep path was never launched: "
@@ -2467,6 +2941,17 @@ def main(argv=None) -> int:
     # ---- 7. K-Q against its plain version. An explicit shortlist slack
     # pins the engine to int8 (no tuning-table cell can bypass K-Q):
     # mp = pow2(k + 118) = 128, the auto value at k = 10
+    from repro_torch.quant import autotune
+    cells = {key: val for key, val in autotune.default_table()
+             .entries.items() if key.startswith("cuda|")}
+    print(f"[{card}] quant tuning table ({autotune.default_table_path()}, "
+          f"tools/tune_quant.py; every counted int8 path pins int8 with "
+          f"quant_slack): " + ("; ".join(
+              f"{key} {val.mode} mp {val.mp or '-'}, int8 "
+              f"{val.int8_batch_s * 1e3:.3f} ms, fp32 "
+              f"{val.fp32_batch_s * 1e3:.3f} ms a 256-query batch"
+              for key, val in sorted(cells.items())) or "no cuda cell"),
+          flush=True)
     cfg_q = dataclasses.replace(cfg, quant_slack=118, reducer="gather")
     t0 = time.perf_counter()
     idx_q = rt.build_index(s_np, cfg_q, quantize="int8", device=DEV)
@@ -2547,6 +3032,7 @@ def main(argv=None) -> int:
           f"over {HOST_ROWS} queries: {t_host:.3f} s with planning = "
           f"{HOST_ROWS / t_host:.1f} queries/s, replicas "
           f"{st.replicas_s}, tile selectivity {st.tile_selectivity:.4f}, "
+          f"exact re-runs (C15) {st.n_exact_rerun}, "
           f"launches {launches['host_planned']}", flush=True)
     check(launches["host_planned"]["assign"] > 0
           and launches["host_planned"]["distance_topk_gather"] > 0,
@@ -2613,18 +3099,25 @@ def main(argv=None) -> int:
         check(sum(launches[p][name] for p in mesh_paths) > 0,
               f"the mesh paths never launched {name}")
 
-    owner = {"assign": "megastep", "distance_topk_gather": "megastep",
-             "quant_coarse_gather": "quantized", "distance_topk": "retrieval",
-             "flash_attention": "lm_serve"}
+    # ---- 19. the MoE family: MLA on K-F, the MoE FFN, at full width
+    mla_cases, moe_run = phase_moe(card, torch, rt, launches)
+    (out_dir / "phase_19.json").write_text(json.dumps(
+        dict(moe_run, kf_cases=mla_cases)))
+
+    owner = {"assign": ("megastep",), "distance_topk_gather": ("megastep",),
+             "quant_coarse_gather": ("quantized",),
+             "distance_topk": ("retrieval",),
+             "flash_attention": ("lm_serve", "moe_serve", "moe_arctic")}
     for row in rows:
         if row["name"] in caps:
             row["cap_shapes"] = caps[row["name"]]
         if row["name"] == "assign":
             row["path_shapes"] = assign_paths
-        # the main path's launches, plus the mesh paths' (phase 18)
-        row["launches"] = (launches[owner[row["name"]]][row["name"]]
-                           + sum(launches[p][row["name"]]
-                                 for p in mesh_paths))
+        if row["name"] == "flash_attention":
+            row["other_shapes"] += mla_cases
+        # the main paths' launches, plus the mesh paths' (phase 18)
+        row["launches"] = sum(launches[p][row["name"]]
+                              for p in owner[row["name"]] + tuple(mesh_paths))
         row["launches_by_path"] = {path: n[row["name"]]
                                    for path, n in launches.items()}
     print(json.dumps({"kernels": rows}))

@@ -21,7 +21,7 @@ from .index import (QueryPlan, ShardPacking, SIndex, as_float32_rows,
 from .join import (join_group, join_group_dense, join_group_gather,
                    join_group_pruned, topk_merge)
 from .api import JoinPlan, execute_join, knn_join, plan_join
-from .megastep import JoinHandle, MegastepEngine
+from .megastep import JoinHandle, MegastepEngine, StepOut
 from .sharded import ShardedMegastepEngine
 from .stream import StreamJoinEngine, StreamJoinState, knn_join_batched
 from .segments import MutableIndex, Segment
@@ -46,7 +46,7 @@ __all__ = [
     "join_group", "join_group_dense", "join_group_gather",
     "join_group_pruned", "topk_merge",
     "JoinPlan", "execute_join", "knn_join", "plan_join",
-    "JoinHandle", "MegastepEngine", "ShardedMegastepEngine",
+    "JoinHandle", "MegastepEngine", "StepOut", "ShardedMegastepEngine",
     "StreamJoinEngine", "StreamJoinState", "knn_join_batched",
     "MutableIndex", "Segment",
     "canonical_gathered", "canonical_topk", "from_cmp", "gathered_dist",

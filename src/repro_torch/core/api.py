@@ -20,6 +20,7 @@ import torch
 from ..device import resolve_device
 from .index import (QueryPlan, SIndex, as_float32_rows, build_index,
                     plan_queries)
+from .certify import exact_topk
 from .join import join_group
 from .metrics import canonical_topk
 from .types import JoinConfig, JoinResult, JoinStats
@@ -57,13 +58,26 @@ def execute_join(r, index: SIndex, qplan: QueryPlan, *,
     r = as_float32_rows(r, what="R rows").to(index.device)
     out_i = torch.full((r.shape[0], cfg.k), -1, dtype=torch.int64,
                        device=index.device)
+    unc = torch.zeros((r.shape[0],), dtype=torch.bool, device=index.device)
     group_of_r = qplan.group_of_r()
     for g in range(qplan.n_groups):
         r_sel = torch.nonzero(group_of_r == g)[:, 0]
         if r_sel.numel() == 0:
             continue
-        _, gi = join_group(g, r, r_sel, index, qplan, stats=stats)
+        _, gi, gu = join_group(g, r, r_sel, index, qplan, stats=stats)
         out_i[r_sel] = gi
+        if gu is not None:
+            unc[r_sel] = gu
+    if bool(unc.any()):
+        # the gather reducer's uncertified K-G runs, re-run exactly over
+        # their group's replicas (a sound superset of each query's kNN)
+        for g in torch.unique(group_of_r[unc]).tolist():
+            sel = torch.nonzero(unc & (group_of_r == g))[:, 0]
+            mask = index.replica_mask_sorted(qplan.lb_group, g)
+            _, out_i[sel] = exact_topk(r[sel], index.s_sorted[mask],
+                                       index.s_ids_sorted[mask], cfg.k)
+        if stats is not None:
+            stats.n_exact_rerun += int(unc.sum())
     d, ids = canonical_topk(r, out_i, index.rows_for_ids(out_i), cfg.metric)
     return d.cpu().numpy(), ids.cpu().numpy()
 

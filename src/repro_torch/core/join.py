@@ -31,7 +31,8 @@ import torch
 
 from ..kernels import ops
 from .bounds import pad_theta
-from .metrics import cmp_dist, from_cmp, select_dist
+from .certify import exact_d2, run_width, select_run
+from .metrics import canonical_gathered, cmp_dist, from_cmp, select_dist
 from .schedule import TileSchedule, schedule_for_group
 from .types import JoinStats
 
@@ -132,12 +133,13 @@ def join_group_gather(
 
 
 def join_group(g: int, r: torch.Tensor, r_sel: torch.Tensor, index, qplan,
-               *, stats: Optional[JoinStats] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               *, stats: Optional[JoinStats] = None):
     """One reducer group through the configured engine. The group's S
     replicas are sliced from the index's pivot-sorted packing (a masked
-    subset of a sorted array is sorted). Returns (dists, ids) rows
-    aligned with ``r_sel``."""
+    subset of a sorted array is sorted). Returns (dists, ids, unc) rows
+    aligned with ``r_sel``: ``unc`` flags the queries whose K-G run the
+    gather reducer could not certify (``core.certify``; the caller
+    re-runs them exactly), None for the other reducers."""
     cfg = qplan.config
     k = cfg.k
     mask = index.replica_mask_sorted(qplan.lb_group, g)
@@ -155,9 +157,10 @@ def join_group(g: int, r: torch.Tensor, r_sel: torch.Tensor, index, qplan,
         return join_group_pruned(
             r[r_sel], qplan.r_part[r_sel], ss, sp, sd, sids, index.pivots,
             index.pivd, qplan.theta, k, s_excess=index.s_excess,
-            tile_s=cfg.tile_s, stats=stats, metric=cfg.metric)
+            tile_s=cfg.tile_s, stats=stats, metric=cfg.metric) + (None,)
     return join_group_dense(r[r_sel], ss, sids, k, tile_r=cfg.tile_r,
-                            tile_s=cfg.tile_s, stats=stats, metric=cfg.metric)
+                            tile_s=cfg.tile_s, stats=stats,
+                            metric=cfg.metric) + (None,)
 
 
 def _join_group_gather_scheduled(r, r_sel, mask, ss, sp, sd, sids, index,
@@ -174,13 +177,10 @@ def _join_group_gather_scheduled(r, r_sel, mask, ss, sp, sd, sids, index,
     rr = r[r_sel][order_r].contiguous()
     rp = qplan.r_part[r_sel][order_r]
     sched = schedule_for_group(index, qplan, rr, rp, sp, sd, stats=stats)
+    unc = None
     if cfg.metric == "l2":
-        center = index.center()
-        gd, pos = ops.distance_topk_gather(
-            (rr - center).contiguous(), (ss - center).contiguous(), k,
-            sched.schedule, sched.counts, bm=cfg.tile_r, bn=cfg.tile_s)
-        pos = pos.to(torch.int64)
-        gi = torch.where(pos >= 0, sids[torch.clamp(pos, min=0)], -1)
+        gd, gi, unc = _gather_certified(rr, ss, sids, index.center(), k,
+                                        sched, cfg)
         if stats is not None:
             stats.pairs_computed += _scheduled_pairs(sched, rr.shape[0],
                                                      ss.shape[0])
@@ -190,7 +190,28 @@ def _join_group_gather_scheduled(r, r_sel, mask, ss, sp, sd, sids, index,
         gd, gi = join_group_gather(rr, ss, sids, k, sched, stats=stats,
                                    metric=cfg.metric)
     inv = torch.argsort(order_r)
-    return gd[inv], gi[inv]
+    return gd[inv], gi[inv], None if unc is None else unc[inv]
+
+
+def _gather_certified(rr, ss, sids, center, k, sched, cfg):
+    """K-G's run over the group's schedule on centered rows, its k in
+    (exact d², id) order and the run's certificate (``core.certify``).
+    Returns canonical (dists, ids, uncertified) — no host sync."""
+    rc = (rr - center).contiguous()
+    dk, pos = ops.distance_topk_gather(
+        rc, (ss - center).contiguous(), run_width(k), sched.schedule,
+        sched.counts, bm=cfg.tile_r, bn=cfg.tile_s)
+    valid = pos >= 0
+    pos_c = torch.clamp(pos.to(torch.int64), 0, max(ss.shape[0] - 1, 0))
+    rows = ss[pos_c]
+    inf = float("inf")
+    return select_run(
+        torch.where(valid, dk, inf),
+        torch.where(valid, exact_d2(rr, rows), inf),
+        torch.where(valid, sids[pos_c], -1),
+        torch.where(valid, canonical_gathered(rr, rows), inf),
+        torch.linalg.vector_norm(rc.to(torch.float64), dim=1), k,
+        rr.shape[1])
 
 
 def join_group_pruned(

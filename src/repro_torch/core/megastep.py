@@ -20,12 +20,15 @@ queries and the fetch of the result, five stages run on the device:
 4. **gather top-k** — one launch of the hand-written CUDA kernel
    (``kernels.distance_topk``, K-G) over the whole concatenated schedule
    on the card, its plain version on the CPU: each R tile walks its
-   scheduled S tiles and keeps an ascending kp-run (kp = next_pow2(k))
-   of d² in **centered** coordinates, tombstoned and padding rows masked
+   scheduled S tiles and keeps an ascending kp-run (kp = the next power
+   of two past k, ``certify.run_width``) of d² in **centered**
+   coordinates, tombstoned and padding rows masked
    by ``alive`` before selection;
-5. **merge** — canonical distances of the kp-run from the raw rows
-   (``metrics.canonical_gathered``), int64 global ids, a stable
-   re-sort, the first k, and optionally an id-dedup merge with a
+5. **merge** — the run's rows' exact float64 d² and canonical
+   distances from the raw rows, int64 global ids, the first k in
+   (exact d², id) order reported in (canonical distance, id) order, the
+   run's certificate (``core.certify``; ``finalize`` re-runs the
+   queries it cannot certify), and optionally an id-dedup merge with a
    carried state.
 
 Both the kernel and its plain version select on centered rows (the
@@ -43,17 +46,19 @@ every value it branches on (θ's order-statistic index, the tombstone
 count, the segment metadata) is host-side.
 
 Exactness: the scheduled candidate set is a superset of the true live
-top-k (θ is a sound union-level radius bound), the selection over it is
-exact, and the reported distances are the canonical per-pair values —
-so a query's result depends only on (query row, live rows), for any
-batch split and any segmentation.
+top-k (θ is a sound union-level radius bound, Cor. 1 and Thm 2 tested in
+float64 with the assignment excess), a certified run holds every row
+the exact order would put in the k and an uncertified one re-runs
+exactly, and the reported distances are the canonical per-pair values —
+so a query's result, ids at ties included, depends only on (query row,
+live rows), for any batch split, segmentation, shard count and device.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -63,12 +68,31 @@ from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.sorted_merge import merge_sorted_runs_unique, next_pow2
 from ..serve import faultinject
+from .certify import exact_d2, exact_topk, run_width, select_run
 from .metrics import canonical_gathered
 from .schedule import compact_visits, visit_mask
 from .types import JoinConfig, JoinStats
 
-__all__ = ["MegastepEngine", "JoinHandle", "assign_bounds_schedule",
-           "assign_theta", "schedule_visits", "canonical_run"]
+__all__ = ["MegastepEngine", "JoinHandle", "StepOut",
+           "assign_bounds_schedule", "assign_theta", "schedule_visits",
+           "canonical_run", "rerun_scheduled"]
+
+
+class StepOut(NamedTuple):
+    """What every engine's ``join_batch_device`` returns, on the device.
+
+    ``d`` (B, k) float32 canonical distances and ``ids`` (B, k) int64
+    global ids, ascending; ``lm`` (B,) float32, a lower bound on the
+    distance of every row the step excluded (+inf where it excluded
+    nothing: the fp32 megastep, a fully served mesh; the int8 tier's
+    certification bound); ``uncertified`` (B,) bool, the queries whose
+    K-G run the caller must re-run exactly (``certify``; all False in
+    int8 mode, which certifies with ``lm``)."""
+
+    d: torch.Tensor
+    ids: torch.Tensor
+    lm: torch.Tensor
+    uncertified: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -77,6 +101,8 @@ class _SegGeom:
 
     pivots_c: torch.Tensor   # (M, dim) pivots minus the shared center
     pivd: torch.Tensor       # (M, M)
+    pivots64: torch.Tensor   # (M, dim) the raw pivots in float64
+    excess: torch.Tensor     # (M,) float64 assignment excess (Cor. 1)
     knn: torch.Tensor        # (M, kk) T_S pivot-kNN distances
     sd_min: torch.Tensor     # (ns_tiles, M) Thm-2 tile stats
     sd_max: torch.Tensor
@@ -101,6 +127,15 @@ class _Payload:
     n_finite_total: int      # finite T_S candidates over all segments
 
 
+def segment_excess(si) -> torch.Tensor:
+    """A segment's per-pivot assignment excess (float64, on its device;
+    zeros for an index carried across without one)."""
+    if si.s_excess is not None:
+        return si.s_excess.to(torch.float64)
+    return torch.zeros((si.pivots.shape[0],), dtype=torch.float64,
+                       device=si.pivots.device)
+
+
 def assign_theta(q: torch.Tensor, n_valid: int, pl: _Payload, *, k: int):
     """Stages 1–2 (assign → union θ) for one bucket-padded batch ``q``
     (B, dim). They read only the payload's replicated geometry (center,
@@ -118,14 +153,17 @@ def assign_theta(q: torch.Tensor, n_valid: int, pl: _Payload, *, k: int):
     inf = float("inf")
     valid_q = torch.arange(b, device=dev) < n_valid
     qc = q - pl.center
+    qc64 = q.to(torch.float64) - pl.center.to(torch.float64)
 
     # ---- 1. assignment against every segment's pivots (the same (B, M)
-    # distance matrix feeds the bounds)
+    # distance matrix feeds the bounds), in float64 on the raw rows: on
+    # map coordinates a float32 |q, p_j| moves Cor. 1 by more than the
+    # kNN radius (ROADMAP C15)
     qps, homes = [], []
     for g in pl.segs:
-        pc = g.pivots_c
-        d2 = torch.clamp((qc * qc).sum(1)[:, None]
-                         + (pc * pc).sum(1)[None, :] - 2.0 * (qc @ pc.T),
+        pc = g.pivots64 - pl.center.to(torch.float64)
+        d2 = torch.clamp((qc64 * qc64).sum(1)[:, None]
+                         + (pc * pc).sum(1)[None, :] - 2.0 * (qc64 @ pc.T),
                          min=0.0)
         qps.append(torch.sqrt(d2))
         homes.append(torch.argmin(d2, dim=1))
@@ -150,7 +188,10 @@ def assign_theta(q: torch.Tensor, n_valid: int, pl: _Payload, *, k: int):
     small = torch.topk(ub, w_cap, dim=1, largest=False, sorted=True).values
     j = k - 1 + pl.dead_total
     if (k + pl.dead_total) <= pl.n_finite_total and j < w_cap:
-        th = small[:, j]
+        th64 = small[:, j]
+        th = th64.to(torch.float32)             # rounded up
+        th = torch.where(th.to(torch.float64) < th64,
+                         torch.nextafter(th, torch.full_like(th, inf)), th)
     else:                                       # no valid bound: visit all
         th = torch.full((b,), inf, device=dev)
     th_q = torch.where(valid_s, th, -inf)       # padding: schedule nothing
@@ -164,7 +205,8 @@ def schedule_visits(qps, homes, th_q: torch.Tensor, valid_s: torch.Tensor,
     Returns the compacted schedule (int32 (B // bm, T)) and its per-R-tile
     counts. A shard runs it against its own tile stats."""
     visit = torch.cat([visit_mask(qp, h, th_q, valid_s, g.pivd, g.sd_min,
-                                  g.sd_max, g.present, bm=bm)
+                                  g.sd_max, g.present, bm=bm,
+                                  excess=g.excess)
                        for qp, h, g in zip(qps, homes, segs)], dim=1)
     return compact_visits(visit)
 
@@ -214,32 +256,100 @@ def merge_state(d: torch.Tensor, ids: torch.Tensor, state, k: int):
     return md[:, :k], mi[:, :k]
 
 
+def run_columns(qs: torch.Tensor, pl: _Payload, dk: torch.Tensor,
+                pos: torch.Tensor):
+    """Stage 5's columns of a K-G run of packed-row positions (−1:
+    empty): ``(f, x, ids, d_can)`` — K-G's √d², the rows'
+    ``certify.exact_d2``, int64 global ids and canonical distances from
+    the raw rows, (+inf, +inf, −1, +inf) on empty slots."""
+    inf = float("inf")
+    valid = pos >= 0
+    pos_c = torch.clamp(pos.to(torch.int64), 0, pl.s.shape[0] - 1)
+    rows = pl.s[pos_c]
+    return (torch.where(valid, dk, inf),
+            torch.where(valid, exact_d2(qs, rows), inf),
+            torch.where(valid, pl.gids[pos_c], -1),
+            torch.where(valid, canonical_gathered(qs, rows), inf))
+
+
 def _megastep(q: torch.Tensor, n_valid: int, pl: _Payload, *, k: int,
-              bm: int, bn: int, state=None):
+              bm: int, bn: int, state=None) -> StepOut:
     """assign → bounds → schedule → gather-top-k → merge for one
-    bucket-padded batch ``q`` (B, dim). Returns device (dists, ids)."""
-    kp = next_pow2(k)
+    bucket-padded batch ``q`` (B, dim). ``uncertified`` flags the
+    queries whose run ``certify.select_run`` could not certify (their
+    re-run is the engine's ``finalize``); ``lm`` is +inf."""
     qs, qcs, inv, _, sched, cnt = assign_bounds_schedule(q, n_valid, pl,
                                                          k=k, bm=bm)
 
     # ---- 4. gather top-kp over the schedule, in centered coordinates
-    _, pos = ops.distance_topk_gather(qcs, pl.s_c, kp, sched, cnt,
-                                      alive=pl.alive, bm=bm, bn=bn)
+    dk, pos = ops.distance_topk_gather(qcs, pl.s_c, run_width(k), sched,
+                                       cnt, alive=pl.alive, bm=bm, bn=bn)
 
-    # ---- 5. canonical distances from the raw rows + global ids + the
-    # stable exact re-sort of the kp-run
-    d_can, ids = canonical_run(qs, pl, pos)
-    d_can, ids = d_can[:, :k][inv], ids[:, :k][inv]
+    # ---- 5. the k first in (exact d², id) order, their canonical
+    # distances, and the run's certificate
+    f, x, ids, d_can = run_columns(qs, pl, dk, pos)
+    q_norm = torch.linalg.vector_norm(qcs.to(torch.float64), dim=1)
+    d_can, ids, unc = select_run(f, x, ids, d_can, q_norm, k, q.shape[1])
+    valid = torch.arange(q.shape[0], device=q.device) < n_valid
+    d_can, ids, unc = d_can[inv], ids[inv], unc[inv] & valid
     if state is not None:
         d_can, ids = merge_state(d_can, ids, state, k)
-    return d_can, ids
+    return StepOut(d_can, ids, torch.full((q.shape[0],), float("inf"),
+                                          device=q.device), unc)
+
+
+# queries an exact re-run takes together: a larger tile costs fewer
+# launches but visits the union of its queries' schedules
+# (``tools/bench_rerun.py`` times the choice)
+RERUN_TILE = 256
+
+
+def rerun_scheduled(q: torch.Tensor, shards, *, k: int, bn: int,
+                    home: torch.device, bm: int = RERUN_TILE):
+    """The exact k of queries ``q`` (n, dim) whose K-G run was not
+    certified: ``certify.exact_topk`` over the live rows their R tile's
+    schedule visits, in every payload of ``shards`` (one device's
+    ``_Payload``, or each shard's). The stages 1–3 are the megastep's,
+    run again on these queries alone in R tiles of ``bm``; the schedule
+    holds every live row within θ of each query of the tile, ties at the
+    k-th distance included, so the result is ``exact_topk``'s over all
+    live rows at a fraction of the rows. Returns ``(d (n, k) float32,
+    ids (n, k) int64)`` on ``home``."""
+    n = q.shape[0]
+    b = -(-n // bm) * bm
+    order, tiles = None, []
+    for sp in shards:
+        dev = sp.s.device
+        qj = torch.nn.functional.pad(q.to(dev), (0, 0, 0, b - n))
+        qs, _, valid_s, inv, th_q, qps, homes = assign_theta(qj, n, sp, k=k)
+        sched, cnt = schedule_visits(qps, homes, th_q, valid_s, sp.segs,
+                                     bm=bm)
+        if order is None:
+            order = (qs[:n].to(home), inv[:n].to(home))
+        tiles.append((sched.cpu(), cnt.cpu(), sp))
+    qs, inv = order
+    out_d = torch.empty((n, k), device=home)
+    out_i = torch.empty((n, k), dtype=torch.int64, device=home)
+    cols = torch.arange(bn)
+    for t, lo in enumerate(range(0, n, bm)):
+        rows, gids = [], []
+        for sched, cnt, sp in tiles:
+            pos = (sched[t, :int(cnt[t])].to(torch.int64)[:, None] * bn
+                   + cols).reshape(-1).to(sp.s.device)
+            pos = pos[sp.alive[pos] > 0]
+            rows.append(sp.s[pos].to(home))
+            gids.append(sp.gids[pos].to(home))
+        out_d[lo:lo + bm], out_i[lo:lo + bm] = exact_topk(
+            qs[lo:lo + bm], torch.cat(rows), torch.cat(gids), k)
+    return out_d[inv], out_i[inv]
 
 
 @dataclasses.dataclass
 class JoinHandle:
     """An in-flight batch from :meth:`MegastepEngine.dispatch`: device
-    tensors ``dev = (dists, ids)`` (CUDA runs them asynchronously),
-    redeemed by :meth:`MegastepEngine.finalize`."""
+    tensors ``dev`` (a :class:`StepOut`; the int8 host-gather tier's
+    ``(lb, pos)``; CUDA runs them asynchronously), redeemed by
+    :meth:`MegastepEngine.finalize`."""
 
     kind: str
     n: int
@@ -385,7 +495,9 @@ class MegastepEngine:
             sd_min, sd_max, present = e["stats"]
             geoms.append(_SegGeom(
                 pivots_c=(si.pivots - center).contiguous(), pivd=si.pivd,
-                knn=knn, sd_min=sd_min, sd_max=sd_max, present=present))
+                pivots64=si.pivots.to(torch.float64),
+                excess=segment_excess(si), knn=knn, sd_min=sd_min,
+                sd_max=sd_max, present=present))
         on_dev = self._rows_on_device
         return dict(
             segs=segs, center=center, geoms=tuple(geoms),
@@ -427,12 +539,13 @@ class MegastepEngine:
         return buf.to(self.device, non_blocking=True), n
 
     def join_batch_device(self, q_dev: torch.Tensor, n_valid: int, *,
-                          state=None) -> tuple[torch.Tensor, torch.Tensor]:
-        """The steady-state call: device-padded queries in, device
-        ``(dists, int64 ids)`` out — one megastep, nothing fetched,
-        nothing re-uploaded, no host sync. ``state`` optionally carries
-        a previous (dists, ids) run for the same query slots; it is
-        dedup-merged on the device."""
+                          state=None) -> StepOut:
+        """The steady-state call: device-padded queries in, a device
+        :class:`StepOut` out — one megastep, nothing fetched, nothing
+        re-uploaded, no host sync. Its ``uncertified`` queries the
+        caller must re-run (``finalize`` does). ``state`` optionally
+        carries a previous (dists, ids) run for the same query slots; it
+        is dedup-merged on the device."""
         payload = self.payload()
         bucket = int(q_dev.shape[0])
         bm = min(bucket, self._bm_cap)
@@ -473,7 +586,8 @@ class MegastepEngine:
         if stats is not None:
             self._count(stats, n, payload)
         qd, nv = self.enqueue(q)
-        return JoinHandle(kind="mega", n=n, dev=self.join_batch_device(qd, nv))
+        return JoinHandle(kind="mega", n=n, dev=self.join_batch_device(qd, nv),
+                          q=q)
 
     def _count(self, stats: JoinStats, n: int, pl: _Payload) -> None:
         stats.n_r += n
@@ -499,12 +613,34 @@ class MegastepEngine:
         t0 = time.perf_counter()
         with obs.span("megastep.fetch", rows=handle.n):
             faultinject.fire("megastep.fetch")     # a lost fetch
-            d, ids = handle.dev
-            d = d[:handle.n].cpu().numpy()
-            ids = ids[:handle.n].cpu().numpy()
+            out = handle.dev
+            d, ids, unc = (x[:handle.n].cpu().numpy()
+                           for x in (out.d, out.ids, out.uncertified))
         obs.metrics.REGISTRY.histogram("megastep_finalize_s") \
             .observe(time.perf_counter() - t0)
+        self._rerun(handle, d, ids, unc, stats)
         return np.ascontiguousarray(d), np.ascontiguousarray(ids)
+
+    def _payload_shards(self) -> tuple:
+        """The payloads an exact re-run reads: this device's."""
+        return (self.payload(),)
+
+    def _rerun(self, handle: JoinHandle, d: np.ndarray, ids: np.ndarray,
+               unc: np.ndarray, stats: Optional[JoinStats]) -> None:
+        """Re-run the queries whose run was not certified
+        (:func:`rerun_scheduled`), in place."""
+        if not unc.any():
+            return
+        n_bad = int(unc.sum())
+        with obs.span("megastep.exact_rerun", rows=n_bad):
+            rd, ri = rerun_scheduled(
+                torch.from_numpy(handle.q[unc]), self._payload_shards(),
+                k=self.config.k, bn=self._bn, home=self.device)
+            d[unc], ids[unc] = rd.cpu().numpy(), ri.cpu().numpy()
+        obs.metrics.REGISTRY.counter("megastep_exact_rerun_total") \
+            .inc(n_bad)
+        if stats is not None:
+            stats.n_exact_rerun += n_bad
 
     def join_batch(self, queries: np.ndarray, *,
                    stats: Optional[JoinStats] = None

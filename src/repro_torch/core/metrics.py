@@ -111,9 +111,10 @@ def canonical_gathered(q: torch.Tensor, neigh: torch.Tensor,
     """
     d = q[:, None, :].to(torch.float32) - neigh.to(torch.float32)
     if metric == "l2":
-        acc = d[..., 0] * d[..., 0]
+        d = d * d
+        acc = d[..., 0]
         for t in range(1, d.shape[-1]):
-            acc = acc + d[..., t] * d[..., t]
+            acc = acc + d[..., t]
         # √ in float64, rounded once: the correctly rounded float32 √ on
         # every backend (a CPU build's vectorised float32 √ may be off by
         # an ulp where CUDA's is exact)

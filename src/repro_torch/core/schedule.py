@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from .bounds import pad_theta
-from .metrics import cmp_dist, from_cmp
+from .metrics import cmp_dist, from_cmp, sq_dist64
 from .types import JoinStats
 
 __all__ = ["segment_tile_stats", "visit_mask", "compact_visits",
@@ -65,25 +65,36 @@ def segment_tile_stats(
 def visit_mask(qp: torch.Tensor, home: torch.Tensor, th_q: torch.Tensor,
                valid_q: torch.Tensor, pivd: torch.Tensor,
                sd_min: torch.Tensor, sd_max: torch.Tensor,
-               present: torch.Tensor, *, bm: int) -> torch.Tensor:
+               present: torch.Tensor, excess: torch.Tensor, *,
+               bm: int) -> torch.Tensor:
     """Cor. 1 + Thm 2 for one segment, L2 — ``visit_mask_jnp`` of the
-    JAX package as device ops.
+    JAX package as device ops, made sound (ROADMAP C15): a superset of
+    the JAX mask on the same inputs.
 
     ``qp`` (B, M) true query→pivot distances, ``home`` (B,) int,
     ``th_q`` (B,) per-query kNN radius bound (−inf for padding rows),
     ``valid_q`` (B,) bool; ``sd_min``/``sd_max``/``present`` from
-    :func:`segment_tile_stats`. B must be a multiple of ``bm``. Returns a
-    (B // bm, ns_tiles) bool visit mask.
+    :func:`segment_tile_stats`; ``excess`` (M,) float64, the segment's
+    assignment excess (``core.partition.assignment_excess``; zeros for
+    an index carried across without one). B must be a multiple of
+    ``bm``. Returns a (B // bm, ns_tiles) bool visit mask.
+
+    Cor. 1 is tested in float64 on ``qp``, widened by the excess and by
+    the float32 rounding of ``pivd``; the Thm 2 ring is widened by the
+    float32 rounding of the tile stats.
     """
     b, m = qp.shape
     nr_tiles = b // bm
     home_c = torch.clamp(home.to(torch.int64), 0, m - 1)
     # prune against the ulp-padded θ: qp and th_q come from different
     # fp graphs, and neighbors at exactly θ must survive
-    thp = pad_theta(th_q)
-    q2 = qp.to(torch.float32) ** 2
-    home_sq = torch.gather(q2, 1, home_c[:, None])
-    denom = torch.clamp(2.0 * pivd[home_c], min=1e-30)
+    qp = qp.to(torch.float64)
+    thp = pad_theta(th_q).to(torch.float64)
+    q2 = qp ** 2 - excess.to(torch.float64)[None, :]
+    denom = torch.clamp(2.0 * pivd[home_c].to(torch.float64)
+                        * (1.0 + 2.0 ** -20), min=1e-30)
+    slack = (qp + thp[:, None]) * 2.0 ** -22
+    home_sq = torch.gather(qp ** 2, 1, home_c[:, None])
     d_hp = (q2 - home_sq) / denom
     alive = d_hp <= thp[:, None]
     alive.scatter_(1, home_c[:, None], True)     # home column never pruned
@@ -91,8 +102,8 @@ def visit_mask(qp: torch.Tensor, home: torch.Tensor, th_q: torch.Tensor,
 
     alive_t = alive.reshape(nr_tiles, bm, m).any(dim=1)
     inf = torch.full_like(qp, float("inf"))
-    lo_q = torch.where(alive, qp - thp[:, None], inf)
-    hi_q = torch.where(alive, qp + thp[:, None], -inf)
+    lo_q = torch.where(alive, qp - thp[:, None] - slack, inf)
+    hi_q = torch.where(alive, qp + thp[:, None] + slack, -inf)
     lo_t = lo_q.reshape(nr_tiles, bm, m).amin(dim=1)
     hi_t = hi_q.reshape(nr_tiles, bm, m).amax(dim=1)
 
@@ -189,7 +200,7 @@ def build_tile_schedule(
     theta: torch.Tensor, *, bm: int, bn: int, metric: str = "l2",
     knn_dists: Optional[torch.Tensor] = None, k: Optional[int] = None,
     stats: Optional[JoinStats] = None, theta_block: int = 8192,
-    tile_block: int = 64,
+    tile_block: int = 64, s_excess: Optional[torch.Tensor] = None,
 ) -> TileSchedule:
     """Lower Cor. 1 + Thm 2 to an (R tile × S tile) visit schedule.
 
@@ -200,6 +211,11 @@ def build_tile_schedule(
     smallest ``|q,p_j| + p_j.d_i`` — Thm 3 at the query, a sound
     radius bound computable before any join. ``tile_block`` R tiles are
     intersected with all S tiles at a time (bounded memory).
+
+    Under L2 the schedule is :func:`visit_mask`'s sound form: |q, p_j|
+    in float64, θ rounded up, Cor. 1 widened by ``s_excess`` (the
+    index's assignment excess; None: zeros) and the rounding of
+    ``pivd``, the rings by the rounding of the tile stats (ROADMAP C15).
     """
     dev = r.device
     n_r, n_s = r_part.shape[0], s_part.shape[0]
@@ -212,7 +228,11 @@ def build_tile_schedule(
     th_q = torch.where(valid_q, theta[home], -inf)
 
     # |q, p_j| for every pivot — the job-2 mapper's pivot distances
-    qp = from_cmp(cmp_dist(r, pivots, metric), metric)      # (n_r, M)
+    l2 = metric == "l2"
+    if l2:
+        qp = torch.sqrt(sq_dist64(r, pivots))                # float64
+    else:
+        qp = from_cmp(cmp_dist(r, pivots, metric), metric)  # (n_r, M)
     if stats is not None:
         stats.pivot_pairs_computed += int(valid_q.sum()) * m
 
@@ -224,6 +244,10 @@ def build_tile_schedule(
             hi = min(lo + theta_block, n_r)
             ub = (qp[lo:hi, :, None] + knn[None, :, :]).reshape(hi - lo, -1)
             kth = torch.kthvalue(ub, k, dim=1).values
+            if l2:                                  # rounded up
+                k32 = kth.to(torch.float32)
+                kth = torch.where(k32.to(torch.float64) < kth, torch.nextafter(
+                    k32, torch.full_like(k32, inf)), k32)
             th_q[lo:hi] = torch.where(valid_q[lo:hi],
                                       torch.minimum(th_q[lo:hi], kth), -inf)
 
@@ -231,11 +255,17 @@ def build_tile_schedule(
     # comparisons use the ulp-padded θ so neighbors at exactly θ survive
     # fp discrepancies between the qp and θ graphs
     thp = pad_theta(th_q)
-    if metric == "l2":
-        q2 = qp.to(torch.float64) ** 2
+    slack = 0.0
+    if l2:
+        excess = (torch.zeros((m,), dtype=torch.float64, device=dev)
+                  if s_excess is None else s_excess.to(torch.float64))
+        q2 = qp ** 2
         home_sq = torch.gather(q2, 1, home[:, None])
-        denom = torch.clamp(2.0 * pivd[home], min=float(1e-30))
-        alive = (q2 - home_sq) / denom.to(torch.float64) <= thp[:, None]
+        denom = torch.clamp(2.0 * pivd[home].to(torch.float64)
+                            * (1.0 + 2.0 ** -20), min=1e-30)
+        thp = thp.to(torch.float64)
+        slack = (qp + thp[:, None]) * 2.0 ** -22
+        alive = (q2 - excess[None, :] - home_sq) / denom <= thp[:, None]
     else:
         alive = torch.ones((n_r, m), dtype=torch.bool, device=dev)
     alive[torch.arange(n_r, device=dev), home] = True
@@ -245,11 +275,13 @@ def build_tile_schedule(
     tile_of_r = (torch.arange(n_r, device=dev) // bm)[:, None].expand(-1, m)
     alive_t = torch.zeros((nr_tiles, m), dtype=torch.int32, device=dev)
     alive_t = alive_t.scatter_add_(0, tile_of_r, alive.to(torch.int32)) > 0
-    lo_q = torch.where(alive, qp - thp[:, None], inf)
-    hi_q = torch.where(alive, qp + thp[:, None], -inf)
-    lo_t = torch.full((nr_tiles, m), inf, device=dev).scatter_reduce_(
+    lo_q = torch.where(alive, qp - thp[:, None] - slack, inf)
+    hi_q = torch.where(alive, qp + thp[:, None] + slack, -inf)
+    lo_t = torch.full((nr_tiles, m), inf, device=dev,
+                      dtype=lo_q.dtype).scatter_reduce_(
         0, tile_of_r, lo_q, reduce="amin")
-    hi_t = torch.full((nr_tiles, m), -inf, device=dev).scatter_reduce_(
+    hi_t = torch.full((nr_tiles, m), -inf, device=dev,
+                      dtype=hi_q.dtype).scatter_reduce_(
         0, tile_of_r, hi_q, reduce="amax")
 
     # S-tile × partition |p_j, s| ranges (Thm 2's L/U at tile resolution)
@@ -288,4 +320,5 @@ def schedule_for_group(index, qplan, rr: torch.Tensor, rp: torch.Tensor,
     return build_tile_schedule(
         rr, rp, sp, sd, index.pivots, index.pivd, qplan.theta,
         bm=cfg.tile_r, bn=cfg.tile_s, metric=cfg.metric,
-        knn_dists=index.t_s.knn_dists, k=cfg.k, stats=stats)
+        knn_dists=index.t_s.knn_dists, k=cfg.k, stats=stats,
+        s_excess=index.s_excess)

@@ -17,23 +17,23 @@ exact re-rank body runs once per shard:
   shard's own tile stats: partitions a shard does not hold are never
   ``present``, so its schedule visits only local tiles.
 * **Only final runs cross the mesh.** Each shard's K-G run gets its
-  canonical distances on the shard, then the kp-wide runs are gathered
-  to the mesh's first device and folded by the tree merge
-  (``kernels.sorted_merge.tree_merge_runs``) in K-G's own order — its
-  distance, then the row's packed position on one device — so the fold
-  keeps the kp rows one device's K-G would keep, whatever the shard
-  order; a stable sort by canonical distance takes the k.
+  exact d², canonical distances and ids on the shard, then the kp-wide
+  runs are gathered to the mesh's first device and folded by the tree
+  merge (``kernels.sorted_merge.tree_merge_runs``) in K-G's own order —
+  its distance, then the row's packed position on one device — so the
+  fold keeps the kp rows one device's K-G would keep, whatever the shard
+  order; ``certify.select_run`` takes the k and certifies the run as on
+  one device.
 * **No steady-state host sync.** The payload (rows, masks, geometry) is
   uploaded at refresh; a batch is one upload of the queries, device to
   device copies to the other devices, and the launches.
 
 Exactness under sharding: every row lives on exactly one serving shard,
-whose schedule visits every row within θ, and a row of the device-wide
-kp-run is in its shard's kp-run (a shard's positions follow the
-device-wide order). So the shard count changes neither the distances,
-near-ties of K-G's float32 selection included, nor the ids outside exact
-ties (a tie's rows past θ are visited tile by tile, and the tiles
-differ between the layouts).
+whose schedule visits every row within θ, and every row outside the
+merged run has float32 d² at least its last value, so the merged run
+certifies as one device's does; a certified run and an exact re-run both
+give the k first live rows in (exact d², id) order. So the shard count
+changes neither the distances nor the ids, ties included.
 
 **Fault tolerance.** ``SIndex.shard_packing(r=...)`` places each pivot
 group on a primary plus ``r − 1`` backups; :class:`ShardHealth`, fed by
@@ -60,11 +60,13 @@ from .. import obs
 from ..device import resolve_device
 from ..distributed.mesh import Mesh, make_mesh
 from ..kernels import ops
-from ..kernels.sorted_merge import next_pow2, tree_merge_runs
+from ..kernels.sorted_merge import tree_merge_runs
 from ..serve import faultinject
-from .megastep import (JoinHandle, MegastepEngine, _Payload, _SegGeom,
-                       assign_theta, merge_state, schedule_visits)
-from .metrics import canonical_gathered, sq_dist64
+from .certify import run_width, select_run
+from .megastep import (JoinHandle, MegastepEngine, StepOut, _Payload,
+                       _SegGeom, assign_theta, merge_state, run_columns,
+                       schedule_visits, segment_excess)
+from .metrics import sq_dist64
 from .types import JoinConfig, JoinStats
 
 __all__ = ["ShardHealth", "ShardedMegastepEngine", "coverage_bound"]
@@ -188,46 +190,47 @@ _NO_POS = 1 << 62
 def _sharded_megastep(q: torch.Tensor, n_valid: int, pl: _ShardedPayload,
                       *, k: int, bm: int, bn: int, devices, state=None):
     """The fp32 megastep over every shard: per-shard schedule, K-G and
-    exact re-rank, the runs gathered to ``q``'s device and merged.
-    Returns device ``(d (B, k), ids (B, k) int64, lm (B,))``, ``lm`` the
-    degraded-coverage bound (+inf on a fully served mesh).
+    the run's columns (``megastep.run_columns``), the runs gathered to
+    ``q``'s device and merged. Returns a device ``megastep.StepOut``,
+    ``lm`` the degraded-coverage bound (+inf on a fully served mesh).
 
-    The merge keeps what one device would: the kp rows first in K-G's
-    own order — its distance, then the packed position, which each
-    shard's positions follow — and of those the k nearest by canonical
-    distance (a stable sort). Each shard's run holds every row of the
-    device-wide kp-run that lives on it, so K-G's float32 selection
-    picks the same kp rows sharded or not, near-ties included (exact
-    ties past θ aside: see the module docstring)."""
-    kp = next_pow2(k)
+    The merge keeps what one device's K-G would: the kp rows first in
+    K-G's own order — its distance, then the packed position, which
+    each shard's positions follow. Every row outside the merged run has
+    float32 d² at least its last value, so ``certify.select_run`` takes
+    the k and certifies the merged run as it does one device's, and the
+    result is one device's, ties included."""
+    kp = run_width(k)
     home = q.device
     inf = float("inf")
     pre = _per_device(q, pl, devices, n_valid, k)
-    runs, th = [], None
+    runs, th, q_norm = [], None, None
     for sp, gpos, dev in zip(pl.shards, pl.gpos, devices):
         _, (qs, qcs, valid_s, inv, th_q, qps, homes) = pre[str(dev)]
         sched, cnt = schedule_visits(qps, homes, th_q, valid_s, sp.segs,
                                      bm=bm)
         dk, pos = ops.distance_topk_gather(qcs, sp.s_c, kp, sched, cnt,
                                            alive=sp.alive, bm=bm, bn=bn)
-        valid = pos >= 0
+        f, x, ids, d_can = run_columns(qs, sp, dk, pos)
         pos_c = torch.clamp(pos.to(torch.int64), 0, sp.s.shape[0] - 1)
-        d_can = torch.where(valid, canonical_gathered(qs, sp.s[pos_c]), inf)
-        run = (torch.where(valid, dk, inf), torch.where(valid, gpos[pos_c],
-                                                        _NO_POS),
-               d_can, torch.where(valid, sp.gids[pos_c], -1))
-        runs.append(tuple(x[inv].to(home, non_blocking=True) for x in run))
+        run = (f, torch.where(pos >= 0, gpos[pos_c], _NO_POS), x, ids,
+               d_can)
+        runs.append(tuple(y[inv].to(home, non_blocking=True) for y in run))
         if th is None:
             th = th_q[inv].to(home, non_blocking=True)
-    _, _, d, ids = runs[0] if len(runs) == 1 else tree_merge_runs(runs)
-    d, order = torch.sort(d, dim=1, stable=True)
-    d, ids = d[:, :k], torch.take_along_dim(ids, order, dim=1)[:, :k]
+            q_norm = torch.linalg.vector_norm(
+                qcs[inv].to(torch.float64), dim=1).to(home,
+                                                      non_blocking=True)
+    f, _, x, ids, d_can = runs[0] if len(runs) == 1 \
+        else tree_merge_runs(runs)
+    d, ids, unc = select_run(f, x, ids, d_can, q_norm, k, q.shape[1])
+    unc &= torch.arange(q.shape[0], device=home) < n_valid
     lm = coverage_bound(q, pl, th)
     if state is not None:
         if len(state) > 2:                # min of two sound bounds
             lm = torch.minimum(lm, state[2])
         d, ids = merge_state(d, ids, state, k)
-    return d, ids, lm
+    return StepOut(d, ids, lm, unc)
 
 
 class _ShardedPayloadMixin:
@@ -279,6 +282,11 @@ class _ShardedPayloadMixin:
         self.device = self.mesh.devices[0]
         self._rows_on_device = True
 
+    def _payload_shards(self) -> tuple:
+        """The payloads an exact re-run reads: every shard's serving
+        view (each row once: it masks the other replicas)."""
+        return self.payload().shards
+
     def _put_shard(self, x: np.ndarray, j: int) -> torch.Tensor:
         """Commit shard j's piece of the partitioned payload to its
         device. A ``ShardFault`` armed here stands in for a device lost
@@ -327,7 +335,9 @@ class _ShardedPayloadMixin:
             kk = min(k, si.t_s.knn_dists.shape[1])
             knn = si.t_s.knn_dists[:, :kk].contiguous()
             n_finite_total += int(torch.isfinite(knn).sum())
-            geo.append((si.pivots - center, si.pivd, knn))
+            geo.append((si.pivots - center, si.pivd,
+                        si.pivots.to(torch.float64), segment_excess(si),
+                        knn))
         rep = {}
         for dev in self.mesh.devices:
             if str(dev) not in rep:
@@ -352,11 +362,13 @@ class _ShardedPayloadMixin:
                  for (_, _, sp), start, inv_g in zip(packs, starts, inv)])
             s = self._put_shard(rows, j)
             geoms = tuple(
-                _SegGeom(pivots_c=pc, pivd=pivd, knn=knn,
+                _SegGeom(pivots_c=pc, pivd=pivd, pivots64=p64, excess=exc,
+                         knn=knn,
                          sd_min=self._put_shard(sp.sd_min[j], j),
                          sd_max=self._put_shard(sp.sd_max[j], j),
                          present=self._put_shard(sp.present[j], j))
-                for (pc, pivd, knn), (_, _, sp) in zip(geo_j, packs))
+                for (pc, pivd, p64, exc, knn), (_, _, sp)
+                in zip(geo_j, packs))
             shards.append(dict(center=c_j, geoms=geoms, s=s,
                                s_c=(s - c_j).contiguous(), gids_np=gids,
                                gids=self._put_shard(gids, j),
@@ -476,10 +488,11 @@ class ShardedMegastepEngine(_ShardedPayloadMixin, MegastepEngine):
 
     def join_batch_device(self, q_dev: torch.Tensor, n_valid: int, *,
                           state=None):
-        """The steady-state call: device queries in, device ``(dists,
-        ids, lm)`` out, no host sync (``lm``: the degraded-coverage
-        bound, +inf on a fully served mesh). ``state`` optionally
-        carries a previous ``(dists, ids[, lm])`` for the same slots."""
+        """The steady-state call: device queries in, a device
+        ``megastep.StepOut`` out, no host sync (``lm``: the
+        degraded-coverage bound, +inf on a fully served mesh). ``state``
+        optionally carries a previous ``(dists, ids[, lm])`` for the
+        same slots."""
         return self._mega_call(self.payload(), q_dev, n_valid, state)
 
     def _mega_call(self, payload: _ShardedPayload, q_dev: torch.Tensor,
@@ -609,7 +622,7 @@ class ShardedMegastepEngine(_ShardedPayloadMixin, MegastepEngine):
         meta = dict(n_segments=len(payload.segs),
                     n_tombstones=payload.dead_total,
                     pivots=sum(g.pivots_c.shape[0] for g in payload.segs))
-        return JoinHandle(kind="sharded", n=n, dev=dev, meta=meta)
+        return JoinHandle(kind="sharded", n=n, dev=dev, meta=meta, q=q)
 
     def finalize(self, handle: JoinHandle, *,
                  stats: Optional[JoinStats] = None
@@ -634,22 +647,23 @@ class ShardedMegastepEngine(_ShardedPayloadMixin, MegastepEngine):
 
         def fetch():
             faultinject.fire("megastep.fetch")     # a lost fetch
-            dd, ii, lmv = handle.dev
+            dd, ii, lmv, unc = handle.dev
             # over the merged result: a fail is a poisoned gather, a
             # sleeping transform a hung one (bounded by attempt_timeout)
             dd = faultinject.cross("sharded.collective", dd)
-            return (dd[:n].cpu().numpy(), ii[:n].cpu().numpy(),
-                    lmv[:n].cpu().numpy())
+            return tuple(x[:n].cpu().numpy() for x in (dd, ii, lmv, unc))
 
         try:
             with obs.span("sharded.collective", rows=n,
                           n_shards=self.n_shards,
                           generation=self.health.generation,
                           n_failed=len(self.health.failed)) as sp:
-                d, ids, lm = self._bounded_attempt(fetch, "sharded finalize")
+                d, ids, lm, unc = self._bounded_attempt(fetch,
+                                                        "sharded finalize")
                 sp.set(outcome="merged")
         except faultinject.ShardFault as e:
             raise self._shard_failed(e) from e
+        self._rerun(handle, d, ids, unc, stats)
         with np.errstate(invalid="ignore"):
             rb = ((d <= lm[:, None]).sum(axis=1) / k).astype(np.float32)
         if stats is not None:

@@ -171,6 +171,9 @@ class JoinStats:
     # sound per-query certificates)
     n_failed_shards: int = 0
     coverage_bound: float = 1.0
+    # certified K-G routes (core.certify): queries whose float32 run
+    # could not be certified and re-ran exactly (ROADMAP C15)
+    n_exact_rerun: int = 0
 
     def merged(self, other: "JoinStats") -> "JoinStats":
         """Fold ``other`` (a later attempt / retried / failed-over batch
@@ -184,7 +187,7 @@ class JoinStats:
           ``pairs_computed``/``pivot_pairs_computed``,
           ``tiles_total``/``tiles_visited``, ``n_batches``,
           ``n_quant_fallback``, ``n_resident_rerank``/``n_host_rerank``,
-          ``n_degraded``, and the ``compact_time_s`` accumulator
+          ``n_degraded``, ``n_exact_rerun``, and the ``compact_time_s`` accumulator
           (selectivity/tile-selectivity stay meaningful as
           work-weighted aggregates);
         * **sizes keep the max** — ``n_s`` is the S side every attempt
@@ -223,6 +226,7 @@ class JoinStats:
             n_failed_shards=max(self.n_failed_shards,
                                 other.n_failed_shards),
             n_shards=other.n_shards or self.n_shards,
+            n_exact_rerun=self.n_exact_rerun + other.n_exact_rerun,
         )
         # quant routing: the trio travels together (autotuned=False is a
         # meaningful stamp once a mode is set)

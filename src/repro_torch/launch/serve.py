@@ -1,9 +1,11 @@
-"""Serving launcher: batched generation for a dense ``--arch``, optional
-kNN-LM retrieval backed by the PGBJ join. PyTorch port of the JAX
-package's ``launch.serve``.
+"""Serving launcher: batched generation for a dense or MoE ``--arch``,
+optional kNN-LM retrieval backed by the PGBJ join. PyTorch port of the
+JAX package's ``launch.serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       [--reduced] [--requests 8] [--new-tokens 16] [--retrieval]
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b --reduced --device cpu --retrieval
 
 Runs on the card (bf16 at full width, float32 with ``--reduced``);
 ``--device cpu`` runs the plain PyTorch versions of the kernels.

@@ -1,6 +1,7 @@
 """The LM substrate, PyTorch port of the JAX package's ``models`` — the
-dense family: the layer stack walked in a Python loop, attention on the
-flash attention kernel K-F."""
+dense and MoE families: the layer stack walked in a Python loop,
+attention (GQA and MLA) on the flash attention kernel K-F, the MoE FFN
+in ``models.moe``."""
 from .convert import params_from_jax
 from .model import (ModelOptions, count_params, forward, init_cache,
                     init_params, layer_kinds)

@@ -29,6 +29,8 @@ def _tensor(x, dtype, dev) -> torch.Tensor:
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):      # MoE's shared experts
+        return [_map(v, fn) for v in tree]
     return fn(tree)
 
 

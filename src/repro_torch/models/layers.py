@@ -12,10 +12,19 @@ Self-attention runs through the flash attention kernel K-F
 and prefill without a cache, and with a decode cache over its live part
 ``k[:, :pos + t]`` with the queries right-aligned, which is the function
 the JAX ``_sdpa`` computes over the whole cache masked causally at offset
-``pos``. The model's matrix products stay ``torch.matmul``. The
-ring-buffer cache of local attention, the read-only serving cache, MLA,
-M-RoPE, cross-attention and a logit softcap are not ported
-(``not_ported``).
+``pos``. The model's matrix products stay ``torch.matmul``.
+
+Multi-head latent attention (MLA, DeepSeek-V2) runs on K-F in both of
+the JAX package's forms: *expanded* without a cache (per-head keys and
+values out of the latent; v zero-padded to the q·k width, which K-F
+needs, and the output cut back), *absorbed* with one (every call with
+a cache, prefill included, as the JAX ``absorb=True`` default: MQA over
+the compressed cache, q' = [q_nope·W_uk, q_rope] against k' = [ckv,
+k_rope], v = k' itself and the first ``kv_lora_rank`` output columns
+kept, which is probs·ckv). Both take the JAX scale (qk_nope +
+rope)^−0.5. The ring-buffer cache of local attention, the read-only
+serving cache, M-RoPE, cross-attention and a logit softcap are not
+ported (``not_ported``).
 """
 from __future__ import annotations
 
@@ -28,9 +37,10 @@ from ..configs.base import ArchConfig
 from ..core.index import not_ported
 from ..kernels import ops
 
-__all__ = ["dense_init", "dense", "norm_init", "apply_norm", "rope_freqs",
-           "rope_tables", "apply_rope", "mlp_init", "mlp_apply", "repeat_kv",
-           "attn_init", "attn_apply"]
+__all__ = ["dense_init", "dense", "normal_init", "norm_init", "apply_norm",
+           "rope_freqs", "rope_tables", "apply_rope", "mlp_init",
+           "mlp_apply", "repeat_kv", "attn_init", "attn_apply", "mla_init",
+           "mla_apply"]
 
 Params = Dict[str, Any]
 
@@ -42,6 +52,30 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
                     device=device) * scale
     return {"w": w.to(dtype)}
+
+
+# elements a float32 draw holds at once before its cast (1 GiB): the
+# largest leaves (Arctic's experts: 17.8 GB in float32) are drawn in
+# slices along their first axis
+_DRAW_ELEMS = 1 << 28
+
+
+def normal_init(gen: torch.Generator, shape, scale: float, dtype,
+                device) -> torch.Tensor:
+    """``randn(shape) · scale`` drawn in float32 from ``gen`` and cast to
+    ``dtype``, at most ``_DRAW_ELEMS`` float32 values at a time."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    per = max(1, _DRAW_ELEMS // max(1, out[0].numel())) if out.dim() else 1
+    if out.dim() == 0 or per >= shape[0]:
+        out.copy_(torch.randn(shape, generator=gen, dtype=torch.float32,
+                              device=device) * scale)
+        return out
+    for lo in range(0, shape[0], per):
+        hi = min(lo + per, shape[0])
+        out[lo:hi] = torch.randn((hi - lo,) + tuple(shape[1:]),
+                                 generator=gen, dtype=torch.float32,
+                                 device=device) * scale
+    return out
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -203,3 +237,74 @@ def attn_apply(
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               scale=dh ** -0.5)
     return dense(p["o"], out.reshape(b, t, h * dh)), cache
+
+
+# ------------------------------------------------------------------ MLA
+def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
+    c = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        # queries: full rank (the lite model has no q-LoRA)
+        "q": dense_init(gen, d, h * (c.qk_nope_head_dim + c.rope_head_dim),
+                        dtype, device),
+        # the compressed kv and the shared rope key
+        "dkv": dense_init(gen, d, c.kv_lora_rank, dtype, device),
+        "k_rope": dense_init(gen, d, c.rope_head_dim, dtype, device),
+        "kv_norm": norm_init(c.kv_lora_rank, "rms", dtype, device),
+        # up-projections out of the latent
+        "uk": dense_init(gen, c.kv_lora_rank, h * c.qk_nope_head_dim, dtype,
+                         device),
+        "uv": dense_init(gen, c.kv_lora_rank, h * c.v_head_dim, dtype,
+                         device),
+        "o": dense_init(gen, h * c.v_head_dim, d, dtype, device),
+    }
+
+
+def mla_apply(
+    p: Params, x: torch.Tensor, cfg: ArchConfig, *,
+    positions: torch.Tensor, cache: Optional[Params] = None, pos: int = 0,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Multi-head latent attention, writing this step's latent and rope
+    key into ``cache`` (``{"ckv", "k_rope"}``) at ``pos`` in place;
+    returns ``(out, cache)``. Expanded form without a cache, absorbed
+    with one (module docstring)."""
+    c = cfg.mla
+    b, t, _ = x.shape
+    h, nope, rope, lat = (cfg.n_heads, c.qk_nope_head_dim, c.rope_head_dim,
+                          c.kv_lora_rank)
+    dq = nope + rope
+    scale = dq ** -0.5
+    q = dense(p["q"], x).reshape(b, t, h, dq)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    ckv = apply_norm(p["kv_norm"], dense(p["dkv"], x), "rms")   # (B, T, L)
+    k_rope = dense(p["k_rope"], x).reshape(b, t, 1, rope)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0]
+
+    if cache is not None:
+        cache["ckv"][:, pos:pos + t] = ckv
+        cache["k_rope"][:, pos:pos + t] = k_rope
+        ckv_all = cache["ckv"][:, :pos + t]
+        kr_all = cache["k_rope"][:, :pos + t]
+        # absorbed: MQA over the latent, d = kv_lora + rope
+        wuk = p["uk"]["w"].reshape(lat, h, nope)
+        q_abs = torch.einsum("bthd,lhd->bthl", q_nope, wuk)
+        qq = torch.cat([q_abs, q_rope], dim=-1)
+        kk = torch.cat([ckv_all, kr_all], dim=-1)[:, :, None, :]
+        o_lat = ops.flash_attention(qq, kk, kk, causal=True,
+                                    scale=scale)[..., :lat]
+        wuv = p["uv"]["w"].reshape(lat, h, c.v_head_dim)
+        out = torch.einsum("bthl,lhv->bthv", o_lat, wuv)
+    else:
+        # expanded: per-head keys and values out of the latent
+        k_nope = dense(p["uk"], ckv).reshape(b, t, h, nope)
+        v = dense(p["uv"], ckv).reshape(b, t, h, c.v_head_dim)
+        k_full = torch.cat([k_nope, k_rope[:, :, None].expand(b, t, h, rope)],
+                           dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        width = max(dq, c.v_head_dim)
+        out = ops.flash_attention(
+            F.pad(q_full, (0, width - dq)), F.pad(k_full, (0, width - dq)),
+            F.pad(v, (0, width - c.v_head_dim)), causal=True,
+            scale=scale)[..., :c.v_head_dim]
+    return dense(p["o"], out.reshape(b, t, h * c.v_head_dim)), cache

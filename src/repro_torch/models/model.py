@@ -4,14 +4,17 @@ embedding → the layer stack → final norm → head.
 The JAX package scans each ``(unit, reps)`` group of ``cfg.layout()``
 over parameters stacked along a leading ``reps`` axis; the port keeps one
 parameter dict per layer in ``params["layers"]``, in the stack's order
-(:func:`layer_kinds`), and walks them in a Python loop. Only the
-``dense`` family runs (all four dense configs: GQA/MQA, SwiGLU or
-squared ReLU, RMS or LayerNorm, per-head q/k norm, tied or separate
-head); the other families raise ``not_ported``.
+(:func:`layer_kinds`), and walks them in a Python loop. The ``dense``
+family (all four dense configs: GQA/MQA, SwiGLU or squared ReLU, RMS or
+LayerNorm, per-head q/k norm, tied or separate head) and the ``moe``
+family (arctic-480b: GQA with a 128-expert top-2 MoE beside a dense
+residual; deepseek-v2-lite-16b: MLA, 64 routed top-6 + 2 shared
+experts, a dense first layer) run; the other families raise
+``not_ported``.
 
-A decode cache is ``{"pos": int, "layers": [{"k", "v"}, ...]}``: the
-position is a host int, not a device scalar, and each step writes its k
-and v into the layer tensors in place.
+A decode cache is ``{"pos": int, "layers": [{"k", "v"} or MLA's
+{"ckv", "k_rope"}, ...]}``: the position is a host int, not a device
+scalar, and each step writes into the layer tensors in place.
 
 Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
 fills the cache from position 0 on), ``decode`` (positions continue from
@@ -28,7 +31,7 @@ from ..configs.base import ArchConfig
 from ..core.index import not_ported
 from ..device import resolve_device
 from .blocks import block_apply, block_init, init_block_cache
-from .layers import apply_norm, norm_init
+from .layers import apply_norm, norm_init, normal_init
 
 __all__ = ["ModelOptions", "init_params", "init_cache", "forward",
            "count_params", "layer_kinds"]
@@ -48,13 +51,14 @@ class ModelOptions:
 
 
 def _check_arch(cfg: ArchConfig, opts: ModelOptions) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise not_ported(f"the {cfg.family!r} family ({cfg.name})", "A6")
     if cfg.attn_logit_softcap > 0:
         raise not_ported("attention with a logit softcap (K-F has none, as "
                          "the TPU kernel)", "A6")
     if opts.readonly_cache:
-        raise not_ported("the read-only serving cache (a mesh layout)", "A6")
+        raise not_ported("the read-only serving cache (a mesh layout; "
+                         "A6d)", "A6")
 
 
 def layer_kinds(cfg: ArchConfig) -> List[str]:
@@ -74,17 +78,14 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     dev = resolve_device(device)
     dtype = opts.dtype
 
-    def normal(shape, scale):
-        return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                            device=dev) * scale).to(dtype)
-
     params: Params = {
-        "embed": normal((cfg.vocab, cfg.d_model), 0.02),
+        "embed": normal_init(gen, (cfg.vocab, cfg.d_model), 0.02, dtype,
+                             dev),
         "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((cfg.d_model, cfg.vocab),
-                                   cfg.d_model ** -0.5)
+        params["lm_head"] = normal_init(gen, (cfg.d_model, cfg.vocab),
+                                        cfg.d_model ** -0.5, dtype, dev)
     params["layers"] = [block_init(kind, gen, cfg, dtype, dev)
                         for kind in layer_kinds(cfg)]
     return params

@@ -10,11 +10,13 @@ n_rows, k)`` persists such decisions as JSON, and
 ``QuantMegastepEngine`` looks its shape up at construction. An explicit
 ``quant_slack`` (or ``tune=False``) pins classic int8 behaviour.
 
-The port's table starts empty: the JAX package's ``TUNE_quant.json``
-holds measurements of another program on another device, and no sweep
-of this port has been recorded yet. The default table is read from
-``REPRO_TORCH_QUANT_TUNE_TABLE`` or ``TUNE_quant.json`` beside this
-module; a missing file is an empty table.
+The port's table, ``TUNE_quant.json`` beside this module, holds this
+port's own sweep on the card (``tools/tune_quant.py``: the JAX package's
+tuning shapes and the shapes ``chip_smoke.py`` serves), under the
+``cuda`` backend; the JAX package's table measured another program on
+another device and is not carried over. CPU lookups find no cell and run
+int8. The default table is read from ``REPRO_TORCH_QUANT_TUNE_TABLE`` or
+that file; a missing file is an empty table.
 """
 from __future__ import annotations
 

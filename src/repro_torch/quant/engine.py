@@ -30,7 +30,9 @@ Construction resolves ``mode`` (``"int8"``, or ``"fp32"`` when a tuning
 table entry measured int8 as a loss; an explicit slack pins int8),
 ``mp`` (explicit slack, else the tuned value, else max(pow2(4k), 128))
 and ``resident`` (fits ``REPRO_QUANT_RESIDENT_MAX_BYTES``, default
-1 GiB). The port's tuning table starts empty (``quant.autotune``).
+1 GiB). The port's tuning table (``quant.autotune``) holds the card's
+cells, measured by ``tools/tune_quant.py``; a shape without a cell on its
+backend (every CPU shape) runs int8.
 
 ``ShardedQuantMegastepEngine`` runs the same tier over a mesh
 (``core.sharded``): K-Q on each shard's codes, ε and schedule, the exact
@@ -52,7 +54,7 @@ import torch
 
 from .. import obs
 from ..core.bounds import pad_theta
-from ..core.megastep import (JoinHandle, MegastepEngine, _Payload,
+from ..core.megastep import (JoinHandle, MegastepEngine, StepOut, _Payload,
                              assign_bounds_schedule, canonical_run,
                              schedule_visits)
 from ..core.metrics import canonical_gathered, canonical_topk
@@ -124,9 +126,9 @@ def _quant_coarse(q, n_valid, pl: _QuantPayload, *, mp, k, bm, bn):
 
 def _quant_megastep(q, n_valid, pl: _QuantPayload, *, mp, k, bm, bn):
     """The fused resident step: coarse shortlist → on-device fp32 gather
-    → canonical exact re-rank (stage 5 of the fp32 megastep). Returns
-    device ``(d (B, k), ids (B, k) int64, lm (B,))`` with ``lm`` the
-    per-query exclusion bound (the shortlist's largest lb)."""
+    → canonical exact re-rank (stage 5 of the fp32 megastep). Returns a
+    device ``StepOut`` with ``lm`` the per-query exclusion bound (the
+    shortlist's largest lb) and nothing uncertified."""
     lb, pos = _quant_coarse(q, n_valid, pl, mp=mp, k=k, bm=bm, bn=bn)
     # pos ≥ 0 ⇔ a live row: the coarse pass masks dead and padding rows
     valid = pos >= 0
@@ -136,7 +138,13 @@ def _quant_megastep(q, n_valid, pl: _QuantPayload, *, mp, k, bm, bn):
     ids = torch.where(valid, pl.gids[pos_c], -1)
     d_can, order = torch.sort(d_can, dim=1, stable=True)
     ids = torch.take_along_dim(ids, order, dim=1)
-    return d_can[:, :k], ids[:, :k], lb[:, -1]
+    return _int8_out(d_can[:, :k], ids[:, :k], lb[:, -1])
+
+
+def _int8_out(d, ids, lm) -> StepOut:
+    """An int8 step's ``StepOut``: certified by ``lm``, none by K-G."""
+    return StepOut(d, ids, lm, torch.zeros((d.shape[0],), dtype=torch.bool,
+                                           device=d.device))
 
 
 class QuantMegastepEngine(MegastepEngine):
@@ -269,10 +277,9 @@ class QuantMegastepEngine(MegastepEngine):
         return lb, pos, ids
 
     def join_batch_device(self, q_dev, n_valid: int, *, state=None):
-        """Resident mode's steady-state call: device ``(dists, ids,
-        lm)`` out of one fused step, no host sync (note the extra ``lm``
-        certification bound next to the fp32 parent's pair). fp32 mode
-        delegates to the parent. The host-gather variant has no
+        """Resident mode's steady-state call: a device ``StepOut`` of one
+        fused step, no host sync (``lm`` the certification bound). fp32
+        mode delegates to the parent. The host-gather variant has no
         device-only form."""
         if self.mode == "fp32":
             return super().join_batch_device(q_dev, n_valid, state=state)
@@ -357,7 +364,9 @@ class QuantMegastepEngine(MegastepEngine):
         """Fetch a fused resident batch: numpy ``(d, ids, lm)`` — the
         exact top-k and the per-query exclusion bound."""
         faultinject.fire("megastep.fetch")     # a lost fetch
-        d, ids, lm = (x[:handle.n].cpu().numpy() for x in handle.dev)
+        out = handle.dev
+        d, ids, lm = (x[:handle.n].cpu().numpy()
+                      for x in (out.d, out.ids, out.lm))
         # deflated bounds force certification failures downstream
         lm = faultinject.transform_value("quant.eps_inflation", lm)
         return d, ids, lm
@@ -445,8 +454,7 @@ def _sharded_quant_megastep(q, n_valid, pl, *, mp, k, bm, bn, devices):
     tree-merged, and the certification bound the minimum over shards.
     Sound: a row shard j left out of its shortlist has lb ≥ lm_j ≥ min_j
     lm_j; a shortlisted row dropped past rank kp is no nearer than the
-    shard's kp-th ≥ the merged k-th. Returns device ``(d (B, k), ids,
-    lm (B,))``."""
+    shard's kp-th ≥ the merged k-th. Returns a device ``StepOut``."""
     kp = next_pow2(k)
     home = q.device
     pre = _per_device(q, pl, devices, n_valid, k)
@@ -469,7 +477,7 @@ def _sharded_quant_megastep(q, n_valid, pl, *, mp, k, bm, bn, devices):
         lm_j = lb[:, -1][inv].to(home, non_blocking=True)
         lm = lm_j if lm is None else torch.minimum(lm, lm_j)
     d, ids = runs[0] if len(runs) == 1 else tree_merge_runs(runs)
-    return d[:, :k], ids[:, :k], lm
+    return _int8_out(d[:, :k], ids[:, :k], lm)
 
 
 class ShardedQuantMegastepEngine(_ShardedPayloadMixin,
@@ -549,18 +557,17 @@ class ShardedQuantMegastepEngine(_ShardedPayloadMixin,
             "join_batch / join_batch_approx")
 
     def join_batch_device(self, q_dev, n_valid: int, *, state=None):
-        """Device ``(dists, ids, lm)`` of one sharded step, no host
-        sync (fp32 mode: the sharded fp32 megastep's ``(dists,
-        ids)``)."""
+        """A device ``StepOut`` of one sharded step, no host sync (fp32
+        mode: the sharded fp32 megastep's)."""
         bucket = int(q_dev.shape[0])
         bm = min(bucket, self._bm_cap)
         pl = self.payload()
         if self.mode == "fp32":
-            d, ids, _ = _sharded_megastep(
+            out = _sharded_megastep(
                 q_dev, n_valid, pl, k=self.config.k, bm=bm, bn=self._bn,
                 devices=self.mesh.devices, state=state)
             self.step_count += 1
-            return d, ids
+            return out
         if state is not None:
             raise NotImplementedError(
                 "carried-state merge is the fp32 megastep's API; the "

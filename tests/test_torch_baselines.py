@@ -122,6 +122,42 @@ def test_pruned_reducer_exact_on_map_coordinates():
         np.testing.assert_array_equal(res.distances, bd)
 
 
+@pytest.fixture(scope="module")
+def osm_c15():
+    """3,000 OSM-like rows, their float64 oracle, the ids of the exact
+    order over every row (``certify.exact_topk``), a gather config at 32
+    pivots and an index over them."""
+    from repro_torch.core.certify import exact_topk
+    x = rt.osm_like(3000, seed=16)
+    bd, _ = rt.brute_force_knn(x, x, 10, device="cpu")
+    _, ids = exact_topk(torch.from_numpy(x), torch.from_numpy(x),
+                        torch.arange(x.shape[0]), 10)
+    cfg = rt.JoinConfig(k=10, n_pivots=32, n_groups=9, reducer="gather")
+    return x, bd, ids.numpy(), cfg, rt.build_index(x, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("route", ["gather", "megastep", "sharded"])
+def test_k_g_routes_exact_on_map_coordinates(osm_c15, route):
+    """ROADMAP C15 on the K-G routes: 3,000 OSM-like rows at 32 pivots
+    give the float64 oracle's distances bit for bit; the queries whose
+    float32 run is not certified re-run exactly over the rows their
+    schedule (or group) holds, and are counted; the ids are those of the
+    exact order over every row (Forest-like rows take no re-run:
+    ``tests/test_torch_sharded.py``)."""
+    from repro_torch.distributed import make_mesh
+    x, bd, want_ids, cfg, idx = osm_c15
+    if route == "gather":
+        res = rt.knn_join(x, x, config=cfg, device="cpu")
+    else:
+        mesh = (make_mesh((4,), ("shard",), devices=["cpu"] * 4)
+                if route == "sharded" else None)
+        res = rt.knn_join_batched(x, index=idx, batch_size=1024,
+                                  megastep=True, mesh=mesh, device="cpu")
+    np.testing.assert_array_equal(res.distances, bd)
+    np.testing.assert_array_equal(res.indices, want_ids)
+    assert 0 < res.stats.n_exact_rerun < x.shape[0]
+
+
 # map coordinates where the float32 expansion under-reads |r, p_i| and
 # |p_i, s'| by more than θ's pad (found by a seeded search; every one
 # made the pruned reducer miss while θ was built from those distances)
@@ -268,11 +304,11 @@ def test_launch_join_osm_and_distributed():
                             "--device", "cpu", "--distributed", "--shards",
                             "3", "--simulate", "--verify"])
     assert res.indices.shape == (800, 4)
-    # on map coordinates the sharded megastep carries the K-G routes'
-    # float32 selection (ROADMAP C15), so the OSM run is not verified
+    # the sharded megastep on map coordinates is exact too (ROADMAP C15)
     res = launch_join.main(["--dataset", "osm", "--n", "800", "--k", "4",
                             "--pivots", "16", "--device", "cpu",
-                            "--distributed", "--shards", "3", "--simulate"])
+                            "--distributed", "--shards", "3", "--simulate",
+                            "--verify"])
     assert res.indices.shape == (800, 4)
 
 

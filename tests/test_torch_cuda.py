@@ -894,10 +894,9 @@ def _card_mesh(n, name="shard"):
 @pytest.mark.parametrize("n", [1, 2, 4])
 def test_sharded_megastep_on_card(cuda, n):
     """The sharded megastep on ``n`` simulated card shards: K-G once per
-    shard a batch, the single-device engine's distances bit for bit; ids
-    may differ only among exactly tied distances (Forest-like rows hold
-    duplicates, and which of a tie's rows a schedule visits past θ
-    depends on the tiles)."""
+    shard a batch, the single-device engine's distances and ids bit for
+    bit, on Forest-like rows that hold duplicates and exact ties (ROADMAP
+    C17: the k of a certified run are taken in (exact d², id) order)."""
     s = rt.forest_like(20_000, 10, seed=90)
     r = rt.forest_like(1_500, 10, seed=91)
     cfg = rt.JoinConfig(k=10, n_pivots=64)
@@ -910,11 +909,140 @@ def test_sharded_megastep_on_card(cuda, n):
     assert ops.launch_counts()["distance_topk_gather"] == \
         n * got.stats.n_batches
     np.testing.assert_array_equal(got.distances, want.distances)
-    rows, cols = np.nonzero(got.indices != want.indices)
-    s64, r64 = s.astype(np.float64), r[rows].astype(np.float64)
-    d_got = ((s64[got.indices[rows, cols]] - r64) ** 2).sum(1)
-    d_want = ((s64[want.indices[rows, cols]] - r64) ** 2).sum(1)
-    np.testing.assert_array_equal(d_got, d_want)      # exact ties only
+    np.testing.assert_array_equal(got.indices, want.indices)
+
+
+def test_megastep_card_equals_cpu_at_ties(cuda):
+    """C17's rows: the card's megastep (K-G) and the CPU's (K-G's plain
+    version) give the same distances and ids, ties included, and both
+    are the exact (exact d², id) order over every row."""
+    from repro_torch.core.certify import exact_topk
+    s = rt.forest_like(20_000, 10, seed=90)
+    r = rt.forest_like(1_500, 10, seed=91)
+    cfg = rt.JoinConfig(k=10, n_pivots=64)
+    got = {}
+    for dev in (cuda, "cpu"):
+        idx = rt.build_index(s, cfg, device=dev)
+        got[str(dev)] = rt.knn_join_batched(r, index=idx, batch_size=512,
+                                            megastep=True, device=dev)
+    card, cpu = got[str(cuda)], got["cpu"]
+    np.testing.assert_array_equal(card.distances, cpu.distances)
+    np.testing.assert_array_equal(card.indices, cpu.indices)
+    d, i = exact_topk(torch.from_numpy(r), torch.from_numpy(s),
+                      torch.arange(s.shape[0]), 10)
+    np.testing.assert_array_equal(card.indices, i.numpy())
+
+
+@pytest.mark.parametrize("route", ["gather", "megastep", "sharded"])
+def test_k_g_routes_exact_on_map_coordinates_card(cuda, route):
+    """C15 on the card: 16,384 OSM-like rows, every K-G route bitwise the
+    float64 oracle (uncertified runs re-run exactly and are counted)."""
+    x = rt.osm_like(16_384, seed=16)
+    bd, _ = rt.brute_force_knn(x, x, 10, device=cuda)
+    cfg = rt.JoinConfig(k=10, n_pivots=128, n_groups=9, reducer="gather")
+    if route == "gather":
+        res = rt.knn_join(x, x, config=cfg, device=cuda)
+    else:
+        idx = rt.build_index(x, cfg, device=cuda)
+        res = rt.knn_join_batched(
+            x, index=idx, batch_size=4096, megastep=True, device=cuda,
+            mesh=_card_mesh(4) if route == "sharded" else None)
+    np.testing.assert_array_equal(res.distances, bd)
+    assert 0 < res.stats.n_exact_rerun < x.shape[0]
+
+
+def test_moe_routing_card_equals_cpu(cuda):
+    """The MoE router on the card picks the CPU's experts, slots and kept
+    mask (bfloat16 logits on a grid: every one exact, ties everywhere),
+    and the reduced deepseek's MoE FFN agrees across the devices."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = configs.get_reduced("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    rng = np.random.default_rng(11)
+    w = (rng.integers(-2, 3, (cfg.d_model, cfg.moe.n_experts)) * 0.125
+         ).astype(np.float32)
+    w[:, 5] = w[:, 2]
+    x = (rng.integers(-2, 3, (4100, cfg.d_model)) * 0.25).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {"router": {"w": torch.as_tensor(w, device=dev).bfloat16()}}
+        out[str(dev)] = moe.moe_route(
+            p, torch.as_tensor(x, device=dev).bfloat16(), cfg)
+    for a, b in zip(out["cpu"][:3], out[str(cuda)][:3]):
+        assert torch.equal(a, b.cpu())
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32,
+                     "cpu")
+    xs = torch.as_tensor(rng.normal(size=(2, 40, cfg.d_model)),
+                         dtype=torch.float32)
+    want = moe.moe_apply(p, xs, cfg)
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {key: to_card(val) for key, val in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(val) for val in tree]
+        return tree.to(cuda)
+
+    got = moe.moe_apply(to_card(p), xs.to(cuda), cfg).cpu()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("form", ["absorbed", "expanded"])
+def test_mla_on_kf_matches_plain(cuda, form):
+    """MLA on the card, in bfloat16: with a cache (absorbed, K-F at d =
+    kv_lora + rope, v = k) and without (expanded, v padded): K-F launched
+    once a call, its output within one bfloat16 rounding of the plain
+    version's on the same inputs, and the layer's output too."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models.layers import mla_apply, mla_init
+    cfg = configs.get_arch("deepseek-v2-lite-16b")
+    c = cfg.mla
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    p = mla_init(gen, cfg, torch.bfloat16, cuda)
+    x = torch.randn((2, 300, cfg.d_model), generator=gen,
+                    device=cuda).bfloat16()
+    pos = torch.arange(300, device=cuda)[None].expand(2, 300)
+
+    def cache():
+        if form == "expanded":
+            return None
+        return {"ckv": torch.zeros((2, 300, c.kv_lora_rank), device=cuda,
+                                   dtype=torch.bfloat16),
+                "k_rope": torch.zeros((2, 300, c.rope_head_dim),
+                                      device=cuda, dtype=torch.bfloat16)}
+
+    seen = []
+    flash = ops.flash_attention
+
+    def checking(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        ref = kf.flash_attention_plain(q, k, v, **kw)
+        seen.append(tuple(q.shape))
+        lim = 2.0 ** -7 * torch.maximum(out.float().abs(), ref.float().abs())
+        assert bool(((out.float() - ref.float()).abs() <= lim + 1e-6).all())
+        return out
+
+    ops.reset_launch_counts()
+    ops.flash_attention = checking
+    try:
+        got, _ = mla_apply(p, x, cfg, positions=pos, cache=cache())
+    finally:
+        ops.flash_attention = flash
+    width = (c.kv_lora_rank + c.rope_head_dim if form == "absorbed"
+             else c.qk_nope_head_dim + c.rope_head_dim)
+    assert seen == [(2, 300, cfg.n_heads, width)]
+    assert ops.launch_counts()["flash_attention"] == 1
+    ops.flash_attention = kf.flash_attention_plain
+    try:
+        want, _ = mla_apply(p, x, cfg, positions=pos, cache=cache())
+    finally:
+        ops.flash_attention = flash
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=0.05,
+                               rtol=0.05)
 
 
 def test_sharded_dispatch_makes_no_host_sync(cuda):

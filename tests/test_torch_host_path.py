@@ -145,8 +145,9 @@ def test_plan_queries_matches_jax(kind):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_tile_schedule_matches_jax(seed):
-    """build_tile_schedule: the visit mask, the compacted schedule and
-    the counts exactly, and the pivot-pair count."""
+    """build_tile_schedule: the visit mask a superset of JAX's (the
+    port's is the sound form, ROADMAP C15), the compacted schedule and
+    the counts those of that mask, and the pivot-pair count."""
     s, r, jidx, tidx = _pair("forest", seed=seed)
     jp = j_plan(r, jidx)
     sel = np.where(jp.group_of_r() == seed % jp.n_groups)[0]
@@ -162,10 +163,12 @@ def test_tile_schedule_matches_jax(seed):
         _t(rr), _t(rp), _t(sp), _t(sd), _t(jidx.pivots), _t(jidx.pivd),
         _t(jp.theta), bm=32, bn=64, knn_dists=_t(jidx.t_s.knn_dists),
         k=CFG["k"], stats=tst, tile_block=3)
-    np.testing.assert_array_equal(got.visit_mask.numpy(), want.visit_mask)
-    np.testing.assert_array_equal(got.schedule.numpy(), want.schedule)
-    np.testing.assert_array_equal(got.counts.numpy(), want.counts)
-    assert (got.n_visits, got.density) == (want.n_visits, want.density)
+    visit = got.visit_mask.numpy()
+    assert not (want.visit_mask & ~visit).any()
+    assert want.n_visits <= got.n_visits < visit.size      # still prunes
+    sched, cnt = jS.compact_visit_mask(visit)
+    np.testing.assert_array_equal(got.schedule.numpy(), sched)
+    np.testing.assert_array_equal(got.counts.numpy(), cnt)
     assert tst.pivot_pairs_computed == jst.pivot_pairs_computed
 
 

@@ -35,11 +35,15 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch.obs.export, repro_torch.data\n"
         "import repro_torch.distributed, repro_torch.core.sharded\n"
         "import repro_torch.core.distributed, repro_torch.quant.engine\n"
+        "import repro_torch.models.moe, repro_torch.core.certify\n"
+        "import runpy\n"
+        "runpy.run_path(sys.argv[1], run_name='tune_quant')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], env=env,
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(ROOT / "tools" / "tune_quant.py")], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
 
@@ -47,10 +51,12 @@ def test_import_loads_neither_jax_nor_repro():
 def test_sources_import_no_jax_or_repro():
     pat = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_torch)"
                      r"|from\s+(jax|jaxlib|repro)\b(?!_torch))", re.M)
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "bench_assign.py",
-                                         ROOT / "tools" / "bench_select.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "tools").glob("*.py"))
     assert len(files) >= 15
+    for name in ("models/moe.py", "core/certify.py"):
+        assert PKG / name in files
+    assert ROOT / "tools" / "tune_quant.py" in files
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
     assert not offenders, offenders
@@ -70,7 +76,8 @@ def _small():
     "hbrj_join", "pbj_join", "select_pivots", "launch.join", "make_mesh",
     "GroupComm", "distributed_knn_join", "distributed_phase1",
     "ShardedMegastepEngine", "ShardedQuantMegastepEngine",
-    "sharded Datastore", "launch.join --distributed"])
+    "sharded Datastore", "launch.join --distributed", "tools/tune_quant.py",
+    "init_params moe", "init_cache moe"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises;
     it never carries on silently on the CPU."""
@@ -81,6 +88,10 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
     from repro_torch.launch import join as launch_join
     from repro_torch.launch import serve as launch_serve
     lm = configs.get_reduced("llama3.2-3b")
+    moe_lm = configs.get_reduced("deepseek-v2-lite-16b")
+    import runpy
+    tune = runpy.run_path(str(ROOT / "tools" / "tune_quant.py"),
+                          run_name="tune_quant")
     cpu_params = models.init_params(lm, torch.Generator(), device="cpu")
     np_params = {"embed": cpu_params["embed"].float().numpy(),
                  "final_norm": {"scale": np.ones(lm.d_model, np.float32)},
@@ -137,6 +148,10 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         "launch.join --distributed": lambda: launch_join.main(
             ["--n", "200", "--k", "3", "--distributed", "--shards", "2",
              "--simulate"]),
+        "tools/tune_quant.py": lambda: tune["main"](["--fast"]),
+        "init_params moe": lambda: models.init_params(moe_lm,
+                                                      torch.Generator()),
+        "init_cache moe": lambda: models.init_cache(moe_lm, 2, 8),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -1,5 +1,8 @@
 """The port's LM substrate (``repro_torch.models``, ``serve.serve_step``)
-against the JAX package's, on the reduced forms of the four dense configs.
+against the JAX package's, on the reduced forms of the four dense configs
+and of the two MoE configs (deepseek-v2-lite-16b: MLA, MoE with shared
+experts, a dense first layer; arctic-480b: GQA, MoE beside a dense
+residual).
 
 The JAX parameters (float32, seeded) are carried across with
 ``models.params_from_jax``; the same numpy tokens go through both
@@ -42,6 +45,7 @@ from repro_torch.serve import (  # noqa: E402
     BatchedServer, Datastore, KnnLMConfig, ServeConfig, make_knn_hook)
 
 DENSE = ("llama3.2-3b", "qwen3-14b", "granite-34b", "nemotron-4-15b")
+MOE = ("deepseek-v2-lite-16b", "arctic-480b")
 ATOL = RTOL = 2e-5
 
 
@@ -73,7 +77,7 @@ def test_registry_matches_jax():
         assert configs.get_arch(arch).layout() == get_arch(arch).layout()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_forward_matches_jax(arch):
     """Train mode over a whole sequence, then prefill into a cache and
     three decode steps against it: logits within the stated tolerance;
@@ -166,8 +170,17 @@ def test_init_params_shapes_and_unported_families():
     flat = jax.tree_util.tree_leaves
     assert [tuple(t.shape) for t in flat(got)] == \
         [tuple(t.shape) for t in flat(ported)]
-    for arch in ("deepseek-v2-lite-16b", "xlstm-350m", "whisper-small",
-                 "qwen2-vl-7b", "recurrentgemma-9b", "arctic-480b"):
+    for arch in MOE:              # MoE and MLA leaves (a list included)
+        (_, jp, _), (cfg, ported) = _pair(arch)
+        got = init_params(cfg, torch.Generator().manual_seed(0),
+                          ModelOptions(dtype=torch.float32), device="cpu")
+        assert [tuple(t.shape) for t in flat(got)] == \
+            [tuple(t.shape) for t in flat(ported)]
+        assert count_params(got) == sum(x.size for x in flat(jp))
+        cache = init_cache(cfg, 2, 16, device="cpu")
+        assert len(cache["layers"]) == cfg.n_layers
+    for arch in ("xlstm-350m", "whisper-small", "qwen2-vl-7b",
+                 "recurrentgemma-9b"):
         with pytest.raises(NotImplementedError, match="Queue A6"):
             init_params(configs.get_reduced(arch), torch.Generator(),
                         device="cpu")

@@ -133,9 +133,10 @@ def test_carried_state_merge_dedups():
     eng = MegastepEngine(rt.build_index(s, rt.JoinConfig(**CFG),
                                         device="cpu"), device="cpu")
     q, n = eng.enqueue(r[:50])
-    d0, i0 = eng.join_batch_device(q, n)
-    d1, i1 = eng.join_batch_device(q, n, state=(d0, i0))
-    assert torch.equal(d1, d0) and torch.equal(i1, i0)
+    first = eng.join_batch_device(q, n)
+    again = eng.join_batch_device(q, n, state=(first.d, first.ids))
+    assert torch.equal(again.d, first.d) and torch.equal(again.ids,
+                                                         first.ids)
 
 
 def test_buckets_are_powers_of_two():

@@ -466,3 +466,32 @@ def test_sweep_config_smoke():
     ops.reset_launch_counts()
     eng.join_batch(s[:30])
     assert set(ops.launch_counts().values()) == {0}
+
+
+def test_tune_quant_tool_writes_cpu_cells_and_keeps_others(tmp_path):
+    """``tools/tune_quant.py --fast --device cpu`` sweeps its small cells
+    (here one, of 1,000 clustered rows, for time) into the table at
+    ``--out`` and keeps a cell of another backend already there."""
+    import runpy
+    from pathlib import Path
+    from repro_torch.quant import autotune
+    out = tmp_path / "tune.json"
+    other = autotune.TuningTable()
+    other.put(10, 581_012, 10, "cuda", autotune.TunedConfig(
+        mode="fp32", int8_batch_s=0.5, fp32_batch_s=0.1))
+    other.save(str(out))
+    tool = runpy.run_path(str(Path(__file__).resolve().parent.parent
+                              / "tools" / "tune_quant.py"),
+                          run_name="tune_quant")
+    assert ("forest", 10, 581_012, 10) in tool["SHAPES"]
+    tool["SHAPES"][:] = [("clustered", 16, 1000, 8),
+                         ("forest", 10, 581_012, 10)]   # --fast skips it
+    assert tool["main"](["--fast", "--device", "cpu", "--iters", "1",
+                         "--out", str(out)]) == 0
+    table = autotune.TuningTable.load(str(out))
+    assert set(table.entries) == {"cuda|d10|n1048576|k10",
+                                  "cpu|d16|n1024|k8"}
+    assert table.get(10, 581_012, 10, "cuda").fp32_batch_s == 0.1
+    cell = table.entries["cpu|d16|n1024|k8"]
+    assert cell.mode in ("int8", "fp32")
+    assert cell.int8_batch_s > 0 and cell.fp32_batch_s > 0

@@ -121,6 +121,40 @@ def test_sharded_fp32_bitwise_single_device(small, n):
     assert res.stats.n_shards == n and res.stats.n_r == r.shape[0]
 
 
+@pytest.fixture(scope="module")
+def forest_ties():
+    """ROADMAP C17's rows (Forest-like, with duplicates and exact ties):
+    the index, 500 queries, the one-device megastep's result and the
+    exact (exact d², id) order over every row."""
+    from repro_torch.core.certify import exact_topk
+    s = rt.forest_like(20_000, 10, seed=90)
+    r = rt.forest_like(1_500, 10, seed=91)[:500]
+    cfg = rt.JoinConfig(k=10, n_pivots=64)
+    idx = rt.build_index(s, cfg, device="cpu")
+    one = rt.knn_join_batched(r, index=idx, batch_size=512, megastep=True,
+                              device="cpu")
+    d, i = exact_topk(torch.from_numpy(r), torch.from_numpy(s),
+                      torch.arange(s.shape[0]), 10)
+    return r, idx, one, d.numpy(), i.numpy()
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_ids_equal_at_ties_forest(forest_ties, n):
+    """ROADMAP C17 on Forest-like rows, which hold duplicates and exact
+    ties: the sharded megastep's ids equal one device's on every slot,
+    and both are the k first live rows in (exact d², id) order
+    (``core.certify.exact_topk``), so the order does not depend on the
+    layout."""
+    r, idx, one, d, i = forest_ties
+    sh = rt.knn_join_batched(r, index=idx, batch_size=512, megastep=True,
+                             mesh=_mesh(n), device="cpu")
+    np.testing.assert_array_equal(sh.distances, one.distances)
+    np.testing.assert_array_equal(sh.indices, one.indices)
+    assert one.stats.n_exact_rerun == sh.stats.n_exact_rerun == 0
+    np.testing.assert_array_equal(one.distances, d)
+    np.testing.assert_array_equal(one.indices, i)
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 8])
 def test_sharded_int8_bitwise_single_device(n):
     s, r = _data(400, 0), _data(200, 1)
