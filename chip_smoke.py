@@ -154,17 +154,35 @@ force and against each other. Phases:
    per layer; arctic-480b at full width cut to 2 layers (one prefill, 8
    decode steps, batch 4, counted, the layer check); the reduced
    deepseek and arctic on the card and on the CPU with the same
-   weights (logits within 2e-5 + 2e-5·|logit|, tokens equal).
+   weights (logits within 2e-5 + 2e-5·|logit|, tokens equal);
+20. the recurrent, hybrid, audio and VLM families: K-F vs its plain
+   version at their shapes with SDPA beside each (whisper's encoder and
+   cross-attention non-causal over 1,500 frames; recurrentgemma's
+   windowed prefill and ring decode at d = 256, MQA; qwen2-vl's GQA 28 /
+   4 prefill); recurrentgemma-9b, xlstm-350m and qwen2-vl-7b at full
+   width and depth (bf16) through ``BatchedServer`` + ``make_knn_hook``
+   over phase 14's keys, 8 requests of 512-2,048 tokens (the longest
+   2,048, so recurrentgemma's decode wraps its ring), batch 8, 16 greedy
+   tokens, counted (K-F once per attention layer a forward: 204 / 0 /
+   476), every retrieval exact, the layer check past position 2,048;
+   qwen2-vl once more with 64 seeded vision embeddings over (t, h, w)
+   positions; whisper-small through ``encode`` (seeded stub frames, 8 ×
+   1,500 × 768) and ``make_serve_step(enc_out=)``: 8 prompts of 16-224
+   tokens, 32 greedy tokens (K-F 12 + 24 × 33), the layer check with
+   the encoder's calls; each reduced config on the card and the CPU
+   with the same weights (logits within 2e-5 + 2e-5·|logit|, tokens
+   equal).
 
 Every time printed stands beside the card's name and power limit. The
 line before the last two is one JSON object with each kernel's launches
-(its main paths' plus phase 18's; K-F's main paths are phases 14 and 19),
+(its main paths' plus phase 18's; K-F's main paths are phases 14, 19
+and 20),
 error, times and bound; the line before the last is the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before those lines, with its message on stdout and stderr
 (also without a card, or where the script stands alone, away from the
 repository's ``src/``). Long reports (nvcc's ``ptxas``
-output, the profiles by kernel, phases 16–19's numbers as JSON) go
+output, the profiles by kernel, phases 16–20's numbers as JSON) go
 to ``--out`` (default ``build/chip_smoke/``). Needs one card, no network; imports nothing of
 JAX.
 """
@@ -252,6 +270,45 @@ def time_ms(fn, *, warmup: int = 2, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed(fn, into: list):
+    """``fn`` wrapped to append each call's host wall ms, the device
+    synchronised before and after, to ``into``."""
+    import torch
+
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        into.append((time.perf_counter() - t) * 1e3)
+        return out
+    return run
+
+
+def to_device(tree):
+    """A tree of dicts and lists of tensors, copied to ``DEV``."""
+    if isinstance(tree, dict):
+        return {key: to_device(val) for key, val in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(val) for val in tree]
+    return tree.to(DEV)
+
+
+def record_retrievals(store, into: list):
+    """Make ``store.retrieve`` append each call's (queries, distances,
+    ids) to ``into``; returns the original method, to put back."""
+    import numpy as np
+    retrieve = store.retrieve
+
+    def recording(queries, k=None, **kw):
+        d, ids, values = retrieve(queries, k, **kw)
+        into.append((np.array(queries), d, ids))
+        return d, ids, values
+
+    store.retrieve = recording
+    return retrieve
 
 
 def bound(n_bytes: float, flops: float,
@@ -1174,8 +1231,9 @@ def attention_err(torch, out, ref) -> tuple[float, float]:
 
 
 def attention_case(card, torch, what: str, q, k, v, *, window=None,
-                   library=None, scale=None, d_v=None) -> dict:
-    """K-F vs its plain version on one shape (causal, queries
+                   library=None, scale=None, d_v=None,
+                   causal: bool = True) -> dict:
+    """K-F vs its plain version on one shape (causal or not, queries
     right-aligned), both timed, with ``library`` (one PyTorch call of the
     same function) timed beside them. ``d_v`` is the width of v the
     function uses (default all of it): MLA pads v with zeros (expanded
@@ -1188,7 +1246,7 @@ def attention_case(card, torch, what: str, q, k, v, *, window=None,
     b, nq, h, d = q.shape
     nk, kvh = k.shape[1], k.shape[2]
     d_v = v.shape[-1] if d_v is None else d_v
-    kw = dict(window=window, scale=scale)
+    kw = dict(window=window, scale=scale, causal=causal)
     out = kf.flash_attention_cuda(q, k, v, **kw)
     plan = kf.last_plan
     ref = kf.flash_attention_plain(q, k, v, **kw)
@@ -1206,8 +1264,10 @@ def attention_case(card, torch, what: str, q, k, v, *, window=None,
     pos = torch.arange(nq, device=DEV, dtype=torch.float64) + (nk - nq)
     lo = torch.zeros_like(pos) if window is None else \
         torch.clamp(pos - window + 1, min=0)
-    pairs = float(b * h * torch.clamp(torch.minimum(pos, torch.full_like(
-        pos, nk - 1)) - lo + 1, min=0).sum())
+    hi = torch.full_like(pos, nk - 1)
+    if causal:
+        hi = torch.minimum(pos, hi)
+    pairs = float(b * h * torch.clamp(hi - lo + 1, min=0).sum())
     n_bytes = float(q.element_size()) * (
         q.numel() + b * nq * h * d_v + k.numel()
         + (0 if v is k else b * nk * kvh * d_v))
@@ -1221,6 +1281,7 @@ def attention_case(card, torch, what: str, q, k, v, *, window=None,
                 if plan.route == "mma" else b_ms)
     print(f"[{card}] K-F flash attention ({what}) q {tuple(q.shape)} kv "
           f"{tuple(k.shape)} {str(q.dtype).removeprefix('torch.')}"
+          + ("" if causal else " non-causal")
           + ("" if window is None else f" window {window}")
           + f", route {plan.route} (width {plan.width}, {plan.zc} column "
           f"chunks, {plan.splits} key splits of {plan.split_keys}): max "
@@ -1372,26 +1433,8 @@ def phase_lm(card, torch, rt, launches, out_dir: Path) -> dict:
     torch.cuda.synchronize()
     t_store = time.perf_counter() - t0
     retrieved = []
-    retrieve = store.retrieve
-
-    def recording_retrieve(queries, k=None, **kw):
-        d, ids, values = retrieve(queries, k, **kw)
-        retrieved.append((np.array(queries), d, ids))
-        return d, ids, values
-
-    store.retrieve = recording_retrieve
+    retrieve = record_retrievals(store, retrieved)
     hook = make_knn_hook(store, kcfg, cfg.vocab)
-
-    def timed(fn, into):
-        def run(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            into.append((time.perf_counter() - t) * 1e3)
-            return out
-        return run
-
     prefill_ms, decode_ms, hook_ms = [], [], []
     srv = BatchedServer(cfg, ServeConfig(batch=LM_BATCH), params, opts,
                         logits_hook=timed(hook, hook_ms))
@@ -1560,14 +1603,7 @@ def phase_lm(card, torch, rt, launches, out_dir: Path) -> dict:
     cpu_params = init_params(cfg_r, torch.Generator().manual_seed(2), opts32,
                              device="cpu")
 
-    def to_dev(tree):
-        if isinstance(tree, dict):
-            return {key: to_dev(val) for key, val in tree.items()}
-        if isinstance(tree, list):
-            return [to_dev(val) for val in tree]
-        return tree.to(DEV)
-
-    dev_params = to_dev(cpu_params)
+    dev_params = to_device(cpu_params)
     toks = torch.as_tensor(rng.integers(0, cfg_r.vocab, (4, 300)))
     lg_cpu, _ = forward(cpu_params, cfg_r, toks, opts=opts32)
     lg_dev, _ = forward(dev_params, cfg_r, toks.to(DEV), opts=opts32)
@@ -2488,10 +2524,14 @@ def attention_err_terms(torch, out, ref, terms) -> tuple:
             float(b.abs().flatten()[j]), float(terms.flatten()[j]))
 
 
-def layer_check(card, torch, cfg, params, opts, pad, what: str) -> float:
+def layer_check(card, torch, cfg, params, opts, pad, what: str, *,
+                calls=None, extra=None) -> float:
     """Every layer's K-F output of one prefill of ``pad`` and one decode
     step against the plain version on the same inputs (the limit of
-    ``attention_err_terms``); returns the worst share of the limit."""
+    ``attention_err_terms``); returns the worst share of the limit.
+    ``calls`` is the K-F calls the two steps make (default two a layer);
+    ``extra()``, run under the check, gives the steps' keyword arguments
+    (whisper's ``enc_out``, its encoder's calls checked too)."""
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ops
     from repro_torch.models import init_cache
@@ -2509,23 +2549,24 @@ def layer_check(card, torch, cfg, params, opts, pad, what: str) -> float:
     prefill_step, decode_step = make_serve_step(cfg, ServeConfig(), opts)
     ops.flash_attention = checking
     try:
+        kw = {} if extra is None else extra()
         cache = init_cache(cfg, pad.shape[0], pad.shape[1] + 2, opts,
                            device=DEV)
         logits, cache = prefill_step(params, torch.as_tensor(pad, device=DEV),
-                                     cache)
+                                     cache, **kw)
         tok = torch.argmax(logits, -1).to(torch.int32)
-        decode_step(params, tok[:, None], cache)
+        decode_step(params, tok[:, None], cache, **kw)
     finally:
         ops.flash_attention = flash
     torch.cuda.synchronize()
-    check(len(errs) == 2 * cfg.n_layers,
-          f"{what} layer check: {len(errs)} K-F calls, expected "
-          f"{2 * cfg.n_layers}")
+    want = 2 * cfg.n_layers if calls is None else calls
+    check(len(errs) == want,
+          f"{what} layer check: {len(errs)} K-F calls, expected {want}")
     worst = max(e[1] for e in errs)
     j = max(range(len(errs)), key=lambda i: errs[i][2])
     far = errs[j]
-    print(f"[{card}] {what} layer check: all {cfg.n_layers} layers' K-F "
-          f"outputs of one prefill (b={pad.shape[0]}, {pad.shape[1]} tokens) "
+    print(f"[{card}] {what} layer check: all {len(errs)} K-F calls "
+          f"of one prefill (b={pad.shape[0]}, {pad.shape[1]} tokens) "
           f"and one decode step vs the plain version on the same inputs: max "
           f"|err| {max(e[0] for e in errs):.3e}, {worst:.3f} of the limit "
           f"(one bf16 rounding + 2^-14 of sum p|v|); against one bf16 "
@@ -2535,6 +2576,71 @@ def layer_check(card, torch, cfg, params, opts, pad, what: str) -> float:
     check(worst <= 1.0, f"{what} layer check: a layer's K-F output is "
           f"{worst:.3f} of the limit off its plain version")
     return worst
+
+
+def reduced_family(card, torch, arch, rng) -> dict:
+    """The reduced config on the card and on the CPU with the same weights
+    (fp32): logits of a 4 × 300-token forward within 2e-5 + 2e-5·|logit|,
+    greedy tokens of 5 requests through the decode cache equal
+    (``BatchedServer`` at batch 2; whisper through ``make_serve_step``
+    with ``enc_out``)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import (ModelOptions, count_params, encode,
+                                    forward, init_cache, init_params)
+    from repro_torch.serve import BatchedServer, ServeConfig, make_serve_step
+    cfg = configs.get_reduced(arch)
+    opts = ModelOptions(dtype=torch.float32)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(2), opts,
+                             device="cpu")
+
+    dev_params = to_device(cpu_params)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 300)))
+    ex = {}
+    if cfg.n_enc_layers:
+        ex["enc_frames"] = torch.as_tensor(rng.standard_normal(
+            (4, cfg.enc_len, cfg.d_model), dtype=np.float32))
+    lg_cpu, _ = forward(cpu_params, cfg, toks, opts=opts, **ex)
+    lg_dev, _ = forward(dev_params, cfg, toks.to(DEV), opts=opts,
+                        **{key: val.to(DEV) for key, val in ex.items()})
+    lg_dev = lg_dev.cpu()
+    diff = float((lg_dev - lg_cpu).abs().max())
+    check(bool(((lg_dev - lg_cpu).abs() <= 2e-5 + 2e-5 * lg_cpu.abs()).all()),
+          f"reduced {arch}: card logits off the CPU's by {diff:.3e}, past "
+          f"2e-5 + 2e-5·|logit|")
+    small = [rng.integers(0, cfg.vocab, int(m)).astype(np.int32)
+             for m in (5, 130, 3, 260, 40)]
+    got = {}
+    for where, p, dev in (("cpu", cpu_params, "cpu"),
+                          ("card", dev_params, DEV)):
+        if not cfg.n_enc_layers:
+            got[where] = BatchedServer(cfg, ServeConfig(batch=2), p,
+                                       opts).generate(small, max_new_tokens=8)
+            continue
+        prefill_step, decode_step = make_serve_step(cfg, ServeConfig(), opts)
+        tmax = max(map(len, small))
+        pad = np.zeros((len(small), tmax), np.int64)
+        for r, s in enumerate(small):
+            pad[r, tmax - len(s):] = s
+        enc = encode(p, cfg, ex["enc_frames"][:1].expand(
+            len(small), -1, -1).to(dev), opts)
+        cache = init_cache(cfg, len(small), tmax + 8, opts, device=dev)
+        logits, cache = prefill_step(p, torch.as_tensor(pad, device=dev),
+                                     cache, enc_out=enc)
+        out = []
+        for _ in range(8):
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            out.append(tok.cpu().numpy())
+            logits, cache = decode_step(p, tok[:, None], cache, enc_out=enc)
+        got[where] = list(np.stack(out, 1))
+    check(all(np.array_equal(a, b) for a, b in zip(got["cpu"], got["card"])),
+          f"reduced {arch}: greedy tokens differ between card and CPU")
+    print(f"[{card}] reduced {arch} (fp32, {count_params(cpu_params)} "
+          f"parameters): card vs CPU logits over 4 x 300 tokens max |diff| "
+          f"{diff:.3e} (limit 2e-5 + 2e-5·|logit|); greedy tokens of 5 "
+          f"requests (batch 2, 8 tokens, through the decode cache) equal",
+          flush=True)
+    return dict(max_abs_logit_diff=diff)
 
 
 def phase_moe(card, torch, rt, launches) -> tuple:
@@ -2557,8 +2663,8 @@ def phase_moe(card, torch, rt, launches) -> tuple:
     import torch.nn.functional as F
     from repro_torch import configs
     from repro_torch.kernels import ops
-    from repro_torch.models import (ModelOptions, count_params, forward,
-                                    init_params, moe)
+    from repro_torch.models import (ModelOptions, count_params, init_params,
+                                    moe)
     from repro_torch.serve import (BatchedServer, Datastore, KnnLMConfig,
                                    ServeConfig, make_knn_hook)
     t_phase = time.perf_counter()
@@ -2627,25 +2733,7 @@ def phase_moe(card, torch, rt, launches) -> tuple:
     store = Datastore.build(keys, vals, k=8, n_pivots=128, n_groups=8,
                             device=DEV)
     retrieved = []
-    retrieve = store.retrieve
-
-    def recording_retrieve(queries, k=None, **kw):
-        d, ids, values = retrieve(queries, k, **kw)
-        retrieved.append((np.array(queries), d, ids))
-        return d, ids, values
-
-    store.retrieve = recording_retrieve
-
-    def timed(fn, into):
-        def run(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            res = fn(*args)
-            torch.cuda.synchronize()
-            into.append((time.perf_counter() - t) * 1e3)
-            return res
-        return run
-
+    retrieve = record_retrievals(store, retrieved)
     prefill_ms, decode_ms = [], []
     srv = BatchedServer(cfg, ServeConfig(batch=MOE_BATCH), params, opts,
                         logits_hook=make_knn_hook(store, kcfg, cfg.vocab))
@@ -2786,45 +2874,359 @@ def phase_moe(card, torch, rt, launches) -> tuple:
     torch.cuda.empty_cache()
 
     # ---- (d) the reduced models: card vs CPU, the same weights
-    opts32 = ModelOptions(dtype=torch.float32)
-
-    def to_dev(tree):
-        if isinstance(tree, dict):
-            return {key: to_dev(val) for key, val in tree.items()}
-        if isinstance(tree, list):
-            return [to_dev(val) for val in tree]
-        return tree.to(DEV)
-
     for arch in (MOE_ARCH, "arctic-480b"):
-        cfg_r = configs.get_reduced(arch)
-        cpu_params = init_params(cfg_r, torch.Generator().manual_seed(2),
-                                 opts32, device="cpu")
-        dev_params = to_dev(cpu_params)
-        toks = torch.as_tensor(rng.integers(0, cfg_r.vocab, (4, 300)))
-        lg_cpu, _ = forward(cpu_params, cfg_r, toks, opts=opts32)
-        lg_dev, _ = forward(dev_params, cfg_r, toks.to(DEV), opts=opts32)
-        lg_dev = lg_dev.cpu()
-        diff = float((lg_dev - lg_cpu).abs().max())
-        check(bool(((lg_dev - lg_cpu).abs() <= 2e-5 + 2e-5 * lg_cpu.abs())
-                   .all()), f"reduced {arch}: card logits off the CPU's by "
-              f"{diff:.3e}, past 2e-5 + 2e-5·|logit|")
-        small = [rng.integers(0, cfg_r.vocab, int(m)).astype(np.int32)
-                 for m in (5, 130, 3, 260, 40)]
-        got = {where: BatchedServer(cfg_r, ServeConfig(batch=2), p,
-                                    opts32).generate(small, max_new_tokens=8)
-               for where, p in (("cpu", cpu_params), ("card", dev_params))}
-        check(all(np.array_equal(a, b)
-                  for a, b in zip(got["cpu"], got["card"])),
-              f"reduced {arch}: greedy tokens differ between card and CPU")
-        out[f"reduced_{arch}"] = dict(max_abs_logit_diff=diff)
-        print(f"[{card}] reduced {arch} (fp32, {count_params(cpu_params)} "
-              f"parameters): card vs CPU logits over 4 x 300 tokens max "
-              f"|diff| {diff:.3e} (limit 2e-5 + 2e-5·|logit|); greedy tokens "
-              f"of 5 requests (batch 2, 8 tokens, through the decode cache) "
-              f"equal", flush=True)
+        out[f"reduced_{arch}"] = reduced_family(card, torch, arch, rng)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[{card}] phase 19 (MoE + MLA) {out['phase_s']:.3f} s",
           flush=True)
+    return cases, out
+
+
+# phase 20: the recurrent, hybrid, audio and VLM families at full width
+FAMILY_ARCHS = ("recurrentgemma-9b", "xlstm-350m", "qwen2-vl-7b")
+FAM_REQUESTS, FAM_BATCH, FAM_NEW = 8, 8, 16   # phase 19's traffic
+WHISPER_ARCH = "whisper-small"
+WHISPER_PROMPT, WHISPER_NEW = (16, 224), 32
+
+
+def attention_calls(cfg) -> int:
+    """K-F calls of one decoder forward: one per attention layer, two per
+    cross-attention layer (none for the recurrent kinds)."""
+    from repro_torch.configs.base import ATTN, ATTN_BIDIR, LOCAL, XATTN
+    from repro_torch.models import layer_kinds
+    return sum({ATTN: 1, ATTN_BIDIR: 1, LOCAL: 1, XATTN: 2}.get(
+        kind.replace("_dense", ""), 0) for kind in layer_kinds(cfg))
+
+
+def family_kf_cases(card, torch) -> list:
+    """K-F vs its plain version at the shapes phase 20's families give it,
+    SDPA beside each: whisper's encoder (non-causal, 1,500 × 1,500, MHA
+    d = 64) and cross-attention (prompt and one query against 1,500);
+    recurrentgemma's windowed prefill and ring decode (MQA, d = 256);
+    qwen2-vl's prefill (GQA 28 / 4, d = 128)."""
+    import torch.nn.functional as F
+    from repro_torch import configs
+    gen = torch.Generator(device=DEV).manual_seed(20)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
+
+    def sdpa(q, k, v, **kw):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **kw)
+
+    cases = []
+    w = configs.get_arch(WHISPER_ARCH)
+    b, n, h, d = FAM_BATCH, w.enc_len, w.n_heads, w.dh
+    for nq in (n, WHISPER_PROMPT[1], 1):
+        q, k, v = rand(b, nq, h, d), rand(b, n, h, d), rand(b, n, h, d)
+        what = ("whisper encoder" if nq == n else "whisper cross-attention")
+        cases.append(attention_case(
+            card, torch, f"{what} b={b} nq={nq} nk={n} h={h} d={d}", q, k, v,
+            causal=False, library=sdpa(q, k, v)))
+    g = configs.get_arch("recurrentgemma-9b")
+    n, h, kvh, d, win = LM_PROMPT[1], g.n_heads, g.n_kv_heads, g.dh, \
+        g.local_window
+    q, k, v = rand(b, n, h, d), rand(b, n, kvh, d), rand(b, n, kvh, d)
+    pos = torch.arange(n, device=DEV)
+    wmask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+    cases.append(attention_case(
+        card, torch, f"recurrentgemma local prefill b={b} nq=nk={n} h={h} "
+        f"kvh={kvh} d={d}", q, k, v, window=win,
+        library=sdpa(q, k, v, attn_mask=wmask)))
+    del q, wmask
+    q = rand(b, 1, h, d)
+    cases.append(attention_case(
+        card, torch, f"recurrentgemma ring decode b={b} nq=1 nk={n} h={h} "
+        f"kvh={kvh} d={d}", q, k, v, causal=False, library=sdpa(q, k, v)))
+    del q, k, v
+    qw = configs.get_arch("qwen2-vl-7b")
+    h, kvh, d = qw.n_heads, qw.n_kv_heads, qw.dh
+    q, k, v = rand(b, n, h, d), rand(b, n, kvh, d), rand(b, n, kvh, d)
+    cases.append(attention_case(
+        card, torch, f"qwen2-vl prefill b={b} nq=nk={n} h={h} kvh={kvh} "
+        f"d={d}", q, k, v, library=sdpa(q, k, v, is_causal=True)))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return cases
+
+
+def serve_family(card, torch, arch, store, keys, kcfg, launches) -> dict:
+    """One family at full width and depth, bf16, seeded weights, through
+    ``BatchedServer`` + ``make_knn_hook`` over ``store``: phase 19's
+    traffic (8 requests of 512-2,048 tokens, the longest exactly 2,048,
+    batch 8, 16 greedy tokens), counted; every retrieval exact; the layer
+    check. qwen2-vl also runs one prefill and one decode step with 64
+    seeded vision embeddings over (t, h, w) positions, counted."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import ModelOptions, count_params, init_params
+    from repro_torch.serve import BatchedServer, ServeConfig, make_knn_hook
+    cfg = configs.get_arch(arch)
+    opts = ModelOptions(dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         opts, device=DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = count_params(params)
+    rng = np.random.default_rng(20)
+    lens = [LM_PROMPT[1]] + [int(rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1))
+                             for _ in range(FAM_REQUESTS - 1)]
+    prompts = [rng.integers(0, cfg.vocab, m).astype(np.int32) for m in lens]
+    prefill_ms, decode_ms = [], []
+    srv = BatchedServer(cfg, ServeConfig(batch=FAM_BATCH), params, opts,
+                        logits_hook=make_knn_hook(store, kcfg, cfg.vocab))
+    srv.prefill_step = timed(srv.prefill_step, prefill_ms)
+    srv.decode_step = timed(srv.decode_step, decode_ms)
+    name = "fam_" + arch.split("-")[0]
+    retrieved = []
+    retrieve = record_retrievals(store, retrieved)
+    begin_path(ops, name)
+    try:
+        t0 = time.perf_counter()
+        outs = srv.generate(prompts, max_new_tokens=FAM_NEW)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+    finally:
+        store.retrieve = retrieve
+    counts = launches[name] = end_path(ops)
+    peak = torch.cuda.max_memory_allocated()
+    waves = -(-FAM_REQUESTS // FAM_BATCH)
+    want_fa = attention_calls(cfg) * waves * (FAM_NEW + 1)
+    check(counts["flash_attention"] == want_fa,
+          f"{arch} serving: K-F launched {counts['flash_attention']} times, "
+          f"expected {attention_calls(cfg)} attention layers x {waves} "
+          f"waves x {FAM_NEW + 1} forwards = {want_fa}")
+    check(counts["distance_topk_gather"] >= waves * FAM_NEW,
+          f"{arch} serving: K-G must launch once a decode step at least: "
+          f"{counts}")
+    check(len(outs) == FAM_REQUESTS and all(
+        o.shape == (FAM_NEW,) and ((o >= 0) & (o < cfg.vocab)).all()
+        for o in outs), f"{arch} serving: malformed generations")
+    check(len(retrieved) == waves * FAM_NEW,
+          f"{arch} serving: {len(retrieved)} retrievals for "
+          f"{waves * FAM_NEW} decode steps")
+    keys64 = torch.as_tensor(keys, device=DEV).double()
+    kn64 = (keys64 * keys64).sum(1)
+    for i, (qr, d, ids) in enumerate(retrieved):
+        check_retrieval(card, torch, f"{arch} decode step {i} retrieval", qr,
+                        keys64, kn64, d, ids, kcfg.k)
+    del keys64, kn64
+    tps = FAM_REQUESTS * FAM_NEW / t_gen
+    print(f"[{card}] {arch} serving (bf16, {n_params} parameters, "
+          f"{cfg.n_layers} layers, {attention_calls(cfg)} on K-F, init "
+          f"{t_init:.3f} s): {FAM_REQUESTS} requests of {min(lens)}-"
+          f"{max(lens)} prompt tokens, batch {FAM_BATCH}, {FAM_NEW} greedy "
+          f"tokens each in {t_gen:.3f} s = {tps:.1f} tokens/s with the "
+          f"kNN-LM hook over {LM_STORE_KEYS} keys; prefill "
+          f"{prefill_ms[0]:.3f} ms; decode ms per step median "
+          f"{float(np.median(decode_ms)):.3f}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; launches {counts}; every retrieval "
+          f"({len(retrieved)}) exact vs the float64 brute force", flush=True)
+    pad = np.zeros((FAM_BATCH, max(lens)), np.int32)    # the first wave
+    for r, p in enumerate(prompts[:FAM_BATCH]):
+        pad[r, max(lens) - len(p):] = p
+    worst = None
+    if attention_calls(cfg):
+        # the decode step sits at position 2,048: recurrentgemma's ring of
+        # 2,048 slots has wrapped
+        worst = layer_check(card, torch, cfg, params, opts, pad, arch,
+                            calls=2 * attention_calls(cfg))
+    else:
+        print(f"[{card}] {arch} layer check: no attention layer (K-F "
+              f"launched {counts['flash_attention']} times)", flush=True)
+    out = dict(arch=arch, params=n_params, init_s=t_init, tokens_per_s=tps,
+               prefill_ms=prefill_ms, decode_ms=decode_ms,
+               decode_ms_median=float(np.median(decode_ms)),
+               peak_bytes=peak, launches=counts, layer_check_worst=worst)
+    if cfg.n_vision_embeds:
+        out["vision"] = vision_step(card, torch, cfg, params, opts, pad,
+                                    launches)
+    del params, srv
+    torch.cuda.empty_cache()
+    return out
+
+
+def vision_step(card, torch, cfg, params, opts, pad, launches) -> dict:
+    """qwen2-vl with its stub vision tower's output: one prefill of
+    ``pad`` whose first 64 positions are seeded vision embeddings on an
+    8 × 8 (t, h, w) grid, the text after it on one axis from 8 on, and
+    one decode step; counted; finite logits that differ from the
+    text-only prefill's."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache
+    from repro_torch.serve import ServeConfig, make_serve_step
+    b, t = pad.shape
+    nv = cfg.n_vision_embeds
+    side = int(round(nv ** 0.5))
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    vis = (torch.randn((b, nv, cfg.d_model), generator=gen, device=DEV)
+           * 0.02).to(opts.dtype)
+    pos = torch.zeros((3, b, t + 1), dtype=torch.int32, device=DEV)
+    grid = torch.arange(nv, device=DEV, dtype=torch.int32)
+    pos[1, :, :nv], pos[2, :, :nv] = grid // side, grid % side
+    pos[:, :, nv:] = (torch.arange(t + 1 - nv, device=DEV,
+                                   dtype=torch.int32) + side)
+    prefill_step, decode_step = make_serve_step(cfg, ServeConfig(), opts)
+    toks = torch.as_tensor(pad, device=DEV)
+    cache = init_cache(cfg, b, t + 1, opts, device=DEV)
+    text, _ = prefill_step(params, toks, init_cache(cfg, b, t + 1, opts,
+                                                    device=DEV))
+    text = text.clone()          # not a view of the whole prefill's logits
+    begin_path(ops, "fam_qwen2_vision")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, toks, cache, vision_embeds=vis,
+                                 positions=pos[:, :, :t])
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    logits1, cache = decode_step(params, tok[:, None], cache,
+                                 positions=pos[:, :, t:])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches["fam_qwen2_vision"] = end_path(ops)
+    check(counts["flash_attention"] == 2 * cfg.n_layers,
+          f"qwen2-vl vision: K-F launched {counts['flash_attention']} times, "
+          f"expected {2 * cfg.n_layers}")
+    check(bool(torch.isfinite(logits).all() and torch.isfinite(logits1).all())
+          and logits.shape == (b, cfg.vocab),
+          "qwen2-vl vision: malformed logits")
+    moved = float((logits - text).abs().max())
+    check(moved > 0, "qwen2-vl vision: the vision embeddings changed nothing")
+    print(f"[{card}] qwen2-vl with {nv} vision embeddings on a {side} x "
+          f"{side} (t, h, w) grid: one prefill (b={b}, {t} tokens) and one "
+          f"decode step in {wall:.3f} s, M-RoPE over 3-axis positions; "
+          f"last-position logits move by up to {moved:.3e} from the "
+          f"text-only prefill's; launches {counts}", flush=True)
+    return dict(wall_s=wall, launches=counts, max_logit_move=moved)
+
+
+def serve_whisper(card, torch, launches) -> dict:
+    """whisper-small at full width and depth (12 + 12 layers, bf16):
+    seeded stub frames (8, 1,500, 768) → ``encode`` once → ``prefill_step
+    (enc_out=)`` of 8 prompts of 16-224 tokens → 32 greedy
+    ``decode_step``s, counted (K-F 12 + 24 × 33); the layer check with
+    the encoder's calls."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import (ModelOptions, count_params, encode,
+                                    init_cache, init_params)
+    from repro_torch.serve import ServeConfig, make_serve_step
+    cfg = configs.get_arch(WHISPER_ARCH)
+    opts = ModelOptions(dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         opts, device=DEV)
+    n_params = count_params(params)
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    frames = torch.randn((FAM_BATCH, cfg.enc_len, cfg.d_model),
+                         generator=gen, device=DEV).to(opts.dtype)
+    rng = np.random.default_rng(22)
+    lens = [int(rng.integers(WHISPER_PROMPT[0], WHISPER_PROMPT[1] + 1))
+            for _ in range(FAM_BATCH)]
+    tmax = max(lens)
+    pad = np.zeros((FAM_BATCH, tmax), np.int32)
+    for r, m in enumerate(lens):
+        pad[r, tmax - m:] = rng.integers(0, cfg.vocab, m)
+    prefill_step, decode_step = make_serve_step(cfg, ServeConfig(), opts)
+    decode_ms = []
+    begin_path(ops, "fam_whisper")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = encode(params, cfg, frames, opts)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    cache = init_cache(cfg, FAM_BATCH, tmax + WHISPER_NEW, opts, device=DEV)
+    logits, cache = prefill_step(params, torch.as_tensor(pad, device=DEV),
+                                 cache, enc_out=enc)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0 - t_enc
+    gen_tok = []
+    for _ in range(WHISPER_NEW):
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        gen_tok.append(tok)
+        t1 = time.perf_counter()
+        logits, cache = decode_step(params, tok[:, None], cache, enc_out=enc)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+    t_gen = time.perf_counter() - t0
+    counts = launches["fam_whisper"] = end_path(ops)
+    peak = torch.cuda.max_memory_allocated()
+    per = attention_calls(cfg)
+    want_fa = cfg.n_enc_layers + per * (WHISPER_NEW + 1)
+    check(counts["flash_attention"] == want_fa,
+          f"whisper: K-F launched {counts['flash_attention']} times, "
+          f"expected {cfg.n_enc_layers} + {per} x {WHISPER_NEW + 1} = "
+          f"{want_fa}")
+    toks = torch.stack(gen_tok, 1)
+    check(bool(torch.isfinite(enc.float()).all())
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all())
+          and bool(torch.isfinite(logits).all()),
+          "whisper: non-finite encoder output or malformed tokens")
+    tps = FAM_BATCH * WHISPER_NEW / t_gen
+    print(f"[{card}] {WHISPER_ARCH} (bf16, {n_params} parameters, "
+          f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers): "
+          f"stub frames {tuple(frames.shape)} encoded in {t_enc * 1e3:.3f} "
+          f"ms; {FAM_BATCH} prompts of {min(lens)}-{tmax} tokens prefilled "
+          f"with enc_out in {t_pre * 1e3:.3f} ms; {WHISPER_NEW} greedy "
+          f"tokens each in {t_gen:.3f} s all told = {tps:.1f} tokens/s; "
+          f"decode ms per step median {float(np.median(decode_ms)):.3f}; "
+          f"peak memory {peak / 2 ** 30:.3f} GiB; launches {counts}",
+          flush=True)
+    worst = layer_check(
+        card, torch, cfg, params, opts, pad, WHISPER_ARCH,
+        calls=cfg.n_enc_layers + 2 * per,
+        extra=lambda: dict(enc_out=encode(params, cfg, frames, opts)))
+    del params, enc, cache
+    torch.cuda.empty_cache()
+    return dict(arch=WHISPER_ARCH, params=n_params, encode_ms=t_enc * 1e3,
+                prefill_ms=t_pre * 1e3, tokens_per_s=tps, decode_ms=decode_ms,
+                decode_ms_median=float(np.median(decode_ms)),
+                peak_bytes=peak, launches=counts, layer_check_worst=worst)
+
+
+def phase_families(card, torch, rt, launches) -> tuple:
+    """20. The other families on the card: (a) K-F vs its plain version at
+    their shapes (``family_kf_cases``); (b) recurrentgemma-9b, xlstm-350m
+    and qwen2-vl-7b at full width and depth through ``BatchedServer`` +
+    ``make_knn_hook`` over phase 14's 1,048,576 × 32 keys
+    (``serve_family``; qwen2-vl also with vision embeddings); (c)
+    whisper-small through ``encode`` and ``make_serve_step``
+    (``serve_whisper``); (d) each reduced config card vs CPU
+    (``reduced_family``). Returns (K-F's cases, the phase's numbers)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.serve import Datastore, KnnLMConfig
+    t_phase = time.perf_counter()
+    cases = family_kf_cases(card, torch)
+    rng = np.random.default_rng(14)          # phase 14's keys
+    keys = rng.standard_normal((LM_STORE_KEYS, LM_STORE_DIM),
+                               dtype=np.float32)
+    # values in the smallest of the three vocabularies, valid in each
+    vocab = min(configs.get_arch(arch).vocab for arch in FAMILY_ARCHS)
+    vals = rng.integers(0, vocab, LM_STORE_KEYS).astype(np.int32)
+    store = Datastore.build(keys, vals, k=8, n_pivots=128, n_groups=8,
+                            device=DEV)
+    kcfg = KnnLMConfig(lam=0.2, tau=50.0, k=8)
+    out = {}
+    for arch in FAMILY_ARCHS:
+        out[arch] = serve_family(card, torch, arch, store, keys, kcfg,
+                                 launches)
+    del store
+    torch.cuda.empty_cache()
+    out[WHISPER_ARCH] = serve_whisper(card, torch, launches)
+    rng = np.random.default_rng(20)
+    for arch in FAMILY_ARCHS + (WHISPER_ARCH,):
+        out[f"reduced_{arch}"] = reduced_family(card, torch, arch, rng)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 20 (recurrent, hybrid, audio, VLM) "
+          f"{out['phase_s']:.3f} s", flush=True)
     return cases, out
 
 
@@ -3104,17 +3506,25 @@ def main(argv=None) -> int:
     (out_dir / "phase_19.json").write_text(json.dumps(
         dict(moe_run, kf_cases=mla_cases)))
 
+    # ---- 20. the recurrent, hybrid, audio and VLM families at full width
+    fam_cases, fam_run = phase_families(card, torch, rt, launches)
+    (out_dir / "phase_20.json").write_text(json.dumps(
+        dict(fam_run, kf_cases=fam_cases)))
+
     owner = {"assign": ("megastep",), "distance_topk_gather": ("megastep",),
              "quant_coarse_gather": ("quantized",),
              "distance_topk": ("retrieval",),
-             "flash_attention": ("lm_serve", "moe_serve", "moe_arctic")}
+             "flash_attention": ("lm_serve", "moe_serve", "moe_arctic",
+                                 "fam_recurrentgemma", "fam_xlstm",
+                                 "fam_qwen2", "fam_qwen2_vision",
+                                 "fam_whisper")}
     for row in rows:
         if row["name"] in caps:
             row["cap_shapes"] = caps[row["name"]]
         if row["name"] == "assign":
             row["path_shapes"] = assign_paths
         if row["name"] == "flash_attention":
-            row["other_shapes"] += mla_cases
+            row["other_shapes"] += mla_cases + fam_cases
         # the main paths' launches, plus the mesh paths' (phase 18)
         row["launches"] = sum(launches[p][row["name"]]
                               for p in owner[row["name"]] + tuple(mesh_paths))

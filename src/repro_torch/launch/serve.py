@@ -1,6 +1,8 @@
-"""Serving launcher: batched generation for a dense or MoE ``--arch``,
-optional kNN-LM retrieval backed by the PGBJ join. PyTorch port of the
-JAX package's ``launch.serve``.
+"""Serving launcher: batched generation for any ``--arch`` that
+``BatchedServer`` serves (every one but whisper-small, whose decoder
+needs the encoder's output: serve it through ``make_serve_step`` with
+``enc_out=``), optional kNN-LM retrieval backed by the PGBJ join.
+PyTorch port of the JAX package's ``launch.serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       [--reduced] [--requests 8] [--new-tokens 16] [--retrieval]
@@ -37,8 +39,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
+    if cfg.n_enc_layers:
+        ap.error(f"{args.arch} is an encoder-decoder arch: BatchedServer "
+                 f"passes no encoder output; serve it through "
+                 f"serve.make_serve_step with enc_out=models.encode(...)")
+    dev = resolve_device(args.device)
     opts = ModelOptions(dtype=torch.float32 if args.reduced
                         else torch.bfloat16)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),

@@ -1,5 +1,5 @@
 """Primitive layers of the LM substrate, PyTorch port of the JAX package's
-``models.layers`` — the dense subset.
+``models.layers``.
 
 Parameters are nested dicts of tensors in the JAX package's layout: a
 ``dense`` weight is ``(d_in, d_out)`` and applies as ``x @ w`` (so
@@ -22,9 +22,13 @@ a cache, prefill included, as the JAX ``absorb=True`` default: MQA over
 the compressed cache, q' = [q_nope·W_uk, q_rope] against k' = [ckv,
 k_rope], v = k' itself and the first ``kv_lora_rank`` output columns
 kept, which is probs·ckv). Both take the JAX scale (qk_nope +
-rope)^−0.5. The ring-buffer cache of local attention, the read-only
-serving cache, M-RoPE, cross-attention and a logit softcap are not
-ported (``not_ported``).
+rope)^−0.5.
+
+Local attention decodes over a ring-buffer cache (:func:`attn_apply`),
+cross-attention (whisper's decoder) runs K-F non-causal over the
+projected encoder output, and M-RoPE (qwen2-vl) rotates sections of the
+head by three position axes. The read-only serving cache and a logit
+softcap are not ported (``not_ported``, Queue A6d).
 """
 from __future__ import annotations
 
@@ -38,9 +42,9 @@ from ..core.index import not_ported
 from ..kernels import ops
 
 __all__ = ["dense_init", "dense", "normal_init", "norm_init", "apply_norm",
-           "rope_freqs", "rope_tables", "apply_rope", "mlp_init",
-           "mlp_apply", "repeat_kv", "attn_init", "attn_apply", "mla_init",
-           "mla_apply"]
+           "rope_freqs", "rope_tables", "apply_rope", "apply_mrope",
+           "mlp_init", "mlp_apply", "repeat_kv", "attn_init", "attn_apply",
+           "mla_init", "mla_apply"]
 
 Params = Dict[str, Any]
 
@@ -120,28 +124,51 @@ def rope_freqs(dh_half: int, theta: float, device=None) -> torch.Tensor:
             ).to(torch.float32)
 
 
+def _cos_sin(angles: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of float32 angles, taken in float64, rounded once."""
+    a64 = angles.to(torch.float64)
+    return torch.cos(a64).to(torch.float32), torch.sin(a64).to(torch.float32)
+
+
 def rope_tables(positions: torch.Tensor, dh_half: int, theta: float
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) of the float32 angles position × freq, each taken in
     float64 and rounded once to float32: shape ``positions.shape +
     (dh_half,)``."""
     freqs = rope_freqs(dh_half, theta, device=positions.device)
-    angles = (positions[..., None].to(torch.float32) * freqs).to(
-        torch.float64)
-    return (torch.cos(angles).to(torch.float32),
-            torch.sin(angles).to(torch.float32))
+    return _cos_sin(positions[..., None].to(torch.float32) * freqs)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x (B, T, H, dh), positions (B, T) → rotated x (split halves, the
+def _rotate(x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> torch.Tensor:
+    """x (B, T, H, dh) rotated by (B, T, dh/2) tables (split halves, the
     rotation in float32)."""
-    dh = x.shape[-1]
-    cos, sin = rope_tables(positions, dh // 2, theta)            # (B, T, dh/2)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (B, T, H, dh), positions (B, T) → rotated x."""
+    return _rotate(x, *rope_tables(positions, x.shape[-1] // 2, theta))
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): positions (3, B, T) — the temporal, height and
+    width ids — drive consecutive ``sections`` of the half-dim's
+    frequencies; the tables as :func:`rope_tables`'."""
+    dh_half = x.shape[-1] // 2
+    if sum(sections) != dh_half:
+        raise ValueError(f"M-RoPE sections {sections} do not cover half "
+                         f"the head width {dh_half}")
+    freqs = rope_freqs(dh_half, theta, device=x.device)
+    # each frequency slot's position: its section's axis (t, h or w)
+    pos = torch.cat([positions[i, ..., None].to(torch.float32).expand(
+        -1, -1, n) for i, n in enumerate(sections)], dim=-1)  # (B, T, dh/2)
+    return _rotate(x, *_cos_sin(pos * freqs))
 
 
 # ------------------------------------------------------------------ MLP
@@ -199,43 +226,85 @@ def attn_apply(
     x: torch.Tensor,
     cfg: ArchConfig,
     *,
-    positions: torch.Tensor,           # (B, T)
+    positions: torch.Tensor,           # (B, T), or (3, B, T) for M-RoPE
     causal: bool = True,
     window: Optional[int] = None,
     cache: Optional[Params] = None,    # {"k", "v"} decode cache of this layer
     pos: int = 0,                      # the cache's position (host int)
+    xattn_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Self-attention, writing this step's k and v into ``cache`` at
-    ``pos`` in place (the JAX package returns an updated copy); returns
-    ``(out, cache)``."""
+    """Self-attention, writing this step's k and v into ``cache`` in
+    place (the JAX package returns an updated copy), or cross-attention
+    over precomputed ``xattn_kv`` (B, C, kvh, dh): no rope, no q/k norm,
+    every key visible. Returns ``(out, cache)`` (None for cross).
+
+    A local layer's cache no longer than its window is a ring of W slots,
+    slot j holding position pos − ((pos − j) mod W): a decode step writes
+    slot pos mod W and attends over the live slots ``[:min(pos + 1, W)]``
+    — every one visible to the query, so their order does not matter; a
+    prefill from position 0 attends over the prompt with window W, as a
+    token-by-token fill of the ring would, and leaves its last W keys in
+    their slots."""
     if cfg.attn_logit_softcap > 0:
         raise not_ported("attention with a logit softcap (K-F has none, as "
                          "the TPU kernel)", "A6")
-    if cfg.rope == "mrope":
-        raise not_ported("M-RoPE (the VLM family)", "A6")
     b, t, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    scale = dh ** -0.5
     q = dense(p["q"], x).reshape(b, t, h, dh)
+    if xattn_kv is not None:
+        k, v = xattn_kv
+        out = ops.flash_attention(q, k, v, causal=False, scale=scale)
+        return dense(p["o"], out.reshape(b, t, h * dh)), None
     k = dense(p["k"], x).reshape(b, t, kvh, dh)
     v = dense(p["v"], x).reshape(b, t, kvh, dh)
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, "rms")
         k = apply_norm(p["k_norm"], k, "rms")
     if cfg.rope == "std":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        pos2 = positions if positions.dim() == 2 else positions[0]
+        q = apply_rope(q, pos2, cfg.rope_theta)
+        k = apply_rope(k, pos2, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        if positions.dim() != 3:
+            raise ValueError("M-RoPE needs (3, B, T) positions")
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    if cache is not None and window is not None \
+            and cache["k"].shape[1] <= window:
+        w_sz = cache["k"].shape[1]
+        if t == 1:
+            slot = pos % w_sz
+            cache["k"][:, slot:slot + 1] = k
+            cache["v"][:, slot:slot + 1] = v
+            live = min(pos + 1, w_sz)
+            out = ops.flash_attention(q, cache["k"][:, :live],
+                                      cache["v"][:, :live], causal=False,
+                                      scale=scale)
+        elif pos == 0:
+            out = ops.flash_attention(q, k, v, causal=True, window=w_sz,
+                                      scale=scale)
+            first = max(0, t - w_sz)
+            slots = torch.arange(first, t, device=k.device) % w_sz
+            cache["k"][:, slots] = k[:, first:]
+            cache["v"][:, slots] = v[:, first:]
+        else:
+            raise ValueError(
+                f"ring cache of a local layer: a prefill of {t} tokens at "
+                f"position {pos} (only a prefill from position 0 or "
+                f"one-token decode steps)")
+        return dense(p["o"], out.reshape(b, t, h * dh)), cache
     if cache is not None:
-        if window is not None:
-            raise not_ported("the ring-buffer decode cache of local "
-                             "attention", "A6")
-        if not causal:
-            raise not_ported("bidirectional attention over a decode cache",
-                             "A6")
         cache["k"][:, pos:pos + t] = k
         cache["v"][:, pos:pos + t] = v
-        k, v = cache["k"][:, :pos + t], cache["v"][:, :pos + t]
+        if causal:
+            k, v = cache["k"][:, :pos + t], cache["v"][:, :pos + t]
+        else:
+            # the JAX package's bidirectional attention over a cache sees
+            # every slot of it, the unwritten ones included
+            k, v = cache["k"], cache["v"]
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              scale=dh ** -0.5)
+                              scale=scale)
     return dense(p["o"], out.reshape(b, t, h * dh)), cache
 
 

@@ -1,20 +1,22 @@
 """Full LM assembly, PyTorch port of the JAX package's ``models.model``:
-embedding → the layer stack → final norm → head.
+embedding → the layer stack → final norm → head, and whisper's encoder.
 
 The JAX package scans each ``(unit, reps)`` group of ``cfg.layout()``
 over parameters stacked along a leading ``reps`` axis; the port keeps one
-parameter dict per layer in ``params["layers"]``, in the stack's order
-(:func:`layer_kinds`), and walks them in a Python loop. The ``dense``
-family (all four dense configs: GQA/MQA, SwiGLU or squared ReLU, RMS or
-LayerNorm, per-head q/k norm, tied or separate head) and the ``moe``
-family (arctic-480b: GQA with a 128-expert top-2 MoE beside a dense
-residual; deepseek-v2-lite-16b: MLA, 64 routed top-6 + 2 shared
-experts, a dense first layer) run; the other families raise
+parameter dict per layer in ``params["layers"]`` (and per encoder layer
+in ``params["encoder"]``), in the stack's order (:func:`layer_kinds`),
+and walks them in a Python loop. Every family runs: ``dense``, ``moe``
+(MLA and the MoE FFN), ``hybrid`` (recurrentgemma: RG-LRU and local
+attention over a ring cache), ``ssm`` (xLSTM), ``audio`` (whisper: a
+bidirectional encoder over stub frame embeddings, a decoder with
+cross-attention and learned positions) and ``vlm`` (qwen2-vl: M-RoPE
+over (3, B, T) positions, stub vision embeddings over the first
+positions). A logit softcap and the read-only serving cache raise
 ``not_ported``.
 
-A decode cache is ``{"pos": int, "layers": [{"k", "v"} or MLA's
-{"ckv", "k_rope"}, ...]}``: the position is a host int, not a device
-scalar, and each step writes into the layer tensors in place.
+A decode cache is ``{"pos": int, "layers": [one per layer]}``: the
+position is a host int, not a device scalar; an attention layer's
+tensors are written in place, a recurrent layer's state is replaced.
 
 Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
 fills the cache from position 0 on), ``decode`` (positions continue from
@@ -27,13 +29,13 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ATTN_BIDIR, ArchConfig
 from ..core.index import not_ported
 from ..device import resolve_device
 from .blocks import block_apply, block_init, init_block_cache
 from .layers import apply_norm, norm_init, normal_init
 
-__all__ = ["ModelOptions", "init_params", "init_cache", "forward",
+__all__ = ["ModelOptions", "init_params", "init_cache", "encode", "forward",
            "count_params", "layer_kinds"]
 
 Params = Dict[str, Any]
@@ -43,16 +45,14 @@ Params = Dict[str, Any]
 class ModelOptions:
     """The JAX package's ``ModelOptions`` without its training and
     chunking knobs (``remat``, ``chunk_q``: the port has no training step
-    and runs attention through K-F at every length) and its learned
-    position table (``max_abs_pos``: no dense config has one)."""
+    and runs attention through K-F at every length)."""
     dtype: torch.dtype = torch.bfloat16
+    max_abs_pos: int = 4096  # learned position table (rope == "none")
     # the JAX serving layout of a mesh (a read-only, length-sharded cache)
     readonly_cache: bool = False
 
 
 def _check_arch(cfg: ArchConfig, opts: ModelOptions) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise not_ported(f"the {cfg.family!r} family ({cfg.name})", "A6")
     if cfg.attn_logit_softcap > 0:
         raise not_ported("attention with a logit softcap (K-F has none, as "
                          "the TPU kernel)", "A6")
@@ -83,11 +83,20 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
                              dev),
         "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, dev),
     }
+    if cfg.rope == "none" and cfg.abs_pos:
+        params["pos_embed"] = normal_init(gen, (opts.max_abs_pos,
+                                                cfg.d_model), 0.02, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(gen, (cfg.d_model, cfg.vocab),
                                         cfg.d_model ** -0.5, dtype, dev)
     params["layers"] = [block_init(kind, gen, cfg, dtype, dev)
                         for kind in layer_kinds(cfg)]
+    if cfg.n_enc_layers:
+        params["encoder"] = [block_init(ATTN_BIDIR, gen, cfg, dtype, dev)
+                             for _ in range(cfg.n_enc_layers)]
+        params["enc_norm"] = norm_init(cfg.d_model, cfg.norm, dtype, dev)
+        params["enc_pos_embed"] = normal_init(
+            gen, (cfg.enc_len, cfg.d_model), 0.02, dtype, dev)
     return params
 
 
@@ -103,18 +112,39 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                        for kind in layer_kinds(cfg)]}
 
 
+def encode(params: Params, cfg: ArchConfig, enc_frames: torch.Tensor,
+           opts: ModelOptions = ModelOptions()) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings (B, enc_len, D):
+    learned positions, the bidirectional layers, the encoder norm."""
+    dev = params["embed"].device
+    x = enc_frames.to(device=dev, dtype=opts.dtype) \
+        + params["enc_pos_embed"][None]
+    b = x.shape[0]
+    positions = torch.arange(cfg.enc_len, dtype=torch.int32,
+                             device=dev)[None].expand(b, cfg.enc_len)
+    for lp in params["encoder"]:
+        x, _ = block_apply(ATTN_BIDIR, lp, x, cfg, positions=positions)
+    return apply_norm(params["enc_norm"], x, cfg.norm)
+
+
 def forward(
     params: Params,
     cfg: ArchConfig,
     tokens: torch.Tensor,                      # (B, T) integer
     *,
-    positions: Optional[torch.Tensor] = None,  # (B, T); default iota
+    positions: Optional[torch.Tensor] = None,  # (B, T) or (3, B, T); iota
     cache: Optional[Dict[str, Any]] = None,
+    enc_frames: Optional[torch.Tensor] = None,
+    enc_out: Optional[torch.Tensor] = None,
+    vision_embeds: Optional[torch.Tensor] = None,
     opts: ModelOptions = ModelOptions(),
     mode: str = "train",
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns ``(logits (B, T, V) float32, cache)``; with a cache, its
-    position advances by T."""
+    position advances by T. An encoder-decoder arch needs ``enc_out``
+    (:func:`encode`'s output) or ``enc_frames`` (encoded here);
+    ``vision_embeds`` (B, n_vision_embeds, D) replace the first
+    positions' embeddings outside decode."""
     _check_arch(cfg, opts)
     b, t = tokens.shape
     dev = params["embed"].device
@@ -124,13 +154,31 @@ def forward(
         if cache is not None and mode == "decode":
             base = base + pos
         positions = base.expand(b, t)
+        if cfg.rope == "mrope":
+            positions = positions[None].expand(3, b, t)
     x = params["embed"][tokens.to(device=dev, dtype=torch.int64)] \
         .to(opts.dtype)
+    if cfg.rope == "none" and cfg.abs_pos:
+        pos2 = positions if positions.dim() == 2 else positions[0]
+        x = x + params["pos_embed"][pos2.to(torch.int64)].to(opts.dtype)
+    if (vision_embeds is not None and cfg.n_vision_embeds
+            and mode != "decode"):
+        nv = cfg.n_vision_embeds
+        x = torch.cat([vision_embeds.to(device=dev, dtype=opts.dtype),
+                       x[:, nv:]], dim=1)
+    if cfg.n_enc_layers and enc_out is None:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder arch: pass "
+                             f"enc_frames or enc_out")
+        enc_out = encode(params, cfg, enc_frames, opts)
     kinds = layer_kinds(cfg)
     for i, (kind, lp) in enumerate(zip(kinds, params["layers"])):
-        x, _ = block_apply(kind, lp, x, cfg, positions=positions,
-                           cache=None if cache is None
-                           else cache["layers"][i], pos=pos)
+        x, new = block_apply(kind, lp, x, cfg, positions=positions,
+                             cache=None if cache is None
+                             else cache["layers"][i], pos=pos,
+                             enc_out=enc_out)
+        if cache is not None:
+            cache["layers"][i] = new
     x = apply_norm(params["final_norm"], x, cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x, head).to(torch.float32)

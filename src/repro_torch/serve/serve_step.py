@@ -2,15 +2,20 @@
 port of the JAX package's ``serve.serve_step``.
 
 ``make_serve_step`` returns the two stages:
-  prefill_step(params, tokens, cache) → (logits_last, cache)
-  decode_step(params, token, cache)   → (logits, cache)
+  prefill_step(params, tokens, cache, **extra) → (logits_last, cache)
+  decode_step(params, token, cache, **extra)   → (logits, cache)
+(``extra``: whisper's ``enc_out`` or ``enc_frames``, qwen2-vl's
+``vision_embeds``).
 ``BatchedServer`` slots requests into fixed batch lanes a wave at a
 time. It mirrors the JAX loop step for step, including what that loop
 does on purpose or by accident: prompts are left-padded with token 0 and
 the pads are attended (there is no pad mask); every wave ends with one
 decode whose logits are never used; sampling at temperature > 0 draws
 from a ``torch.Generator``, so only greedy decoding is comparable with
-the JAX package token for token. The cache position is a host int.
+the JAX package token for token. The cache position is a host int. It
+passes no ``extra``, so it serves every family but whisper (which needs
+the encoder's output: drive ``make_serve_step`` with ``enc_out=``) and
+qwen2-vl as text only, as the JAX loop does.
 """
 from __future__ import annotations
 
@@ -37,17 +42,18 @@ class ServeConfig:
 
 def make_serve_step(cfg: ArchConfig, scfg: ServeConfig,
                     opts: ModelOptions = ModelOptions()):
-    def prefill_step(params, tokens, cache):
+    def prefill_step(params, tokens, cache, **extra):
         """tokens (B, T_prompt); fills the cache, returns the last
-        position's logits."""
+        position's logits. ``extra`` goes to ``forward`` (``enc_frames``,
+        ``enc_out``, ``vision_embeds``)."""
         logits, cache = forward(params, cfg, tokens, cache=cache,
-                                opts=opts, mode="prefill")
+                                opts=opts, mode="prefill", **extra)
         return logits[:, -1], cache
 
-    def decode_step(params, token, cache):
+    def decode_step(params, token, cache, **extra):
         """token (B, 1); one step against the cache."""
         logits, cache = forward(params, cfg, token, cache=cache,
-                                opts=opts, mode="decode")
+                                opts=opts, mode="decode", **extra)
         return logits[:, -1], cache
 
     return prefill_step, decode_step

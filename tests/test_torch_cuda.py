@@ -1106,3 +1106,116 @@ def test_shuffle_join_and_phase1_on_card(cuda):
                                       k=10)
     assert torch.equal(p0, p1) and torch.equal(d0, d1)
     assert torch.equal(t0.knn_dists, t1.knn_dists)
+
+
+# ---- the recurrent, hybrid, audio and VLM families (K-F non-causal, the
+# ring decode, M-RoPE)
+
+
+def _attn_close(out, ref):
+    a, r = out.float(), ref.float()
+    if out.dtype == torch.float32:
+        assert float((a - r).abs().max()) <= 2e-5
+    else:
+        lim = 2.0 ** -7 * torch.maximum(a.abs(), r.abs()) + 1e-6
+        assert bool(((a - r).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq", [1500, 64, 1])
+def test_flash_attention_non_causal_matches_plain(cuda, dtype, nq):
+    """K-F without the causal mask at whisper's shapes (MHA, 12 heads, d =
+    64, 1,500 encoder frames): the encoder (nq = nk), cross-attention
+    over a prompt and over one decode query (split-KV); within the
+    limits of ``test_flash_attention_kernel_matches_plain``."""
+    from repro_torch.kernels import flash_attention as kf
+    dt = getattr(torch, dtype)
+    q, k, v = _attn_inputs(cuda, np.random.default_rng(nq), 2, nq, 1500, 12,
+                           12, 64, dt)
+    ops.reset_launch_counts()
+    out = kf.flash_attention_cuda(q, k, v, causal=False)
+    if dt == torch.bfloat16 and nq > 16:
+        assert kf.last_plan.route == "mma"
+    ref = kf.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    _attn_close(out, ref)
+    if 1 < nq < 1500:   # every key is visible: not the causal function
+        causal = kf.flash_attention_plain(q, k, v, causal=True)
+        assert not torch.equal(ref, causal)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("live", [700, 2048])
+def test_flash_attention_ring_decode_d256_mqa(cuda, dtype, live):
+    """recurrentgemma's ring decode on K-F: one query of 16 heads over
+    the live slots of a 2,048-slot MQA ring (d = 256, read in place),
+    every slot visible (non-causal); and its windowed prefill (mma form,
+    DV chunks) at window 512."""
+    from repro_torch.kernels import flash_attention as kf
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(live)
+    q, k, v = _attn_inputs(cuda, rng, 2, 1, live, 16, 1, 256, dt,
+                           cache_len=2048)
+    out = kf.flash_attention_cuda(q, k, v, causal=False)
+    assert kf.last_plan.route == "simt" and kf.last_plan.zc == 2
+    _attn_close(out, kf.flash_attention_plain(q, k, v, causal=False))
+    q, k, v = _attn_inputs(cuda, rng, 1, live, live, 16, 1, 256, dt)
+    out = kf.flash_attention_cuda(q, k, v, window=512)
+    if dt == torch.bfloat16:
+        assert kf.last_plan.route == "mma" and kf.last_plan.zc == 2
+    _attn_close(out, kf.flash_attention_plain(q, k, v, window=512))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m",
+                                  "whisper-small", "qwen2-vl-7b"])
+def test_reduced_family_card_equals_cpu(cuda, arch):
+    """Each reduced family on the card and on the CPU with the same fp32
+    weights: train-mode logits, a prefill past recurrentgemma's window
+    and decode steps through the ring within 2e-5 + 2e-5·|logit|; greedy
+    tokens equal (whisper through ``make_serve_step`` with ``enc_out``,
+    qwen2-vl with vision embeddings over (3, B, T) positions)."""
+    from repro_torch import configs
+    from repro_torch.models import (ModelOptions, encode, forward,
+                                    init_cache, init_params)
+    cfg = configs.get_reduced(arch)
+    opts = ModelOptions(dtype=torch.float32)
+    cpu = init_params(cfg, torch.Generator().manual_seed(3), opts,
+                      device="cpu")
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {key: to(val, dev) for key, val in tree.items()}
+        if isinstance(tree, list):
+            return [to(val, dev) for val in tree]
+        return tree.to(dev)
+
+    card = to(cpu, cuda)
+    rng = np.random.default_rng(7)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (3, 90)))
+    ex = {}
+    if cfg.n_enc_layers:
+        ex["enc_frames"] = torch.as_tensor(rng.standard_normal(
+            (3, cfg.enc_len, cfg.d_model), dtype=np.float32))
+    if cfg.n_vision_embeds:
+        ex["vision_embeds"] = torch.as_tensor(rng.standard_normal(
+            (3, cfg.n_vision_embeds, cfg.d_model), dtype=np.float32))
+    got = {}
+    for where, p, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        kw = to(ex, dev)
+        if cfg.n_enc_layers:
+            kw = {"enc_out": encode(p, cfg, kw.pop("enc_frames"), opts)}
+        full, _ = forward(p, cfg, toks.to(dev), opts=opts, **kw)
+        cache = init_cache(cfg, 3, 96, opts, device=dev)
+        lg, cache = forward(p, cfg, toks[:, :80].to(dev), cache=cache,
+                            opts=opts, mode="prefill", **kw)
+        steps = [lg]
+        kw.pop("vision_embeds", None)
+        for t in range(80, 90):
+            lg, cache = forward(p, cfg, toks[:, t:t + 1].to(dev),
+                                cache=cache, opts=opts, mode="decode", **kw)
+            steps.append(lg)
+        got[where] = [x.cpu() for x in [full] + steps]
+    for a, b in zip(got["card"], got["cpu"]):
+        assert bool(((a - b).abs() <= 2e-5 + 2e-5 * b.abs()).all())
+        assert torch.equal(a.argmax(-1), b.argmax(-1))

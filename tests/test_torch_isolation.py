@@ -36,6 +36,7 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch.distributed, repro_torch.core.sharded\n"
         "import repro_torch.core.distributed, repro_torch.quant.engine\n"
         "import repro_torch.models.moe, repro_torch.core.certify\n"
+        "import repro_torch.models.recurrent\n"
         "import runpy\n"
         "runpy.run_path(sys.argv[1], run_name='tune_quant')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -54,7 +55,7 @@ def test_sources_import_no_jax_or_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
         sorted((ROOT / "tools").glob("*.py"))
     assert len(files) >= 15
-    for name in ("models/moe.py", "core/certify.py"):
+    for name in ("models/moe.py", "core/certify.py", "models/recurrent.py"):
         assert PKG / name in files
     assert ROOT / "tools" / "tune_quant.py" in files
     offenders = [str(p.relative_to(ROOT)) for p in files
@@ -77,7 +78,8 @@ def _small():
     "GroupComm", "distributed_knn_join", "distributed_phase1",
     "ShardedMegastepEngine", "ShardedQuantMegastepEngine",
     "sharded Datastore", "launch.join --distributed", "tools/tune_quant.py",
-    "init_params moe", "init_cache moe"])
+    "init_params moe", "init_cache moe", "init_params hybrid",
+    "init_cache ssm"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises;
     it never carries on silently on the CPU."""
@@ -152,6 +154,10 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         "init_params moe": lambda: models.init_params(moe_lm,
                                                       torch.Generator()),
         "init_cache moe": lambda: models.init_cache(moe_lm, 2, 8),
+        "init_params hybrid": lambda: models.init_params(
+            configs.get_reduced("recurrentgemma-9b"), torch.Generator()),
+        "init_cache ssm": lambda: models.init_cache(
+            configs.get_reduced("xlstm-350m"), 2, 8),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

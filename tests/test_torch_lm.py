@@ -160,8 +160,9 @@ def test_batched_server_with_knn_hook_matches_jax():
 
 
 def test_init_params_shapes_and_unported_families():
-    """``init_params`` draws the JAX package's shapes from a generator;
-    the families the port does not have raise, naming their item."""
+    """``init_params`` draws the JAX package's shapes from a generator,
+    for every family; a logit softcap (not ported) raises, naming its
+    item."""
     (jcfg, jp, _), (cfg, _) = _pair("qwen3-14b")
     got = init_params(cfg, torch.Generator().manual_seed(0),
                       ModelOptions(dtype=torch.float32), device="cpu")
@@ -180,10 +181,13 @@ def test_init_params_shapes_and_unported_families():
         cache = init_cache(cfg, 2, 16, device="cpu")
         assert len(cache["layers"]) == cfg.n_layers
     for arch in ("xlstm-350m", "whisper-small", "qwen2-vl-7b",
-                 "recurrentgemma-9b"):
-        with pytest.raises(NotImplementedError, match="Queue A6"):
-            init_params(configs.get_reduced(arch), torch.Generator(),
-                        device="cpu")
+                 "recurrentgemma-9b"):      # the other families (A6b, A6c)
+        (_, jp, _), (cfg, ported) = _pair(arch)
+        got = init_params(cfg, torch.Generator().manual_seed(0),
+                          ModelOptions(dtype=torch.float32), device="cpu")
+        assert [tuple(t.shape) for t in flat(got)] == \
+            [tuple(t.shape) for t in flat(ported)]
+        assert count_params(got) == sum(x.size for x in flat(jp))
     soft = dataclasses.replace(cfg, attn_logit_softcap=30.0)
     with pytest.raises(NotImplementedError, match="softcap"):
         init_params(soft, torch.Generator(), device="cpu")
