@@ -171,18 +171,35 @@ force and against each other. Phases:
    tokens, 32 greedy tokens (K-F 12 + 24 × 33), the layer check with
    the encoder's calls; each reduced config on the card and the CPU
    with the same weights (logits within 2e-5 + 2e-5·|logit|, tokens
-   equal).
+   equal);
+21. the train path: K-B (K-F's backward, ``csrc/flash_attn_bwd.cu``) vs
+   its plain version on the same bf16 inputs and K-F lse at the train
+   shapes of llama3.2-3b (b 4, T 1,024, GQA 24 / 8, d 128), recurrentgemma
+   (MQA 16 / 1, d 256, window 2,048), whisper's encoder (1,500 × 1,500)
+   and cross-attention (224 × 1,500) and deepseek's expanded MLA (d 192,
+   v padded from 128): ‖Δ‖/‖ref‖ ≤ 2⁻⁸, dv's padded columns 0, a repeated
+   launch the same bits, with SDPA's backward timed beside it; K-F's
+   output bitwise equal with and without lse at the dense and MLA
+   shapes, lse against the plain version's; the reduced llama in float32
+   card vs CPU (gradients, a train step, ``accum=4`` vs 1, AdamW and
+   Adafactor on the same gradients) and a bitwise restart (4 steps
+   against 2 + save / restore + 2); llama3.2-3b at full width and depth
+   (28 layers, bf16, seeded) trained 8 steps through ``launch.train``
+   (AdamW, remat, batch 4 × 1,024), counted (K-F 28 × 2 × 8, K-B 28 ×
+   8), every loss and grad norm finite and falling, s/step, tokens/s and
+   peak memory printed; one more such step profiled (the device's busy
+   share, K-B's, K-F's and the matrix products' device time).
 
 Every time printed stands beside the card's name and power limit. The
 line before the last two is one JSON object with each kernel's launches
-(its main paths' plus phase 18's; K-F's main paths are phases 14, 19
-and 20),
+(its main paths' plus phase 18's; K-F's main paths are phases 14, 19,
+20 and 21, K-B's phase 21),
 error, times and bound; the line before the last is the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before those lines, with its message on stdout and stderr
 (also without a card, or where the script stands alone, away from the
 repository's ``src/``). Long reports (nvcc's ``ptxas``
-output, the profiles by kernel, phases 16–20's numbers as JSON) go
+output, the profiles by kernel, phases 16–21's numbers as JSON) go
 to ``--out`` (default ``build/chip_smoke/``). Needs one card, no network; imports nothing of
 JAX.
 """
@@ -289,11 +306,8 @@ def timed(fn, into: list):
 
 def to_device(tree):
     """A tree of dicts and lists of tensors, copied to ``DEV``."""
-    if isinstance(tree, dict):
-        return {key: to_device(val) for key, val in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(val) for val in tree]
-    return tree.to(DEV)
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(DEV), tree)
 
 
 def record_retrievals(store, into: list):
@@ -3230,6 +3244,456 @@ def phase_families(card, torch, rt, launches) -> tuple:
     return cases, out
 
 
+TRAIN_ARCH = "llama3.2-3b"        # phase 21: trained at full width and depth
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+TRAIN_LR = 1e-3                    # the launcher's default (warmup 10 steps)
+# K-B's shapes (phase 21): b, nq, nk, h, kvh, d, causal, window, d_v (the v
+# columns used: MLA's expanded form pads v from 128 to 192)
+KB_SHAPES = (
+    ("llama3.2-3b train", 4, 1024, 1024, 24, 8, 128, True, None, None),
+    ("recurrentgemma-9b causal (window = T)", 2, 2048, 2048, 16, 1, 256,
+     True, 2048, None),
+    ("recurrentgemma-9b windowed (T 4,096)", 1, 4096, 4096, 16, 1, 256,
+     True, 2048, None),
+    ("whisper-small encoder", 4, 1500, 1500, 12, 12, 64, False, None, None),
+    ("whisper-small cross-attention", 4, 224, 1500, 12, 12, 64, False, None,
+     None),
+    ("deepseek-v2-lite-16b expanded MLA", 2, 1024, 1024, 16, 16, 192, True,
+     None, 128),
+)
+
+
+def rel_norm(a, b) -> float:
+    """‖a − b‖ / ‖b‖ in float32."""
+    return float((a.float() - b.float()).norm() / (b.float().norm() + 1e-30))
+
+
+def kb_case(card, torch, what, b, nq, nk, h, kvh, d, causal, window,
+            d_v) -> dict:
+    """K-B vs its plain version on the same bf16 inputs and K-F's lse:
+    ‖Δ‖ / ‖ref‖ of dq, dk and dv within 2⁻⁸ (both sum in float32 in
+    other orders and round once to bf16: one rounding is ≤ 2⁻⁸ relative
+    per entry), every entry finite, dv's padded columns 0 and a repeated
+    launch the same bits; K-B timed beside the plain version and SDPA's
+    backward (``torch.autograd.grad`` of one SDPA output, the graph kept)
+    and its forward. The bound is the larger of the bytes (q, k, v, o,
+    dO, lse read once, dq, dk, dv written once; v, o, dO and dv at the
+    ``d_v`` columns the function uses) at the HBM rate and the
+    operations at the bf16 tensor-core peak, the inputs' type: per
+    visible (query, key, head) 2·(3d + 2·d_v), for S = q·kᵀ, dk and dq
+    at d and dP = dO·vᵀ and dv at d_v. K-B runs fp32 FMAs on the CUDA
+    cores; the time of the same work at their peak is printed beside
+    it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kf
+    gen = torch.Generator(device=DEV).manual_seed(21 + d)
+    bf = torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(bf)
+
+    q, k, v = rand(b, nq, h, d), rand(b, nk, kvh, d), rand(b, nk, kvh, d)
+    do = rand(b, nq, h, d)
+    if d_v is not None:
+        v[..., d_v:] = 0
+        do[..., d_v:] = 0
+    kw = dict(causal=causal, window=window)
+    out, lse = kf.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = kf.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    want = kf.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    errs = [rel_norm(g, w) for g, w in zip(got, want)]
+    check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+          f"K-B ({what}): non-finite gradient")
+    check(max(errs) <= 2.0 ** -8, f"K-B ({what}): ‖Δ‖/‖ref‖ of dq, dk, dv "
+          f"{errs} past 2^-8 against the plain version")
+    if d_v is not None:
+        check(bool((got[2][..., d_v:] == 0).all()),
+              f"K-B ({what}): dv's padded columns are not 0")
+    again = kf.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"K-B ({what}): a repeated launch gives other bits")
+    max_err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+    del want, again
+    ms = time_ms(lambda: kf.flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                                     **kw), iters=5)
+    plain_ms = time_ms(lambda: kf.flash_attention_bwd_plain(
+        q, k, v, out, do, lse, **kw), warmup=1, iters=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    mask = None
+    if window is not None:
+        pos = torch.arange(nq, device=DEV)[:, None] + (nk - nq)
+        key = torch.arange(nk, device=DEV)[None, :]
+        mask = (key <= pos) & (key > pos - window)
+    sdpa_kw = dict(enable_gqa=True, attn_mask=mask,
+                   is_causal=causal and mask is None and nq == nk)
+    ref = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        ref, (qt, kt, vt), dot, retain_graph=True), iters=5)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **sdpa_kw), iters=5)
+    del ref, qt, kt, vt, dot
+    pos = torch.arange(nq, device=DEV, dtype=torch.float64) + (nk - nq)
+    lo = torch.zeros_like(pos) if window is None else \
+        torch.clamp(pos - window + 1, min=0)
+    hi = torch.full_like(pos, nk - 1)
+    if causal:
+        hi = torch.minimum(pos, hi)
+    pairs = float(b * h * torch.clamp(hi - lo + 1, min=0).sum())
+    used = (d if d_v is None else d_v) / d     # v's share of columns used
+    n_bytes = float(q.element_size()) * (
+        2 * q.numel() + 2 * k.numel()
+        + used * (out.numel() + do.numel() + 2 * v.numel())) \
+        + 4.0 * lse.numel()
+    ops_n = 2.0 * (3 * d + 2 * used * d) * pairs
+    t_b = n_bytes / H100_HBM_BYTES_S * 1e3
+    t_f = ops_n / H100_BF16_FLOPS_S * 1e3
+    b_ms, b_by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+    fp32_ms = max(t_b, ops_n / H100_FP32_FLOPS_S * 1e3)
+    print(f"[{card}] K-B flash attention backward ({what}) q "
+          f"{tuple(q.shape)} kv {tuple(k.shape)} bf16"
+          + ("" if causal else " non-causal")
+          + ("" if window is None else f" window {window}")
+          + ("" if d_v is None else f" v padded from {d_v}")
+          + f": ‖Δ‖/‖ref‖ dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+          f"{errs[2]:.3e} (limit 2^-8), max |err| {max_err:.3e}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f}"
+          f" ms (its forward {fwd_ms:.4f} ms); bound {b_ms:.4f} ms ({b_by}: "
+          f"{pairs:.4e} visible pairs x 2(3d + 2d_v) bf16 operations, "
+          f"{n_bytes:.4e} bytes); at the fp32 CUDA-core peak K-B runs at "
+          f"{fp32_ms:.4f} ms", flush=True)
+    return dict(shape=what, max_abs_err=max_err, rel_errs=errs, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, sdpa_forward_ms=fwd_ms,
+                fp32_core_bound_ms=fp32_ms)
+
+
+def kf_lse_checks(card, torch) -> list:
+    """K-F's output with and without lse, bit for bit, at the dense
+    prefill (tensor cores), decode (split-KV + combine) and MLA's
+    absorbed (d = 576, CUDA cores) and expanded (d = 192) shapes; lse
+    against the plain version's (−inf at the same rows, finite rows within
+    1e-4: both take m + log l in float32 over sums in other orders)."""
+    from repro_torch.kernels import flash_attention as kf
+    gen = torch.Generator(device=DEV).manual_seed(211)
+    shapes = (("dense prefill", 4, 1024, 1024, 24, 8, 128),
+              ("dense decode", 8, 1, 2080, 24, 8, 128),
+              ("MLA absorbed prefill", 2, 512, 512, 16, 1, 576),
+              ("MLA absorbed decode", 8, 1, 2064, 16, 1, 576),
+              ("MLA expanded prefill", 2, 1024, 1024, 16, 16, 192))
+    out = []
+    for what, b, nq, nk, h, kvh, d in shapes:
+        q, k = (torch.randn(s, generator=gen, device=DEV).to(torch.bfloat16)
+                for s in ((b, nq, h, d), (b, nk, kvh, d)))
+        v = k if kvh == 1 else torch.randn(
+            (b, nk, kvh, d), generator=gen, device=DEV).to(torch.bfloat16)
+        o1 = kf.flash_attention_cuda(q, k, v)
+        o2, lse = kf.flash_attention_cuda(q, k, v, return_lse=True)
+        plan = kf.last_plan
+        _, ref = kf.flash_attention_plain(q, k, v, return_lse=True)
+        check(torch.equal(o1, o2), f"K-F ({what}): the output differs with "
+              f"lse")
+        check(torch.equal(torch.isinf(lse), torch.isinf(ref)),
+              f"K-F ({what}): lse is -inf at other rows than the plain "
+              f"version's")
+        fin = torch.isfinite(ref)
+        err = float((lse[fin] - ref[fin]).abs().max())
+        check(err <= 1e-4, f"K-F ({what}): lse off the plain version's by "
+              f"{err:.3e}")
+        print(f"[{card}] K-F with lse ({what}, d {d}, route {plan.route}, "
+              f"{plan.splits} key splits): output bitwise equal without "
+              f"lse; lse max |err| {err:.3e} vs the plain version",
+              flush=True)
+        out.append(dict(shape=what, lse_max_abs_err=err, route=plan.route))
+    return out
+
+
+def reduced_training(card, torch) -> dict:
+    """The reduced llama3.2-3b in float32, card against CPU (same weights,
+    same batch): ``loss_and_grads`` (loss within 1e-5 rel, each gradient
+    leaf within 2e-5 of its largest entry: the CPU's plain backward and
+    K-B sum in other orders); one ``make_train_step`` step (loss and grad
+    norm within 1e-5 rel); ``accum=4`` against ``accum=1`` on the
+    concatenated batch, on the card (loss 1e-5, parameters 1e-5 abs + 1e-4
+    rel, the JAX ``test_accum_equivalence`` limits); AdamW and Adafactor
+    fed the CPU's gradients on both devices (each parameter leaf within
+    1e-5 of its largest entry); and the restart: 4 steps straight against
+    2 steps, ``checkpoint.save``, ``restore`` and 2 more, the parameters
+    and the AdamW state bitwise equal."""
+    import tempfile
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.train import (OptConfig, TrainConfig, checkpoint,
+                                   make_optimizer, make_train_step)
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.tree import leaves_with_path, path_str, tree_map
+    cfg = configs.get_reduced(TRAIN_ARCH)
+    opts = ModelOptions(dtype=torch.float32, remat=True)
+    cpu_p = init_params(cfg, torch.Generator().manual_seed(21), opts,
+                        device="cpu")
+    dev_p = to_device(cpu_p)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8)
+    batch = {k: torch.as_tensor(v) for k, v in
+             synthetic_lm_batch(dcfg, 0).items()}
+    dbatch = {k: v.to(DEV) for k, v in batch.items()}
+
+    def worst(a_tree, b_tree) -> float:
+        """The largest per-leaf max |a − b| / max |b|."""
+        bb = dict(leaves_with_path(b_tree))
+        out = 0.0
+        for path, a in leaves_with_path(a_tree):
+            b = bb[path].to(a.device)
+            out = max(out, float((a - b).abs().max())
+                      / (float(b.abs().max()) + 1e-30))
+        return out
+
+    l_cpu, g_cpu = loss_and_grads(cpu_p, cfg, batch, opts, 1e-4)
+    l_dev, g_dev = loss_and_grads(dev_p, cfg, dbatch, opts, 1e-4)
+    g_err = worst(tree_map(torch.Tensor.cpu, g_dev), g_cpu)
+    l_err = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+    check(l_err <= 1e-5 and g_err <= 2e-5,
+          f"reduced training: card loss {float(l_dev)} vs CPU "
+          f"{float(l_cpu)}, gradients {g_err:.3e} of the largest entry "
+          f"(limit 2e-5)")
+    ms = {}
+    for where, p, bt in (("cpu", cpu_p, batch), ("card", dev_p, dbatch)):
+        init, step = make_train_step(cfg, TrainConfig(), opts)
+        ms[where] = step(p, init(p), bt)[2]
+    s_err = max(abs(float(ms["card"][k]) - float(ms["cpu"][k]))
+                / abs(float(ms["cpu"][k])) for k in ("loss", "grad_norm"))
+    check(s_err <= 1e-5, f"reduced training: a train step's loss or grad "
+          f"norm {s_err:.3e} off the CPU's")
+    # accum=4 against accum=1 on the card
+    ocfg = OptConfig(grad_clip=1e9)
+    res = {}
+    for accum in (1, 4):
+        init, step = make_train_step(cfg, TrainConfig(opt=ocfg, accum=accum,
+                                                      z_loss=0.0), opts)
+        bt = dbatch if accum == 1 else {
+            k: v.reshape(4, 2, -1) for k, v in dbatch.items()}
+        res[accum] = step(dev_p, init(dev_p), bt)
+    a_loss = abs(float(res[1][2]["loss"]) - float(res[4][2]["loss"]))
+    a_ok = all(bool(torch.isclose(a, b, atol=1e-5, rtol=1e-4).all())
+               for (_, a), (_, b) in zip(leaves_with_path(res[1][0]),
+                                         leaves_with_path(res[4][0])))
+    check(a_loss <= 1e-5 * abs(float(res[1][2]["loss"])) and a_ok,
+          f"reduced training: accum=4 differs from accum=1 on the card "
+          f"(loss {a_loss:.3e})")
+    # the optimizers on the same gradients, CPU against card
+    o_err = {}
+    for name in ("adamw", "adafactor"):
+        init, update = make_optimizer(OptConfig(name=name, lr=1e-2,
+                                                warmup_steps=0), cfg)
+        new = {}
+        for where, p in (("cpu", cpu_p), ("card", dev_p)):
+            g = g_cpu if where == "cpu" else to_device(g_cpu)
+            new[where], _, _ = update(g, init(p), p)
+        o_err[name] = worst(tree_map(torch.Tensor.cpu, new["card"]),
+                             new["cpu"])
+        check(o_err[name] <= 1e-5, f"reduced training: {name} on the card "
+              f"{o_err[name]:.3e} off the CPU's on the same gradients")
+    # restart: 4 steps straight against 2 + save / restore + 2
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2,
+                                     decay_steps=4))
+    init, step = make_train_step(cfg, tcfg, opts)
+
+    def run(params, opt, lo, hi):
+        for i in range(lo, hi):
+            b = {k: torch.as_tensor(v, device=DEV) for k, v in
+                 synthetic_lm_batch(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                               global_batch=4), i).items()}
+            params, opt, _ = step(params, opt, b)
+        return params, opt
+
+    p4, o4 = run(dev_p, init(dev_p), 0, 4)
+    p2, o2 = run(dev_p, init(dev_p), 0, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save(tmp, 2, {"params": p2, "opt": o2})
+        fresh = init_params(cfg, torch.Generator(device=DEV).manual_seed(5),
+                            opts, device=DEV)
+        restored, at = checkpoint.restore(
+            tmp, {"params": fresh, "opt": init(fresh)})
+    check(at == 2, f"restart: restored step {at}")
+    pr, orr = run(restored["params"], restored["opt"], 2, 4)
+    same = {path_str(path): torch.equal(a, b) for (path, a), (_, b) in zip(
+        leaves_with_path({"params": p4, "opt": o4}),
+        leaves_with_path({"params": pr, "opt": orr}))}
+    check(all(same.values()), f"restart: not bitwise at "
+          f"{[k for k, v in same.items() if not v][:5]}")
+    print(f"[{card}] reduced {TRAIN_ARCH} training (fp32, remat), card vs "
+          f"CPU: loss rel diff {l_err:.3e}, gradients {g_err:.3e} of each "
+          f"leaf's largest entry (limit 2e-5); one train step's loss and "
+          f"grad norm {s_err:.3e} (limit 1e-5); accum=4 vs accum=1 on the "
+          f"card: loss diff {a_loss:.3e}, parameters within 1e-5 + 1e-4 rel; "
+          f"AdamW / Adafactor on the same gradients {o_err['adamw']:.3e} / "
+          f"{o_err['adafactor']:.3e} (limit 1e-5); restart after 2 of 4 "
+          f"steps (save, restore): {len(same)} leaves of the parameters and "
+          f"AdamW state bitwise equal", flush=True)
+    return dict(grad_err=g_err, loss_rel_err=l_err, step_err=s_err,
+                accum_loss_diff=a_loss, opt_err=o_err,
+                restart_leaves_equal=len(same))
+
+
+def profile_train_step(card, torch, out_file: Path) -> dict:
+    """One full-width training step of phase 21's configuration (seeded
+    weights, AdamW, remat, the stream's step 0) under torch.profiler,
+    after a warm-up step: the device's busy share of the step's
+    CUDA-event time, and the device time of K-B (``bwd_*``), K-F
+    (``fa_*``), the matrix products (GEMM kernels) and the rest
+    (elementwise, reductions, copies: the optimizer, norms, the loss).
+    The profiler's host overhead lengthens the window, so the busy share
+    is a lower bound; a profiler that records no device time is reported
+    as not measured. Every kernel's time goes to ``out_file``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.train import OptConfig, TrainConfig, make_train_step
+    cfg = configs.get_arch(TRAIN_ARCH)
+    opts = ModelOptions(dtype=torch.bfloat16, remat=True,
+                        max_abs_pos=max(4096, TRAIN_SEQ))
+    init, step = make_train_step(cfg, TrainConfig(opt=OptConfig(
+        lr=TRAIN_LR, warmup_steps=10, decay_steps=TRAIN_STEPS)), opts)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         opts, device=DEV)
+    state = {"params": params, "opt": init(params)}
+    del params
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in
+             synthetic_lm_batch(DataConfig(vocab=cfg.vocab,
+                                           seq_len=TRAIN_SEQ,
+                                           global_batch=TRAIN_BATCH),
+                                0).items()}
+
+    def one():
+        state["params"], state["opt"], _ = step(state["params"],
+                                                state["opt"], batch)
+
+    one()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        one()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3)
+                      for e in prof.key_averages()
+                      if e.device_type.name == "CUDA"
+                      and e.self_device_time_total > 0),
+                     key=lambda kv: -kv[1])
+    del state, batch
+    torch.cuda.empty_cache()
+    busy = sum(ms for _, ms in kernels)
+    if not busy:
+        print(f"[{card}] training step profile: not measured (no device "
+              f"time recorded)", flush=True)
+        return {}
+    out_file.write_text("".join(f"{ms:10.4f} ms  {name}\n"
+                                for name, ms in kernels))
+    groups = {"K-B": ("bwd_dsum", "bwd_dkdv", "bwd_dq"),
+              "K-F": ("fa_mma", "fa_simt", "fa_combine"),
+              "GEMM": ("gemm", "Gemm", "GEMM", "xmma", "cutlass",
+                       "nvjet")}
+    share = {name: sum(ms for key, ms in kernels
+                       if any(m in key for m in marks))
+             for name, marks in groups.items()}
+    share["rest"] = busy - sum(share.values())
+    print(f"[{card}] training step profile ({TRAIN_ARCH}, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, AdamW, remat): {len(kernels)} "
+          f"kernels, device busy {busy:.3f} ms of {wall:.3f} ms under the "
+          f"profiler ({busy / wall:.1%}); "
+          + ", ".join(f"{name} {ms:.3f} ms ({ms / busy:.1%})"
+                      for name, ms in share.items())
+          + f" (every kernel: {out_file})", flush=True)
+    return dict(busy_ms=busy, wall_ms=wall, **{f"{k}_ms": v
+                                              for k, v in share.items()})
+
+
+def phase_training(card, torch, launches, out_dir: Path) -> tuple:
+    """21. The train path on the card: (a) K-B vs its plain version at the
+    families' train shapes (``kb_case``); (b) K-F's output with and without
+    lse (``kf_lse_checks``); (c) the reduced model card vs CPU, the
+    optimizers, accumulation and a bitwise restart
+    (``reduced_training``); (d) llama3.2-3b at full width and depth (28
+    layers, bf16, seeded) through ``python -m repro_torch.launch.train``'s
+    ``main``: AdamW, remat, batch 4 × 1,024 tokens, 8 steps, counted (K-F
+    twice a layer a step, K-B once), every loss and grad norm finite and
+    the last two losses' mean below the first two's; (e) one such step
+    profiled (``profile_train_step``). Returns (K-B's cases, the phase's
+    numbers)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    t_phase = time.perf_counter()
+    cases = [kb_case(card, torch, *shape) for shape in KB_SHAPES]
+    lse_cases = kf_lse_checks(card, torch)
+    torch.cuda.empty_cache()
+    reduced = reduced_training(card, torch)
+    torch.cuda.empty_cache()
+    cfg = configs.get_arch(TRAIN_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    begin_path(ops, "train")
+    t0 = time.perf_counter()
+    run = launch_train.main(["--arch", TRAIN_ARCH, "--steps",
+                             str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ),
+                             "--batch", str(TRAIN_BATCH), "--lr",
+                             str(TRAIN_LR), "--device", DEV])
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = launches["train"] = end_path(ops)
+    peak = torch.cuda.max_memory_allocated()
+    losses, norms, step_s = run["loss"], run["grad_norm"], run["step_s"]
+    check(len(losses) == TRAIN_STEPS and all(
+        np.isfinite(x) for x in losses + norms),
+        f"training: non-finite loss or grad norm: {losses}, {norms}")
+    check(np.mean(losses[-2:]) < np.mean(losses[:2]),
+          f"training: the loss did not fall: {losses}")
+    want_f = cfg.n_layers * 2 * TRAIN_STEPS
+    want_b = cfg.n_layers * TRAIN_STEPS
+    check(counts["flash_attention"] == want_f
+          and counts["flash_attention_bwd"] == want_b,
+          f"training: K-F / K-B launched {counts['flash_attention']} / "
+          f"{counts['flash_attention_bwd']} times, expected {cfg.n_layers} "
+          f"layers x 2 (remat) x {TRAIN_STEPS} = {want_f} / {want_b}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = float(np.median(step_s[1:]))
+    # every token of steps 2..8 over the summed seconds of those steps
+    tokens_per_s = tokens * (TRAIN_STEPS - 1) / float(np.sum(step_s[1:]))
+    print(f"[{card}] training {TRAIN_ARCH} at full width and depth "
+          f"({cfg.n_layers} layers, bf16, AdamW, remat; batch {TRAIN_BATCH} "
+          f"x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps) through "
+          f"launch.train: {t_run:.3f} s with init; s/step "
+          + ", ".join(f"{x:.3f}" for x in step_s)
+          + f" (steps 2-{TRAIN_STEPS}: {tokens_per_s:.1f} tokens/s over "
+          f"their summed time; median {steady:.3f} s/step); loss "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + "; grad norm " + ", ".join(f"{x:.4f}" for x in norms)
+          + f"; peak memory {peak / 2 ** 30:.3f} GiB; launches {counts}",
+          flush=True)
+    out = dict(kb_cases=cases, kf_lse=lse_cases, reduced=reduced,
+               full=dict(loss=losses, grad_norm=norms, step_s=step_s,
+                         s_per_step_median=steady,
+                         tokens_per_s=tokens_per_s, peak_bytes=peak,
+                         wall_s=t_run, launches=counts))
+    torch.cuda.empty_cache()
+    out["profile"] = profile_train_step(card, torch,
+                                        out_dir / "train_profile.txt")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 21 (training) {out['phase_s']:.3f} s", flush=True)
+    return cases, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
@@ -3511,13 +3975,25 @@ def main(argv=None) -> int:
     (out_dir / "phase_20.json").write_text(json.dumps(
         dict(fam_run, kf_cases=fam_cases)))
 
+    # ---- 21. the train path: K-B, K-F with lse, llama3.2-3b trained
+    kb_cases, train_run = phase_training(card, torch, launches, out_dir)
+    (out_dir / "phase_21.json").write_text(json.dumps(train_run))
+    kb_row = dict(name="flash_attention_bwd", route="cuda",
+                  source="src/repro_torch/csrc/flash_attn_bwd.cu",
+                  replaces="src/repro/models/layers.py:130 (jax.grad of "
+                           "_sdpa; the JAX package has no Pallas backward)")
+    kb_row.update({key: kb_cases[0][key] for key in _ROW_KEYS})
+    kb_row["other_shapes"] = kb_cases[1:]
+    rows.append(kb_row)
+
     owner = {"assign": ("megastep",), "distance_topk_gather": ("megastep",),
              "quant_coarse_gather": ("quantized",),
              "distance_topk": ("retrieval",),
              "flash_attention": ("lm_serve", "moe_serve", "moe_arctic",
                                  "fam_recurrentgemma", "fam_xlstm",
                                  "fam_qwen2", "fam_qwen2_vision",
-                                 "fam_whisper")}
+                                 "fam_whisper", "train"),
+             "flash_attention_bwd": ("train",)}
     for row in rows:
         if row["name"] in caps:
             row["cap_shapes"] = caps[row["name"]]

@@ -16,6 +16,11 @@
 //   m' = max(m, max s)   p = exp(s - m') (0 where masked)
 //   l = l * exp(m - m') + Σ p      acc = acc * exp(m - m') + p · v
 // and o = acc / max(l, 1e-30), cast to q's type: a row that sees no key is 0.
+// Given an lse pointer (training: FlashAttentionFn in
+// kernels/flash_attention.py), each form also writes the row's log-sum-exp
+// lse = m + log l (fp32, (b, h, nq); -inf for a row that sees no key), which
+// the backward kernel (flash_attn_bwd.cu) recomputes p from. Every
+// instruction that produces o is the same with and without it.
 // p is never rounded below fp32, exp is expf and the division IEEE (never
 // build with --use_fast_math). A key tile that no row of the block can see
 // is skipped before its load; for a row that sees none of a tile the update
@@ -77,6 +82,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -104,6 +110,7 @@ struct Args {
   float* part_m;    // split-KV partials (null when splits == 1):
   float* part_l;    //   (splits, b·nq·h) and
   float* part_acc;  //   (splits, b·nq·h, d)
+  float* lse;       // each row's m + log l, (b, h, nq), or null
   long long qsb, qsn, qsh;  // element strides of q, k, v (the last axis is contiguous)
   long long ksb, ksn, ksh;
   long long vsb, vsn, vsh;
@@ -482,6 +489,17 @@ __global__ void __launch_bounds__(kMmaThreads) fa_mma(const Args a) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  if (a.lse != nullptr && z == 0 && tq == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int vr = half ? vr1 : vr0;
+      if (vr >= nv) continue;
+      const int hh = vr / nq;
+      const float l = half ? l1 : l0;
+      a.lse[(bb * a.h + g * rep + hh) * nq + (vr - hh * nq)] =
+          l > 0.f ? (half ? m1 : m0) + logf(l) : -CUDART_INF_F;
+    }
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int vr = half ? vr1 : vr0;
@@ -743,6 +761,9 @@ __global__ void __launch_bounds__(kThreads) fa_simt(const Args a) {
     const int i = vr - hh * nq;
     const long long orow = (bb * nq + i) * a.h + g * rep + hh;
     if (a.splits == 1) {
+      if (a.lse != nullptr && z == 0 && tx == 0)
+        a.lse[(bb * a.h + g * rep + hh) * nq + i] =
+            l_s[row] > 0.f ? m_s[row] + logf(l_s[row]) : -CUDART_INF_F;
       const float den = fmaxf(l_s[row], 1e-30f);
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
@@ -782,6 +803,11 @@ __global__ void __launch_bounds__(kThreads) fa_combine(const Args a) {
     acc = fmaf(a.part_acc[s * n_rows * a.d + e], w, acc);
   }
   static_cast<T*>(a.o)[e] = from_f<T>(acc / fmaxf(l, 1e-30f));
+  if (a.lse != nullptr && e % a.d == 0) {  // row = (bb·nq + i)·h + hq
+    const long long hq = row % a.h;
+    const long long bi = row / a.h;        // bb·nq + i
+    a.lse[((bi / a.nq) * a.h + hq) * a.nq + bi % a.nq] = l > 0.f ? m + logf(l) : -CUDART_INF_F;
+  }
 }
 
 // ------------------------------------------------------------ launch
@@ -871,13 +897,15 @@ cudaError_t launch_route(const Args& a, int dtype, int route, int width, int bq,
 // ceil(d / min(DK, 128)), splits 1), route 1 = fa_simt (width = DV in {16,
 // 32, 64, 128}, bq in {16, 64}, zc = ceil(d / DV), split_keys a multiple of
 // 128 with splits·split_keys >= nk; splits > 1 needs the partials, fp32
-// (splits, b·nq·h) for m and l and (splits, b·nq·h, d) for acc). vec = 1:
+// (splits, b·nq·h) for m and l and (splits, b·nq·h, d) for acc). lse: null,
+// or fp32 (b, h, nq) for each row's log-sum-exp. vec = 1:
 // q, k, v are 16-byte aligned with strides and d multiples of 16 bytes'
 // elements. b, nq, h, kvh, d >= 1, nk >= 0, h a multiple of kvh,
 // b·kvh <= 65535, zc·splits <= 65535, window >= 0 when used. The output is
 // (b, nq, h, d), contiguous.
 extern "C" int repro_flash_attn(const void* q, const void* k, const void* v, void* o,
-                                void* part_m, void* part_l, void* part_acc, int dtype, int b,
+                                void* part_m, void* part_l, void* part_acc, void* lse,
+                                int dtype, int b,
                                 int nq, int nk, int h, int kvh, int d, long long qsb,
                                 long long qsn, long long qsh, long long ksb, long long ksn,
                                 long long ksh, long long vsb, long long vsn, long long vsh,
@@ -890,7 +918,7 @@ extern "C" int repro_flash_attn(const void* q, const void* k, const void* v, voi
       zc < 1 || splits < 1 || split_keys < 1 || static_cast<long long>(zc) * splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,   k,   v,   o,   static_cast<float*>(part_m), static_cast<float*>(part_l),
-         static_cast<float*>(part_acc),
+         static_cast<float*>(part_acc), static_cast<float*>(lse),
          qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
          b,   nq,  nk,  h,   kvh, d,   causal, use_window, window, scale, zc, splits,
          split_keys};

@@ -27,7 +27,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 SOURCES = {"assign": "assign.cu", "gather_topk": "gather_topk.cu",
            "quant_coarse": "quant_coarse.cu", "dense_topk": "dense_topk.cu",
-           "flash_attn": "flash_attn.cu"}
+           "flash_attn": "flash_attn.cu",
+           "flash_attn_bwd": "flash_attn_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600

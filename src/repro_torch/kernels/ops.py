@@ -80,7 +80,12 @@ def flash_attention(
     """Attention over q ``(b, nq, h, d)`` and k, v ``(b, nk, kvh, d)``
     (GQA), queries right-aligned to the keys, causal and/or windowed;
     output ``(b, nq, h, d)`` in q's dtype, float32 math inside. The LM's
-    every attention layer, prefill and decode."""
+    every attention layer, prefill, decode and training: where grad is
+    enabled and q, k or v requires it, through ``FlashAttentionFn`` (K-F
+    with lse forward, K-B backward; their plain versions on the CPU)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _flash.FlashAttentionFn.apply(q, k, v, causal, window, scale)
     if q.is_cuda:
         return _flash.flash_attention_cuda(q, k, v, causal=causal,
                                            window=window, scale=scale)
@@ -94,6 +99,7 @@ def launch_counts() -> Dict[str, int]:
             "distance_topk": _gather.dense_launches,
             "distance_topk_gather": _gather.launches,
             "flash_attention": _flash.launches,
+            "flash_attention_bwd": _flash.bwd_launches,
             "quant_coarse_gather": _quant.launches}
 
 
@@ -102,4 +108,5 @@ def reset_launch_counts() -> None:
     _gather.dense_launches = 0
     _gather.launches = 0
     _flash.launches = 0
+    _flash.bwd_launches = 0
     _quant.launches = 0

@@ -3,9 +3,10 @@ family: the layer stack walked in a Python loop, attention (GQA, MLA,
 local over a ring cache, cross-attention) on the flash attention kernel
 K-F, the MoE FFN in ``models.moe``, the recurrent cells in
 ``models.recurrent``."""
-from .convert import params_from_jax
+from .convert import opt_state_from_jax, params_from_jax
 from .model import (ModelOptions, count_params, encode, forward, init_cache,
                     init_params, layer_kinds)
 
 __all__ = ["ModelOptions", "count_params", "encode", "forward", "init_cache",
-           "init_params", "layer_kinds", "params_from_jax"]
+           "init_params", "layer_kinds", "opt_state_from_jax",
+           "params_from_jax"]

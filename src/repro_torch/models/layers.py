@@ -12,7 +12,9 @@ Self-attention runs through the flash attention kernel K-F
 and prefill without a cache, and with a decode cache over its live part
 ``k[:, :pos + t]`` with the queries right-aligned, which is the function
 the JAX ``_sdpa`` computes over the whole cache masked causally at offset
-``pos``. The model's matrix products stay ``torch.matmul``.
+``pos``. In training its gradient is K-F's backward kernel K-B
+(``ops.flash_attention`` routes inputs that require grad through
+``FlashAttentionFn``). The model's matrix products stay ``torch.matmul``.
 
 Multi-head latent attention (MLA, DeepSeek-V2) runs on K-F in both of
 the JAX package's forms: *expanded* without a cache (per-head keys and
@@ -28,7 +30,7 @@ Local attention decodes over a ring-buffer cache (:func:`attn_apply`),
 cross-attention (whisper's decoder) runs K-F non-causal over the
 projected encoder output, and M-RoPE (qwen2-vl) rotates sections of the
 head by three position axes. The read-only serving cache and a logit
-softcap are not ported (``not_ported``, Queue A6d).
+softcap are not ported (``not_ported``, Queue A6e).
 """
 from __future__ import annotations
 

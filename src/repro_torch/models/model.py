@@ -20,7 +20,11 @@ tensors are written in place, a recurrent layer's state is replaced.
 
 Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
 fills the cache from position 0 on), ``decode`` (positions continue from
-the cache's).
+the cache's). In ``train`` mode with ``ModelOptions.remat`` and grad
+enabled, each layer runs under ``torch.utils.checkpoint`` (non-reentrant;
+the counterpart of the JAX package's ``jax.checkpoint`` of its scan body):
+its activations are recomputed in the backward pass, so K-F runs twice
+per layer a training step.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ATTN_BIDIR, ArchConfig
 from ..core.index import not_ported
@@ -43,10 +48,12 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
-    """The JAX package's ``ModelOptions`` without its training and
-    chunking knobs (``remat``, ``chunk_q``: the port has no training step
-    and runs attention through K-F at every length)."""
+    """The JAX package's ``ModelOptions`` without its chunking knob
+    (``chunk_q``: the port runs attention through K-F, forward and
+    backward, at every length). ``remat`` recomputes each layer's
+    activations in the backward pass (``train`` mode only)."""
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
     max_abs_pos: int = 4096  # learned position table (rope == "none")
     # the JAX serving layout of a mesh (a read-only, length-sharded cache)
     readonly_cache: bool = False
@@ -58,7 +65,7 @@ def _check_arch(cfg: ArchConfig, opts: ModelOptions) -> None:
                          "the TPU kernel)", "A6")
     if opts.readonly_cache:
         raise not_ported("the read-only serving cache (a mesh layout; "
-                         "A6d)", "A6")
+                         "A6e)", "A6")
 
 
 def layer_kinds(cfg: ArchConfig) -> List[str]:
@@ -122,8 +129,9 @@ def encode(params: Params, cfg: ArchConfig, enc_frames: torch.Tensor,
     b = x.shape[0]
     positions = torch.arange(cfg.enc_len, dtype=torch.int32,
                              device=dev)[None].expand(b, cfg.enc_len)
+    remat = opts.remat and torch.is_grad_enabled()
     for lp in params["encoder"]:
-        x, _ = block_apply(ATTN_BIDIR, lp, x, cfg, positions=positions)
+        x, _ = _apply(remat, ATTN_BIDIR, lp, x, cfg, positions=positions)
     return apply_norm(params["enc_norm"], x, cfg.norm)
 
 
@@ -172,8 +180,9 @@ def forward(
                              f"enc_frames or enc_out")
         enc_out = encode(params, cfg, enc_frames, opts)
     kinds = layer_kinds(cfg)
+    remat = opts.remat and mode == "train" and torch.is_grad_enabled()
     for i, (kind, lp) in enumerate(zip(kinds, params["layers"])):
-        x, new = block_apply(kind, lp, x, cfg, positions=positions,
+        x, new = _apply(remat, kind, lp, x, cfg, positions=positions,
                              cache=None if cache is None
                              else cache["layers"][i], pos=pos,
                              enc_out=enc_out)
@@ -185,6 +194,15 @@ def forward(
     if cache is not None:
         cache["pos"] = pos + t
     return logits, cache
+
+
+def _apply(remat: bool, kind: str, lp: Params, x: torch.Tensor,
+           cfg: ArchConfig, **kw):
+    """``block_apply``, under ``torch.utils.checkpoint`` with ``remat``."""
+    if not remat:
+        return block_apply(kind, lp, x, cfg, **kw)
+    return checkpoint(block_apply, kind, lp, x, cfg, use_reentrant=False,
+                      **kw)
 
 
 def count_params(params) -> int:

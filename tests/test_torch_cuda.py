@@ -1219,3 +1219,137 @@ def test_reduced_family_card_equals_cpu(cuda, arch):
     for a, b in zip(got["card"], got["cpu"]):
         assert bool(((a - b).abs() <= 2e-5 + 2e-5 * b.abs()).all())
         assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+# ---------------------------------------------------------- K-B (training)
+def _rel_norm(a, b):
+    return float((a.float() - b.float()).norm() / (b.float().norm() + 1e-30))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [
+    # b, nq, nk, h, kvh, d, causal, window
+    (2, 64, 64, 4, 2, 16, True, None),       # the reduced models' heads
+    (2, 96, 80, 6, 2, 64, True, None),       # rows that see no key
+    (1, 150, 150, 4, 1, 256, True, 40),      # windowed, MQA, d 256
+    (2, 50, 130, 4, 4, 64, False, None),     # cross-attention
+    (1, 70, 70, 4, 4, 192, True, None),      # MLA's expanded width
+])
+def test_flash_attention_bwd_matches_plain(cuda, dtype, shape):
+    """K-B against its plain version on the same inputs and K-F lse:
+    ‖Δ‖ / ‖ref‖ within 1e-5 in float32 and 2⁻⁸ in bf16 (both sum in
+    float32 in other orders, then round once to the inputs' type)."""
+    from repro_torch.kernels import flash_attention as kf
+    b, nq, nk, h, kvh, d, causal, window = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(nq + d)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dt) for s in
+               ((b, nq, h, d), (b, nk, kvh, d), (b, nk, kvh, d)))
+    do = torch.randn((b, nq, h, d), generator=gen, device=cuda).to(dt)
+    kw = dict(causal=causal, window=window)
+    out, lse = kf.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    before = kf.bwd_launches
+    got = kf.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    assert kf.bwd_launches == before + 1
+    want = kf.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+    lim = 1e-5 if dtype == "float32" else 2.0 ** -8
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel_norm(g, w) <= lim
+    again = kf.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+
+def test_flash_attention_bwd_refuses_wide_heads(cuda):
+    """K-B's wrapper raises for a head wider than ``BWD_MAX_D`` (256),
+    before any launch, rather than launching at a width it has no form
+    for."""
+    from repro_torch.kernels import flash_attention as kf
+    d = kf.BWD_MAX_D + 32
+    q = torch.zeros((1, 8, 2, d), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    before = kf.bwd_launches
+    with pytest.raises(ValueError, match=f"d <= {kf.BWD_MAX_D}"):
+        kf.flash_attention_bwd_cuda(q, q, q, q, q, lse)
+    assert kf.bwd_launches == before
+
+@pytest.mark.parametrize("shape", [
+    (2, 256, 256, 8, 2, 64, True, None),      # prefill, tensor cores
+    (4, 1, 300, 8, 2, 128, True, None),       # decode, split-KV + combine
+    (2, 128, 128, 4, 1, 576, True, None),     # MLA absorbed, d > 256
+    (2, 64, 64, 4, 4, 32, True, 16),          # windowed, CUDA cores
+])
+def test_flash_attention_lse_changes_no_bit(cuda, shape):
+    """K-F's output is the same bits with and without lse; lse against the
+    plain version's (both −inf exactly where a row sees no key)."""
+    from repro_torch.kernels import flash_attention as kf
+    b, nq, nk, h, kvh, d, causal, window = shape
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)
+               for s in ((b, nq, h, d), (b, nk, kvh, d), (b, nk, kvh, d)))
+    kw = dict(causal=causal, window=window)
+    out = kf.flash_attention_cuda(q, k, v, **kw)
+    out2, lse = kf.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, out2)
+    _, ref = kf.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    assert float((lse[fin] - ref[fin]).abs().max()) <= 1e-4
+
+
+def test_flash_attention_cuda_refuses_grad_inputs(cuda):
+    """A direct K-F call with an input that requires grad raises (its
+    output would carry no gradient); ``ops.flash_attention`` routes the
+    same call through ``FlashAttentionFn``: K-F forward, K-B backward,
+    the gradient within 1e-5 (‖Δ‖ / ‖ref‖) of the same call's on the CPU
+    (the plain forward and backward)."""
+    from repro_torch.kernels import flash_attention as kf
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).requires_grad_()
+               for s in ((2, 48, 4, 32), (2, 48, 2, 32), (2, 48, 2, 32)))
+    with pytest.raises(ValueError, match="requires grad"):
+        kf.flash_attention_cuda(q, k, v)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=True)
+    out.square().sum().backward()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    cpu = [x.detach().cpu().requires_grad_() for x in (q, k, v)]
+    ops.flash_attention(*cpu, causal=True).square().sum().backward()
+    for a, b_ in zip((q, k, v), cpu):
+        assert _rel_norm(a.grad.cpu(), b_.grad) <= 1e-5
+
+
+def test_train_step_card_equals_cpu(cuda):
+    """One ``make_train_step`` step of the reduced llama3.2-3b in float32,
+    card against CPU: loss, grad norm and parameters (AdamW) within 1e-5
+    relative; K-F twice a layer (remat) and K-B once."""
+    from repro_torch import configs
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.tree import leaves_with_path, tree_map
+    cfg = configs.get_reduced("llama3.2-3b")
+    opts = ModelOptions(dtype=torch.float32, remat=True)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), opts,
+                        device="cpu")
+    p_dev = tree_map(lambda t: t.to(cuda), p_cpu)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 40)))
+             for k in ("tokens", "labels")}
+    out = {}
+    for where, p in (("cpu", p_cpu), ("card", p_dev)):
+        init, step = make_train_step(cfg, TrainConfig(), opts)
+        ops.reset_launch_counts()
+        out[where] = step(p, init(p), {k: v.to(p["embed"].device)
+                                      for k, v in batch.items()})
+        out[where + "_counts"] = ops.launch_counts()
+    assert out["card_counts"]["flash_attention"] == 2 * cfg.n_layers
+    assert out["card_counts"]["flash_attention_bwd"] == cfg.n_layers
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(out["card"][2][key]),
+                                   float(out["cpu"][2][key]), rtol=1e-5)
+    card = dict(leaves_with_path(out["card"][0]))
+    for path, t in leaves_with_path(out["cpu"][0]):
+        assert _rel_norm(card[path].cpu(), t) <= 1e-5

@@ -37,6 +37,8 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch.core.distributed, repro_torch.quant.engine\n"
         "import repro_torch.models.moe, repro_torch.core.certify\n"
         "import repro_torch.models.recurrent\n"
+        "import repro_torch.train, repro_torch.train.checkpoint\n"
+        "import repro_torch.launch.train\n"
         "import runpy\n"
         "runpy.run_path(sys.argv[1], run_name='tune_quant')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -55,7 +57,10 @@ def test_sources_import_no_jax_or_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
         sorted((ROOT / "tools").glob("*.py"))
     assert len(files) >= 15
-    for name in ("models/moe.py", "core/certify.py", "models/recurrent.py"):
+    for name in ("models/moe.py", "core/certify.py", "models/recurrent.py",
+                 "train/optimizer.py", "train/train_step.py",
+                 "train/checkpoint.py", "tree.py", "launch/train.py",
+                 "data.py"):
         assert PKG / name in files
     assert ROOT / "tools" / "tune_quant.py" in files
     offenders = [str(p.relative_to(ROOT)) for p in files
@@ -79,7 +84,7 @@ def _small():
     "ShardedMegastepEngine", "ShardedQuantMegastepEngine",
     "sharded Datastore", "launch.join --distributed", "tools/tune_quant.py",
     "init_params moe", "init_cache moe", "init_params hybrid",
-    "init_cache ssm"])
+    "init_cache ssm", "launch.train", "opt_state_from_jax"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises;
     it never carries on silently on the CPU."""
@@ -89,6 +94,7 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
     from repro_torch import configs, models, serve
     from repro_torch.launch import join as launch_join
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
     lm = configs.get_reduced("llama3.2-3b")
     moe_lm = configs.get_reduced("deepseek-v2-lite-16b")
     import runpy
@@ -158,6 +164,11 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
             configs.get_reduced("recurrentgemma-9b"), torch.Generator()),
         "init_cache ssm": lambda: models.init_cache(
             configs.get_reduced("xlstm-350m"), 2, 8),
+        "launch.train": lambda: launch_train.main(
+            ["--arch", "llama3.2-3b", "--reduced", "--steps", "1"]),
+        "opt_state_from_jax": lambda: models.opt_state_from_jax(
+            {"step": np.int32(0), "mu": np_params, "nu": np_params,
+             "master": np_params}, lm),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
