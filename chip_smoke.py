@@ -172,13 +172,16 @@ force and against each other. Phases:
    the encoder's calls; each reduced config on the card and the CPU
    with the same weights (logits within 2e-5 + 2e-5·|logit|, tokens
    equal);
-21. the train path: K-B (K-F's backward, ``csrc/flash_attn_bwd.cu``) vs
+21. the train path: K-B (K-F's backward, ``csrc/flash_attn_bwd.cu``; bf16
+   on the tensor cores, its SASS checked for them) vs
    its plain version on the same bf16 inputs and K-F lse at the train
    shapes of llama3.2-3b (b 4, T 1,024, GQA 24 / 8, d 128), recurrentgemma
    (MQA 16 / 1, d 256, window 2,048), whisper's encoder (1,500 × 1,500)
    and cross-attention (224 × 1,500) and deepseek's expanded MLA (d 192,
    v padded from 128): ‖Δ‖/‖ref‖ ≤ 2⁻⁸, dv's padded columns 0, a repeated
-   launch the same bits, with SDPA's backward timed beside it; K-F's
+   launch the same bits, the plan's route (mma), tiles and row splits
+   printed, with SDPA's backward and K-B's first, CUDA-core form's time
+   beside it; K-F's
    output bitwise equal with and without lse at the dense and MLA
    shapes, lse against the plain version's; the reduced llama in float32
    card vs CPU (gradients, a train step, ``accum=4`` vs 1, AdamW and
@@ -446,17 +449,25 @@ def device_ms(torch, fn, iters: int = 10) -> float:
     """Device time a call of ``fn``: CUDA events around ``iters`` calls
     that the host enqueues while the device spins (``torch.cuda._sleep``),
     so that at a small shape the events time the device, not the host's
-    enqueue of each call."""
+    enqueue of each call. Where the spin ended before the host had
+    enqueued every call, it is made 4x longer and the calls timed again
+    (three times at most)."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10_000_000)      # ~5 ms at the card's clock
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    cycles = 10_000_000                # ~5 ms at the card's clock
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()      # every call enqueued within the spin
+        torch.cuda.synchronize()
+        if ahead:
+            break
+        cycles *= 4
     return start.elapsed_time(end) / iters
 
 
@@ -3263,6 +3274,19 @@ KB_SHAPES = (
 )
 
 
+# K-B's bf16 time at each shape on its first form, fp32 FMAs on CUDA cores,
+# as PERF.md §6 records it (NVIDIA H100 80GB HBM3, 700.00 W): printed beside
+# this run's time, never measured here and kept out of the kernels line
+KB_SIMT_MS = {
+    "llama3.2-3b train": 7.7404,
+    "recurrentgemma-9b causal (window = T)": 46.3749,
+    "recurrentgemma-9b windowed (T 4,096)": 53.1490,
+    "whisper-small encoder": 7.0027,
+    "whisper-small cross-attention": 1.2222,
+    "deepseek-v2-lite-16b expanded MLA": 4.4352,
+}
+
+
 def rel_norm(a, b) -> float:
     """‖a − b‖ / ‖b‖ in float32."""
     return float((a.float() - b.float()).norm() / (b.float().norm() + 1e-30))
@@ -3273,17 +3297,20 @@ def kb_case(card, torch, what, b, nq, nk, h, kvh, d, causal, window,
     """K-B vs its plain version on the same bf16 inputs and K-F's lse:
     ‖Δ‖ / ‖ref‖ of dq, dk and dv within 2⁻⁸ (both sum in float32 in
     other orders and round once to bf16: one rounding is ≤ 2⁻⁸ relative
-    per entry), every entry finite, dv's padded columns 0 and a repeated
-    launch the same bits; K-B timed beside the plain version and SDPA's
-    backward (``torch.autograd.grad`` of one SDPA output, the graph kept)
-    and its forward. The bound is the larger of the bytes (q, k, v, o,
+    per entry; K-B also feeds p and dS to the tensor cores as two bf16
+    terms, 2⁻¹⁷ relative), every entry finite, dv's padded columns 0, a
+    repeated launch the same bits and the plan's route "mma" (its tiles
+    and row splits printed); K-B timed beside the plain version, SDPA's
+    backward (``torch.autograd.grad`` of one SDPA output with a contiguous
+    dO, the graph kept) and its forward, each by ``device_ms`` (its host
+    enqueue swung SDPA's backward 0.27-4.1 ms under plain events); its first, CUDA-core form's
+    recorded time at the shape (``KB_SIMT_MS``) is printed, not returned.
+    The bound is the larger of the bytes (q, k, v, o,
     dO, lse read once, dq, dk, dv written once; v, o, dO and dv at the
     ``d_v`` columns the function uses) at the HBM rate and the
     operations at the bf16 tensor-core peak, the inputs' type: per
     visible (query, key, head) 2·(3d + 2·d_v), for S = q·kᵀ, dk and dq
-    at d and dP = dO·vᵀ and dv at d_v. K-B runs fp32 FMAs on the CUDA
-    cores; the time of the same work at their peak is printed beside
-    it."""
+    at d and dP = dO·vᵀ and dv at d_v."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kf
     gen = torch.Generator(device=DEV).manual_seed(21 + d)
@@ -3300,6 +3327,9 @@ def kb_case(card, torch, what, b, nq, nk, h, kvh, d, causal, window,
     kw = dict(causal=causal, window=window)
     out, lse = kf.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     got = kf.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    plan = kf.last_bwd_plan
+    check(plan.route == "mma", f"K-B ({what}): bf16 planned on route "
+          f"{plan.route}, not the tensor cores")
     want = kf.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
     torch.cuda.synchronize()
     errs = [rel_norm(g, w) for g, w in zip(got, want)]
@@ -3316,13 +3346,13 @@ def kb_case(card, torch, what, b, nq, nk, h, kvh, d, causal, window,
     max_err = max(float((g.float() - w.float()).abs().max())
                   for g, w in zip(got, want))
     del want, again
-    ms = time_ms(lambda: kf.flash_attention_bwd_cuda(q, k, v, out, do, lse,
-                                                     **kw), iters=5)
+    ms = device_ms(torch, lambda: kf.flash_attention_bwd_cuda(
+        q, k, v, out, do, lse, **kw))
     plain_ms = time_ms(lambda: kf.flash_attention_bwd_plain(
         q, k, v, out, do, lse, **kw), warmup=1, iters=1)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    dot = do.transpose(1, 2)
+    dot = do.transpose(1, 2).contiguous()
     mask = None
     if window is not None:
         pos = torch.arange(nq, device=DEV)[:, None] + (nk - nq)
@@ -3331,11 +3361,11 @@ def kb_case(card, torch, what, b, nq, nk, h, kvh, d, causal, window,
     sdpa_kw = dict(enable_gqa=True, attn_mask=mask,
                    is_causal=causal and mask is None and nq == nk)
     ref = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
-    lib_ms = time_ms(lambda: torch.autograd.grad(
-        ref, (qt, kt, vt), dot, retain_graph=True), iters=5)
+    lib_ms = device_ms(torch, lambda: torch.autograd.grad(
+        ref, (qt, kt, vt), dot, retain_graph=True), iters=20)
     with torch.no_grad():
-        fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, **sdpa_kw), iters=5)
+        fwd_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **sdpa_kw))
     del ref, qt, kt, vt, dot
     pos = torch.arange(nq, device=DEV, dtype=torch.float64) + (nk - nq)
     lo = torch.zeros_like(pos) if window is None else \
@@ -3353,23 +3383,28 @@ def kb_case(card, torch, what, b, nq, nk, h, kvh, d, causal, window,
     t_b = n_bytes / H100_HBM_BYTES_S * 1e3
     t_f = ops_n / H100_BF16_FLOPS_S * 1e3
     b_ms, b_by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
-    fp32_ms = max(t_b, ops_n / H100_FP32_FLOPS_S * 1e3)
+    old_ms = KB_SIMT_MS[what]
     print(f"[{card}] K-B flash attention backward ({what}) q "
           f"{tuple(q.shape)} kv {tuple(k.shape)} bf16"
           + ("" if causal else " non-causal")
           + ("" if window is None else f" window {window}")
           + ("" if d_v is None else f" v padded from {d_v}")
-          + f": ‖Δ‖/‖ref‖ dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+          + f": route {plan.route}, width {plan.width}, {plan.key_tile} keys"
+          f" a dk/dv block in steps of {plan.step_rows} rows, "
+          f"{plan.row_tile} rows a dq block, {plan.splits} row splits; "
+          f"‖Δ‖/‖ref‖ dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
           f"{errs[2]:.3e} (limit 2^-8), max |err| {max_err:.3e}; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f}"
-          f" ms (its forward {fwd_ms:.4f} ms); bound {b_ms:.4f} ms ({b_by}: "
-          f"{pairs:.4e} visible pairs x 2(3d + 2d_v) bf16 operations, "
-          f"{n_bytes:.4e} bytes); at the fp32 CUDA-core peak K-B runs at "
-          f"{fp32_ms:.4f} ms", flush=True)
+          f"{ms:.4f} ms (its CUDA-core form's recorded {old_ms:.4f} ms, "
+          f"PERF.md §6, {old_ms / ms:.2f}x), plain {plain_ms:.4f} ms, SDPA backward "
+          f"{lib_ms:.4f} ms (its forward {fwd_ms:.4f} ms); bound "
+          f"{b_ms:.4f} ms ({b_by}: {pairs:.4e} visible pairs x 2(3d + "
+          f"2d_v) bf16 operations, {n_bytes:.4e} bytes)", flush=True)
     return dict(shape=what, max_abs_err=max_err, rel_errs=errs, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, sdpa_forward_ms=fwd_ms,
-                fp32_core_bound_ms=fp32_ms)
+                route=plan.route, width=plan.width,
+                key_tile=plan.key_tile, step_rows=plan.step_rows,
+                row_tile=plan.row_tile, splits=plan.splits)
 
 
 def kf_lse_checks(card, torch) -> list:
@@ -3619,8 +3654,9 @@ def profile_train_step(card, torch, out_file: Path) -> dict:
 
 
 def phase_training(card, torch, launches, out_dir: Path) -> tuple:
-    """21. The train path on the card: (a) K-B vs its plain version at the
-    families' train shapes (``kb_case``); (b) K-F's output with and without
+    """21. The train path on the card: (a) K-B's SASS holds tensor-core
+    instructions, and K-B vs its plain version at the families' train
+    shapes (``kb_case``); (b) K-F's output with and without
     lse (``kf_lse_checks``); (c) the reduced model card vs CPU, the
     optimizers, accumulation and a bitwise restart
     (``reduced_training``); (d) llama3.2-3b at full width and depth (28
@@ -3635,6 +3671,7 @@ def phase_training(card, torch, launches, out_dir: Path) -> tuple:
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
     t_phase = time.perf_counter()
+    kb_mma = tensor_core_instructions(card, "flash_attn_bwd")
     cases = [kb_case(card, torch, *shape) for shape in KB_SHAPES]
     lse_cases = kf_lse_checks(card, torch)
     torch.cuda.empty_cache()
@@ -3681,7 +3718,8 @@ def phase_training(card, torch, launches, out_dir: Path) -> tuple:
           + "; grad norm " + ", ".join(f"{x:.4f}" for x in norms)
           + f"; peak memory {peak / 2 ** 30:.3f} GiB; launches {counts}",
           flush=True)
-    out = dict(kb_cases=cases, kf_lse=lse_cases, reduced=reduced,
+    out = dict(kb_cases=cases, kb_sass_tensor_core=kb_mma, kf_lse=lse_cases,
+               reduced=reduced,
                full=dict(loss=losses, grad_norm=norms, step_s=step_s,
                          s_per_step_median=steady,
                          tokens_per_s=tokens_per_s, peak_bytes=peak,

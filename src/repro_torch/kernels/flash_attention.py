@@ -32,6 +32,9 @@ a gradient of its own. :class:`FlashAttentionFn` binds the two: its
 forward is K-F with lse, its backward K-B (on the CPU the two plain
 versions). A direct call of :func:`flash_attention_cuda` with an input
 that requires grad raises, since its output carries no gradient.
+:func:`plan_attention_bwd` chooses K-B's route from the shapes and the
+dtype alone: bf16 on the tensor cores (with deterministic row splits of
+the dk/dv pass where the grid is thin), float32 on CUDA cores.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..device import BLOCKS_PER_SM, SMS
 from . import build
@@ -48,7 +52,8 @@ from .sorted_merge import next_pow2
 __all__ = ["flash_attention_plain", "flash_attention_cuda", "launches",
            "last_plan", "NEG_INF", "AttentionPlan", "plan_attention",
            "flash_attention_bwd_plain", "flash_attention_bwd_cuda",
-           "bwd_launches", "FlashAttentionFn", "BWD_MAX_D"]
+           "bwd_launches", "last_bwd_plan", "AttentionBwdPlan",
+           "plan_attention_bwd", "FlashAttentionFn", "BWD_MAX_D"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,8 +64,10 @@ _SIMT_BK = 128          # keys per tile of the CUDA-core form (split unit)
 # reset through ``kernels.ops``)
 launches = 0
 bwd_launches = 0
-# the plan of the last launch (read by the card tests and chip_smoke.py)
+# the plan of the last launch of K-F and of K-B (read by the card tests and
+# chip_smoke.py)
 last_plan = None
+last_bwd_plan = None
 
 
 def _scale(d: int, scale: Optional[float]) -> float:
@@ -330,13 +337,84 @@ def flash_attention_cuda(
 # head widths K-B is built for (d padded up to the next one)
 _BWD_WIDTHS = (32, 64, 128, 192, 256)
 BWD_MAX_D = _BWD_WIDTHS[-1]
+_BWD_ROUTES = {"mma": 0, "simt": 1}
+_BWD_SIMT_TILE = 32     # keys and rows a block of the CUDA-core form owns
+_BWD_KEYS = 64          # keys a dk/dv block of the tensor-core form owns
+_BWD_STEP = 32          # virtual rows of one of its steps (the split unit)
+# dk/dv blocks an SM below which the tensor-core form splits its row steps
+# into enough parts to reach that many (the best of 3-17 parts at
+# recurrentgemma's MQA shapes on the H100)
+_BWD_SPLIT_PER_SM = 3
+
+
+class AttentionBwdPlan(NamedTuple):
+    """How one K-B call is cut. ``route`` "mma" (bf16: tensor cores) or
+    "simt" (float32: CUDA cores); ``width`` the head width the kernels
+    are instantiated at (d padded with zeros); ``key_tile`` keys a dk/dv
+    block owns; ``row_tile`` virtual rows a dq block owns; ``splits``
+    interleaved parts of each kv head's row steps (``step_rows`` rows a
+    step) in the dk/dv pass — part z takes steps z, z + splits, ... and
+    writes float32 partial dk, dv into a scratch of shape ``scratch``
+    (``(2, splits, b, nk, kvh, row width)``; ``()`` with one part), which
+    a reduce kernel sums in order. The C entry takes the tiles and
+    refuses any that its route was not built for at ``width``."""
+    route: str
+    width: int
+    key_tile: int
+    row_tile: int
+    step_rows: int
+    splits: int
+    scratch: tuple
+
+
+def plan_attention_bwd(bf16: bool, b: int, nq: int, nk: int, h: int,
+                       kvh: int, d: int) -> AttentionBwdPlan:
+    """K-B's plan from the shapes alone (no tensor is read): bf16 on the
+    tensor cores, float32 on CUDA cores (the bits of the reduced model's
+    card-vs-CPU path and of a restart); in bf16, row splits of the dk/dv
+    pass when its blocks ((key tiles) × b × kvh) are fewer than
+    ``_BWD_SPLIT_PER_SM`` per SM, enough to reach that many (MQA), never
+    more than the row steps."""
+    if not 1 <= d <= BWD_MAX_D:
+        raise ValueError(f"flash attention backward kernel takes d <= "
+                         f"{BWD_MAX_D}, got {d}")
+    width = next(w for w in _BWD_WIDTHS if w >= d)
+    if not bf16:
+        return AttentionBwdPlan("simt", width, _BWD_SIMT_TILE,
+                                _BWD_SIMT_TILE, _BWD_SIMT_TILE, 1, ())
+    blocks = max(1, -(-nk // _BWD_KEYS) * b * kvh)
+    steps = max(1, -(-(h // kvh) * nq // _BWD_STEP))
+    splits = 1
+    if blocks < _BWD_SPLIT_PER_SM * SMS:
+        splits = min(-(-_BWD_SPLIT_PER_SM * SMS // blocks), steps)
+    scratch = ((2, splits, b, nk, kvh, -(-d // 8) * 8) if splits > 1
+               else ())
+    dq_rows = 128 if width > 192 else 64   # rows of a dq block (16 a warp)
+    return AttentionBwdPlan("mma", width, _BWD_KEYS, dq_rows, _BWD_STEP,
+                            splits, scratch)
+
+
+def _bwd_buffers(plan: AttentionBwdPlan, q: torch.Tensor):
+    """K-B's scratch on q's device: D (float32 ``(b, h, nq)``) and, with
+    row splits, the dk/dv partials (float32 ``plan.scratch``)."""
+    b, nq, h, _ = q.shape
+    dsum = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    part = (torch.empty(plan.scratch, dtype=torch.float32, device=q.device)
+            if plan.splits > 1 else None)
+    return dsum, part
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a fresh contiguous copy when its data is not 16-byte
+    aligned (the tensor-core form stages rows by 16-byte cp.async)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 @functools.cache
 def _bwd_entry():
     """K-B's C entry, loaded and typed once per process."""
     fn = build.library("flash_attn_bwd").repro_flash_attn_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 16
                    + [ctypes.c_float] + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -348,11 +426,14 @@ def flash_attention_bwd_cuda(
     window: Optional[int] = None, scale: Optional[float] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K-B (``csrc/flash_attn_bwd.cu``) on the current stream of
-    ``q``'s device: ``(dq, dk, dv)`` of K-F's function at the inputs, in
-    their dtype, from K-F's output ``o``, its gradient ``do`` and K-F's
-    lse. Deterministic (no atomics). Takes float32 or bfloat16 and d up
-    to ``BWD_MAX_D``; non-contiguous inputs are copied first."""
-    global bwd_launches
+    ``q``'s device, cut as :func:`plan_attention_bwd` says: ``(dq, dk,
+    dv)`` of K-F's function at the inputs, in their dtype, from K-F's
+    output ``o``, its gradient ``do`` and K-F's lse. Deterministic (no
+    atomics). Takes float32 or bfloat16 and d up to ``BWD_MAX_D``;
+    non-contiguous inputs are copied first, and in bf16 a d that is not
+    a multiple of 8 is padded with zeros (the outputs are views cut back
+    to d)."""
+    global bwd_launches, last_bwd_plan
     if not q.is_cuda:
         raise ValueError(f"flash attention backward kernel: q must be a "
                          f"CUDA tensor, got {q.device}")
@@ -379,25 +460,38 @@ def flash_attention_bwd_cuda(
             f"lse (b, h, nq) and a window >= 0; got {q.dtype}, q "
             f"{tuple(q.shape)}, k {tuple(k.shape)}, lse {lse.dtype} "
             f"{tuple(lse.shape)}, window={window}")
+    plan = plan_attention_bwd(q.dtype == torch.bfloat16, b, nq, nk, h, kvh,
+                              d)
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    dr = d                                   # the kernel's row width
+    if plan.route == "mma":
+        dr = -(-d // 8) * 8
+        if dr != d:
+            q, k, v, o, do = (F.pad(t, (0, dr - d)) for t in (q, k, v, o, do))
+        q, k, v, o, do = map(_aligned16, (q, k, v, o, do))
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if b == 0 or nq == 0 or nk == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
-    width = next(w for w in _BWD_WIDTHS if w >= d)
+        return dq.zero_()[..., :d], dk.zero_()[..., :d], dv.zero_()[..., :d]
+    dsum, part = _bwd_buffers(plan, q)
     with torch.cuda.device(q.device):
         err = _bwd_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, nq, nk, h,
-            kvh, d, width, int(causal), int(window is not None),
+            dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), _DTYPES[q.dtype], b,
+            nq, nk, h, kvh, dr, _BWD_ROUTES[plan.route], plan.width,
+            plan.key_tile, plan.row_tile, plan.step_rows, plan.splits,
+            int(causal), int(window is not None),
             0 if window is None else int(window), _scale(d, scale),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: "
-                           f"CUDA error {err} (d {d}, width {width})")
+                           f"CUDA error {err} (plan {plan})")
     bwd_launches += 1
+    last_bwd_plan = plan
+    if dr != d:
+        return dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv
 
 

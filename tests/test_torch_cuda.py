@@ -1228,38 +1228,57 @@ def _rel_norm(a, b):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [
-    # b, nq, nk, h, kvh, d, causal, window
-    (2, 64, 64, 4, 2, 16, True, None),       # the reduced models' heads
-    (2, 96, 80, 6, 2, 64, True, None),       # rows that see no key
-    (1, 150, 150, 4, 1, 256, True, 40),      # windowed, MQA, d 256
-    (2, 50, 130, 4, 4, 64, False, None),     # cross-attention
-    (1, 70, 70, 4, 4, 192, True, None),      # MLA's expanded width
+    # b, nq, nk, h, kvh, d, causal, window, d_v (v and dO zero past it)
+    (2, 64, 64, 4, 2, 16, True, None, None),     # the reduced models' heads
+    (2, 96, 80, 6, 2, 64, True, None, None),     # rows that see no key
+    (1, 150, 150, 4, 1, 256, True, 40, None),    # windowed, MQA, d 256
+    (2, 50, 130, 4, 4, 64, False, None, None),   # cross-attention
+    (1, 70, 70, 4, 4, 192, True, None, None),    # MLA's expanded width
+    (1, 300, 300, 16, 1, 256, True, None, None),  # MQA: row splits in bf16
+    (2, 77, 203, 4, 2, 64, False, None, None),   # ragged nk, nq < nk
+    (2, 100, 100, 4, 4, 192, True, None, 128),   # MLA: v padded from 128
+    (1, 300, 300, 8, 2, 128, True, 64, None),    # window 64 at T 300
+    (1, 40, 40, 4, 2, 20, True, None, None),     # bf16 pads d to 24
 ])
 def test_flash_attention_bwd_matches_plain(cuda, dtype, shape):
     """K-B against its plain version on the same inputs and K-F lse:
     ‖Δ‖ / ‖ref‖ within 1e-5 in float32 and 2⁻⁸ in bf16 (both sum in
-    float32 in other orders, then round once to the inputs' type)."""
+    float32 in other orders, then round once to the inputs' type; bf16
+    also feeds p and dS to the tensor cores as two bf16 terms, 2⁻¹⁷
+    relative); the route the plan gives the dtype (``last_bwd_plan``),
+    row splits for MQA in bf16, dv's padded columns exactly 0, and a
+    repeated launch the same bits."""
     from repro_torch.kernels import flash_attention as kf
-    b, nq, nk, h, kvh, d, causal, window = shape
+    b, nq, nk, h, kvh, d, causal, window, d_v = shape
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(nq + d)
     q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dt) for s in
                ((b, nq, h, d), (b, nk, kvh, d), (b, nk, kvh, d)))
     do = torch.randn((b, nq, h, d), generator=gen, device=cuda).to(dt)
+    if d_v is not None:
+        v[..., d_v:] = 0
+        do[..., d_v:] = 0
     kw = dict(causal=causal, window=window)
     out, lse = kf.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     before = kf.bwd_launches
     got = kf.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
     assert kf.bwd_launches == before + 1
+    plan = kf.last_bwd_plan
+    assert plan == kf.plan_attention_bwd(dt == torch.bfloat16, b, nq, nk, h,
+                                         kvh, d)
+    assert plan.route == ("mma" if dtype == "bfloat16" else "simt")
+    if dtype == "bfloat16" and kvh == 1 and nq == 300:
+        assert plan.splits > 1
     want = kf.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
     lim = 1e-5 if dtype == "float32" else 2.0 ** -8
     for g, w in zip(got, want):
         assert g.dtype == dt and g.shape == w.shape
         assert bool(torch.isfinite(g.float()).all())
         assert _rel_norm(g, w) <= lim
+    if d_v is not None:
+        assert bool((got[2][..., d_v:] == 0).all())
     again = kf.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
-
 
 
 def test_flash_attention_bwd_refuses_wide_heads(cuda):
@@ -1274,6 +1293,29 @@ def test_flash_attention_bwd_refuses_wide_heads(cuda):
     with pytest.raises(ValueError, match=f"d <= {kf.BWD_MAX_D}"):
         kf.flash_attention_bwd_cuda(q, q, q, q, q, lse)
     assert kf.bwd_launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("field", ["key_tile", "row_tile", "step_rows"])
+def test_flash_attention_bwd_refuses_foreign_tiles(cuda, monkeypatch, dtype,
+                                                   field):
+    """K-B's C entry refuses a plan whose tiles its route was not built
+    for, so the tiles ``last_bwd_plan`` reports are the ones that ran."""
+    from repro_torch.kernels import flash_attention as kf
+    plan_of = kf.plan_attention_bwd
+
+    def foreign(*args):
+        plan = plan_of(*args)
+        return plan._replace(**{field: 2 * getattr(plan, field)})
+
+    monkeypatch.setattr(kf, "plan_attention_bwd", foreign)
+    q = torch.zeros((1, 64, 2, 64), device=cuda, dtype=dtype)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    before = kf.bwd_launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kf.flash_attention_bwd_cuda(q, q, q, q, q, lse)
+    assert kf.bwd_launches == before
+
 
 @pytest.mark.parametrize("shape", [
     (2, 256, 256, 8, 2, 64, True, None),      # prefill, tensor cores

@@ -3,7 +3,10 @@ version) and ``FlashAttentionFn`` against ``torch.autograd`` through
 ``flash_attention_plain`` and against ``jax.grad`` of the JAX package's
 ``_sdpa`` (the attention the JAX package trains through), for causal,
 windowed, non-causal, GQA, rows that see no key and MLA's padded v; and
-K-F's plain log-sum-exp against a float64 ``logsumexp``.
+K-F's plain log-sum-exp against a float64 ``logsumexp``; and K-B's
+plan (``plan_attention_bwd``: route by dtype, tiles, the dk/dv pass's
+row splits and their scratch) at ``chip_smoke.py``'s train shapes and
+the reduced models' heads, with no card.
 
 Tolerance: float32 inputs, each gradient within 1e-5 of its largest
 entry (the three compute the same sums in other orders: tiled online
@@ -22,6 +25,8 @@ import torch.nn.functional as F  # noqa: E402
 from repro.models.layers import _sdpa  # noqa: E402
 from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.device import SMS  # noqa: E402
 
 REL = 1e-5
 
@@ -169,3 +174,106 @@ def test_bwd_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kf.flash_attention_bwd_cuda(q, q, q, q, q, lse)
     assert kf.bwd_launches == before
+
+
+# ---------------------------------------------------------------- the plan
+# phase 21's K-B shapes (chip_smoke.py's KB_SHAPES): b, nq, nk, h, kvh, d
+KB_SHAPES = {
+    "llama3.2-3b train": (4, 1024, 1024, 24, 8, 128),
+    "recurrentgemma-9b causal (window = T)": (2, 2048, 2048, 16, 1, 256),
+    "recurrentgemma-9b windowed (T 4,096)": (1, 4096, 4096, 16, 1, 256),
+    "whisper-small encoder": (4, 1500, 1500, 12, 12, 64),
+    "whisper-small cross-attention": (4, 224, 1500, 12, 12, 64),
+    "deepseek-v2-lite-16b expanded MLA": (2, 1024, 1024, 16, 16, 192),
+}
+REDUCED = ("llama3.2-3b", "recurrentgemma-9b", "whisper-small",
+           "deepseek-v2-lite-16b", "qwen2-vl-7b")
+
+
+def _reduced_heads(arch):
+    cfg = configs.get_reduced(arch)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.dh
+
+
+@pytest.mark.parametrize("what", list(KB_SHAPES) + [
+    f"reduced {a}" for a in REDUCED])
+def test_bwd_plan_routes_by_dtype(what):
+    """bf16 goes to the tensor cores, float32 to the CUDA-core form (its
+    bits are the reduced model's card-vs-CPU path and the restart's),
+    each at a width that holds d (the C entry checks the plan's tiles
+    against what it was built for)."""
+    if what.startswith("reduced "):
+        h, kvh, d = _reduced_heads(what.split()[1])
+        b, nq, nk = 8, 128, 128
+    else:
+        b, nq, nk, h, kvh, d = KB_SHAPES[what]
+    mma = kf.plan_attention_bwd(True, b, nq, nk, h, kvh, d)
+    simt = kf.plan_attention_bwd(False, b, nq, nk, h, kvh, d)
+    assert mma.route == "mma" and simt.route == "simt"
+    assert simt.splits == 1 and simt.scratch == ()
+    for plan in (mma, simt):
+        assert plan.width >= d and plan.width <= kf.BWD_MAX_D
+
+
+@pytest.mark.parametrize("what", list(KB_SHAPES))
+def test_bwd_plan_row_splits(what):
+    """MQA (recurrentgemma's kvh = 1) gets enough row splits that the
+    dk/dv grid reaches two blocks an SM (three: the plan's aim), and no
+    more than that needs; the shapes whose grid is already that wide
+    (llama, whisper, MLA) get none. Every part's interleaved row steps (z,
+    z + s, ...) together cover each step of a kv head exactly once."""
+    b, nq, nk, h, kvh, d = KB_SHAPES[what]
+    plan = kf.plan_attention_bwd(True, b, nq, nk, h, kvh, d)
+    blocks = -(-nk // plan.key_tile) * b * kvh
+    if kvh == 1:
+        assert plan.splits > 1
+        assert blocks * plan.splits >= 2 * SMS
+        assert blocks * (plan.splits - 1) < 3 * SMS   # no more than needed
+    else:
+        assert blocks >= 3 * SMS
+        assert plan.splits == 1
+    if what.startswith("llama"):
+        assert plan.splits == 1
+    steps = -(-(h // kvh) * nq // plan.step_rows)
+    seen = np.concatenate([np.arange(z, steps, plan.splits)
+                           for z in range(plan.splits)])
+    assert np.array_equal(np.sort(seen), np.arange(steps))
+
+
+@pytest.mark.parametrize("what", list(KB_SHAPES))
+def test_bwd_plan_scratch_is_the_wrapper_allocation(what):
+    """The scratch the wrapper allocates (``_bwd_buffers``, on the meta
+    device here) is the plan's: float32 (2, splits, b, nk, kvh, d) for
+    dk and dv when the dk/dv pass is split — s × 2 × b × nk × kvh × d ×
+    4 bytes, ~8.4 MB a part at recurrentgemma's T 2,048 — and nothing
+    without splits; D is float32 (b, h, nq)."""
+    b, nq, nk, h, kvh, d = KB_SHAPES[what]
+    plan = kf.plan_attention_bwd(True, b, nq, nk, h, kvh, d)
+    q = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device="meta")
+    dsum, part = kf._bwd_buffers(plan, q)
+    assert dsum.shape == (b, h, nq) and dsum.dtype == torch.float32
+    if plan.splits == 1:
+        assert part is None and plan.scratch == ()
+        return
+    assert part.dtype == torch.float32
+    assert tuple(part.shape) == plan.scratch == (2, plan.splits, b, nk, kvh,
+                                                 d)
+    assert part.numel() * 4 == plan.splits * 2 * b * nk * kvh * d * 4
+    if what.startswith("recurrentgemma-9b causal"):
+        assert part.numel() * 4 // plan.splits == 2 * 2048 * 512 * 4
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_bwd_plan_covers_every_width(bf16):
+    """Every d from 1 to 256 is planned at an instantiated width that
+    holds it (in bf16 also its row width, d rounded up to 8), a scratch
+    row as wide as that row width; d = 257 is refused."""
+    for d in range(1, kf.BWD_MAX_D + 1):
+        plan = kf.plan_attention_bwd(bf16, 1, 100, 100, 8, 1, d)
+        assert plan.width in (32, 64, 128, 192, 256)
+        assert plan.width >= -(-d // 8) * 8
+        assert plan.route == ("mma" if bf16 else "simt")
+        if plan.splits > 1:
+            assert plan.scratch[-1] == -(-d // 8) * 8
+    with pytest.raises(ValueError, match="d <= 256"):
+        kf.plan_attention_bwd(bf16, 1, 100, 100, 8, 1, kf.BWD_MAX_D + 1)
