@@ -154,7 +154,10 @@ force and against each other. Phases:
    per layer; arctic-480b at full width cut to 2 layers (one prefill, 8
    decode steps, batch 4, counted, the layer check); the reduced
    deepseek and arctic on the card and on the CPU with the same
-   weights (logits within 2e-5 + 2e-5·|logit|, tokens equal);
+   weights (logits within 2e-5 + 2e-5·|logit|, tokens equal); K-F's
+   read-only decode at the absorbed shape and deepseek's read-only cache
+   (two prompts of 512 tokens, 16 teacher-forced steps with out-of-band
+   appends) against the written decode, the cache's bytes unchanged;
 20. the recurrent, hybrid, audio and VLM families: K-F vs its plain
    version at their shapes with SDPA beside each (whisper's encoder and
    cross-attention non-causal over 1,500 frames; recurrentgemma's
@@ -191,18 +194,30 @@ force and against each other. Phases:
    (AdamW, remat, batch 4 × 1,024), counted (K-F 28 × 2 × 8, K-B 28 ×
    8), every loss and grad norm finite and falling, s/step, tokens/s and
    peak memory printed; one more such step profiled (the device's busy
-   share, K-B's, K-F's and the matrix products' device time).
+   share, K-B's, K-F's and the matrix products' device time);
+22. Queue A6e: K-F with the logit softcap (cap 50) in its tensor-core
+   prefill (causal, windowed, non-causal) and split-KV decode forms and
+   its read-only decode (a second key source) against the plain
+   versions, K-B with the cap at phase 21's llama and recurrentgemma
+   shapes; the capped reduced llama card vs CPU (logits, a read-only
+   step, gradients); llama3.2-3b with cap 50 at full width and depth
+   served (phase 14's first 8 prompts, 16 tokens, counted) and trained
+   (4 steps, counted); llama3.2-3b's read-only cache (16 teacher-forced
+   steps) against the written decode, the cache's bytes unchanged; the
+   FSDP train step (``train.fsdp``) over 2 and 4 shards simulated on the
+   card at full width cut to 8 layers against one device, and the
+   2-shard state restarted onto 4.
 
 Every time printed stands beside the card's name and power limit. The
 line before the last two is one JSON object with each kernel's launches
-(its main paths' plus phase 18's; K-F's main paths are phases 14, 19,
-20 and 21, K-B's phase 21),
+(its main paths' plus phase 18's; K-F's main paths are phases 14 and
+19-22, K-B's phases 21 and 22),
 error, times and bound; the line before the last is the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before those lines, with its message on stdout and stderr
 (also without a card, or where the script stands alone, away from the
 repository's ``src/``). Long reports (nvcc's ``ptxas``
-output, the profiles by kernel, phases 16–21's numbers as JSON) go
+output, the profiles by kernel, phases 16–22's numbers as JSON) go
 to ``--out`` (default ``build/chip_smoke/``). Needs one card, no network; imports nothing of
 JAX.
 """
@@ -210,6 +225,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -1256,11 +1272,17 @@ def attention_err(torch, out, ref) -> tuple[float, float]:
 
 
 def attention_case(card, torch, what: str, q, k, v, *, window=None,
-                   library=None, scale=None, d_v=None,
-                   causal: bool = True) -> dict:
+                   library=None, scale=None, d_v=None, causal: bool = True,
+                   softcap: float = 0.0, k_new=None, v_new=None,
+                   cancel: bool = False, library_name: str = "SDPA") -> dict:
     """K-F vs its plain version on one shape (causal or not, queries
     right-aligned), both timed, with ``library`` (one PyTorch call of the
-    same function) timed beside them. ``d_v`` is the width of v the
+    same function) timed beside them by ``device_ms``. ``softcap`` caps the logits;
+    ``k_new`` / ``v_new`` are keys appended after k / v, read as K-F's
+    second source (the read-only cache's decode). With ``cancel`` the
+    limit is ``attention_err_terms``' (one bf16 rounding plus 2⁻¹⁴ of
+    Σ p·|v|, phase 19's): outputs that cancel toward 0 carry float32 sum
+    errors of the scale of what was summed, not of their own. ``d_v`` is the width of v the
     function uses (default all of it): MLA pads v with zeros (expanded
     form) or takes v = k and keeps the first 512 output columns
     (absorbed form). The bound is the larger of the bytes of q, k, the
@@ -1269,23 +1291,36 @@ def attention_case(card, torch, what: str, q, k, v, *, window=None,
     tensor-core peak."""
     from repro_torch.kernels import flash_attention as kf
     b, nq, h, d = q.shape
-    nk, kvh = k.shape[1], k.shape[2]
+    t_new = 0 if k_new is None else k_new.shape[1]
+    nk, kvh = k.shape[1] + t_new, k.shape[2]
     d_v = v.shape[-1] if d_v is None else d_v
-    kw = dict(window=window, scale=scale, causal=causal)
+    kw = dict(window=window, scale=scale, causal=causal, softcap=softcap,
+              k_new=k_new, v_new=v_new)
     out = kf.flash_attention_cuda(q, k, v, **kw)
     plan = kf.last_plan
     ref = kf.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out.float()).all()),
           f"K-F ({what}): non-finite output")
-    err, used = attention_err(torch, out, ref)
+    if cancel:
+        kw_abs = dict(kw, v_new=None if v_new is None else v_new.abs())
+        err, used, old, *_ = attention_err_terms(
+            torch, out, ref, kf.flash_attention_plain(q, k, v.abs(),
+                                                      **kw_abs))
+        print(f"[{card}] K-F ({what}): {old:.3f} of one bf16 rounding "
+              f"alone, {used:.3f} of one rounding + 2^-14 sum p|v|",
+              flush=True)
+    else:
+        err, used = attention_err(torch, out, ref)
     check(used <= 1.0, f"K-F ({what}): {used:.3f} of the limit against the "
           f"plain version")
     del ref, out
     ms = time_ms(lambda: kf.flash_attention_cuda(q, k, v, **kw), iters=10)
     plain_ms = time_ms(lambda: kf.flash_attention_plain(q, k, v, **kw),
                        warmup=1, iters=2)
-    lib_ms = None if library is None else time_ms(library, iters=10)
+    # the library call by device time: plain events read the host's
+    # enqueue of its launches at the short shapes (PERF.md §6)
+    lib_ms = None if library is None else device_ms(torch, library)
     pos = torch.arange(nq, device=DEV, dtype=torch.float64) + (nk - nq)
     lo = torch.zeros_like(pos) if window is None else \
         torch.clamp(pos - window + 1, min=0)
@@ -1294,7 +1329,7 @@ def attention_case(card, torch, what: str, q, k, v, *, window=None,
         hi = torch.minimum(pos, hi)
     pairs = float(b * h * torch.clamp(hi - lo + 1, min=0).sum())
     n_bytes = float(q.element_size()) * (
-        q.numel() + b * nq * h * d_v + k.numel()
+        q.numel() + b * nq * h * d_v + b * nk * kvh * d
         + (0 if v is k else b * nk * kvh * d_v))
     t_b = n_bytes / H100_HBM_BYTES_S * 1e3
     t_f = 2.0 * (d + d_v) * pairs / H100_BF16_FLOPS_S * 1e3
@@ -1308,18 +1343,21 @@ def attention_case(card, torch, what: str, q, k, v, *, window=None,
           f"{tuple(k.shape)} {str(q.dtype).removeprefix('torch.')}"
           + ("" if causal else " non-causal")
           + ("" if window is None else f" window {window}")
+          + (f" cap {softcap}" if softcap else "")
+          + (f" + {t_new} appended key(s) read in place" if t_new else "")
           + f", route {plan.route} (width {plan.width}, {plan.zc} column "
           f"chunks, {plan.splits} key splits of {plan.split_keys}): max "
           f"|err| {err:.3e} ({used:.3f} of the limit) vs the plain "
           f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          + ("" if lib_ms is None else f"SDPA {lib_ms:.4f} ms, ")
+          + ("" if lib_ms is None else f"{library_name} {lib_ms:.4f} ms, ")
           + f"bound {b_ms:.4f} ms ({b_by}: {pairs:.4e} visible pairs x "
           f"2(d + d_v) = {2 * (d + d_v)} bf16 operations, {n_bytes:.4e} "
           f"bytes), this design's floor "
           f"{floor_ms:.4f} ms", flush=True)
     return dict(shape=what, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                form=plan.route, splits=plan.splits)
+                form=plan.route, splits=plan.splits, softcap=softcap,
+                appended=t_new)
 
 
 def check_retrieval(card, torch, what: str, queries, keys64, kn64, d, ids,
@@ -2603,18 +2641,19 @@ def layer_check(card, torch, cfg, params, opts, pad, what: str, *,
     return worst
 
 
-def reduced_family(card, torch, arch, rng) -> dict:
+def reduced_family(card, torch, arch, rng, *, cfg=None) -> dict:
     """The reduced config on the card and on the CPU with the same weights
     (fp32): logits of a 4 × 300-token forward within 2e-5 + 2e-5·|logit|,
     greedy tokens of 5 requests through the decode cache equal
     (``BatchedServer`` at batch 2; whisper through ``make_serve_step``
-    with ``enc_out``)."""
+    with ``enc_out``). ``cfg`` replaces the reduced config (phase 22: a
+    logit softcap)."""
     import numpy as np
     from repro_torch import configs
     from repro_torch.models import (ModelOptions, count_params, encode,
                                     forward, init_cache, init_params)
     from repro_torch.serve import BatchedServer, ServeConfig, make_serve_step
-    cfg = configs.get_reduced(arch)
+    cfg = configs.get_reduced(arch) if cfg is None else cfg
     opts = ModelOptions(dtype=torch.float32)
     cpu_params = init_params(cfg, torch.Generator().manual_seed(2), opts,
                              device="cpu")
@@ -2660,8 +2699,10 @@ def reduced_family(card, torch, arch, rng) -> dict:
         got[where] = list(np.stack(out, 1))
     check(all(np.array_equal(a, b) for a, b in zip(got["cpu"], got["card"])),
           f"reduced {arch}: greedy tokens differ between card and CPU")
-    print(f"[{card}] reduced {arch} (fp32, {count_params(cpu_params)} "
-          f"parameters): card vs CPU logits over 4 x 300 tokens max |diff| "
+    print(f"[{card}] reduced {arch}"
+          + (f" with cap {cfg.attn_logit_softcap:g}"
+             if cfg.attn_logit_softcap else "")
+          + f" (fp32, {count_params(cpu_params)} parameters): card vs CPU logits over 4 x 300 tokens max |diff| "
           f"{diff:.3e} (limit 2e-5 + 2e-5·|logit|); greedy tokens of 5 "
           f"requests (batch 2, 8 tokens, through the decode cache) equal",
           flush=True)
@@ -2719,6 +2760,15 @@ def phase_moe(card, torch, rt, launches) -> tuple:
         card, torch, f"MLA absorbed decode b={MOE_BATCH} nq=1 nk={nk} "
         f"h={h} kvh=1 d={lat + rope}", q, kv, kv, scale=scale, d_v=lat,
         library=sdpa(q, kv, kv))]
+    # the read-only cache's decode (phase 22's A6e): the cache's nk - 1
+    # live keys in place and the step's fresh key as K-F's second source
+    live, kn = kv[:, :nk - 1], kv[:, nk - 1:].clone()
+    cases.append(attention_case(
+        card, torch, f"MLA absorbed read-only decode b={MOE_BATCH} nq=1 "
+        f"nk={nk - 1}+1 h={h} kvh=1 d={lat + rope}", q, live, live,
+        scale=scale, d_v=lat, causal=False, k_new=kn, v_new=kn,
+        library=sdpa(q, kv, kv)))
+    del live, kn
     q, kv = rand(MOE_BATCH, n, h, lat + rope), rand(MOE_BATCH, n, 1,
                                                    lat + rope)
     cases.append(attention_case(
@@ -2828,6 +2878,10 @@ def phase_moe(card, torch, rt, launches) -> tuple:
     for r, p in enumerate(prompts):
         pad[r, tmax - len(p):] = p
     worst = layer_check(card, torch, cfg, params, opts, pad, MOE_ARCH)
+    # the read-only cache on MLA (Queue A6e): two prompts cut to 512 tokens
+    out["moe_readonly"] = readonly_check(
+        card, torch, cfg, params, opts, [x[:512] for x in prompts[:2]],
+        MOE_ARCH, "moe_readonly", launches)
     out["moe_serve"] = dict(
         arch=MOE_ARCH, params=n_params, init_s=t_init, tokens_per_s=tps,
         prefill_ms=prefill_ms, decode_ms_median=float(np.median(decode_ms)),
@@ -2977,19 +3031,22 @@ def family_kf_cases(card, torch) -> list:
     return cases
 
 
-def serve_family(card, torch, arch, store, keys, kcfg, launches) -> dict:
+def serve_family(card, torch, arch, store, keys, kcfg, launches, *,
+                 cfg=None, path=None, prompts=None) -> dict:
     """One family at full width and depth, bf16, seeded weights, through
     ``BatchedServer`` + ``make_knn_hook`` over ``store``: phase 19's
     traffic (8 requests of 512-2,048 tokens, the longest exactly 2,048,
     batch 8, 16 greedy tokens), counted; every retrieval exact; the layer
     check. qwen2-vl also runs one prefill and one decode step with 64
-    seeded vision embeddings over (t, h, w) positions, counted."""
+    seeded vision embeddings over (t, h, w) positions, counted. ``cfg``
+    replaces the arch's config (phase 22: a logit softcap), ``path``
+    names the counted path and ``prompts`` replace the traffic's."""
     import numpy as np
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import ModelOptions, count_params, init_params
     from repro_torch.serve import BatchedServer, ServeConfig, make_knn_hook
-    cfg = configs.get_arch(arch)
+    cfg = configs.get_arch(arch) if cfg is None else cfg
     opts = ModelOptions(dtype=torch.bfloat16)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2999,16 +3056,20 @@ def serve_family(card, torch, arch, store, keys, kcfg, launches) -> dict:
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_params = count_params(params)
-    rng = np.random.default_rng(20)
-    lens = [LM_PROMPT[1]] + [int(rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1))
-                             for _ in range(FAM_REQUESTS - 1)]
-    prompts = [rng.integers(0, cfg.vocab, m).astype(np.int32) for m in lens]
+    if prompts is None:
+        rng = np.random.default_rng(20)
+        lens = [LM_PROMPT[1]] + [int(rng.integers(LM_PROMPT[0],
+                                                  LM_PROMPT[1] + 1))
+                                 for _ in range(FAM_REQUESTS - 1)]
+        prompts = [rng.integers(0, cfg.vocab, m).astype(np.int32)
+                   for m in lens]
+    lens = [len(x) for x in prompts]
     prefill_ms, decode_ms = [], []
     srv = BatchedServer(cfg, ServeConfig(batch=FAM_BATCH), params, opts,
                         logits_hook=make_knn_hook(store, kcfg, cfg.vocab))
     srv.prefill_step = timed(srv.prefill_step, prefill_ms)
     srv.decode_step = timed(srv.decode_step, decode_ms)
-    name = "fam_" + arch.split("-")[0]
+    name = path or "fam_" + arch.split("-")[0]
     retrieved = []
     retrieve = record_retrievals(store, retrieved)
     begin_path(ops, name)
@@ -3287,13 +3348,90 @@ KB_SIMT_MS = {
 }
 
 
+def capped_flex(torch, q, k, v, *, causal: bool, window, cap: float,
+                grad: bool = False):
+    """One PyTorch call that computes K-F's capped function, the capped
+    rows' ``library_ms``: ``flex_attention`` under ``torch.compile``, with
+    the tanh cap as its ``score_mod`` (on the scaled logits, as K-F caps
+    them) and the causal / window mask (queries right-aligned) as a block
+    mask, GQA by ``enable_gqa``, on (b, h, n, d) copies of q, k, v
+    (``grad``: copies that take gradients, for K-B's yardstick). The port
+    never calls it. Returns (the call, the copies)."""
+    import torch._dynamo
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    for name in ("recompile_limit", "cache_size_limit"):
+        if hasattr(torch._dynamo.config, name):   # one compile a shape
+            setattr(torch._dynamo.config, name, 64)
+    nq, nk = q.shape[1], k.shape[1]
+    block_mask = None
+    if causal:
+        block_mask = create_block_mask(_flex_mask(nk - nq, window), None,
+                                       None, nq, nk, device=DEV)
+    else:
+        assert window is None, "a window is causal in K-F"
+    ts = tuple(x.transpose(1, 2).contiguous().requires_grad_(grad)
+               for x in (q, k, v))
+    fn = torch.compile(flex_attention, dynamic=False)
+    score_mod = _flex_cap(cap)
+    return (lambda: fn(*ts, score_mod=score_mod, block_mask=block_mask,
+                       enable_gqa=True)), ts
+
+
+@functools.lru_cache(maxsize=None)
+def _flex_cap(cap: float):
+    """``capped_flex``'s score_mod, one function a cap (a compile made for
+    one shape is then found again by another case of that shape)."""
+    import torch
+
+    def score_mod(score, b, h, i, j):
+        return cap * torch.tanh(score / cap)
+    return score_mod
+
+
+@functools.lru_cache(maxsize=None)
+def _flex_mask(off: int, window):
+    """``capped_flex``'s causal / window mask_mod, one function a shape."""
+    def mask_mod(b, h, i, j):
+        seen = j <= i + off
+        if window is not None:
+            seen = seen & (j > i + off - window)
+        return seen
+    return mask_mod
+
+
+def f64_witness(torch, q, k, v, *, cap: float):
+    """K-F's causal capped function (queries right-aligned) in float64 on
+    the card, one batch row at a time: (out, Σ p·|v|), both (b, nq, h,
+    d_v) float64."""
+    b, nq, h, d = q.shape
+    nk, rep = k.shape[1], h // k.shape[2]
+    out = torch.empty(q.shape[:3] + v.shape[3:], dtype=torch.float64,
+                      device=DEV)
+    terms = torch.empty_like(out)
+    hidden = (torch.arange(nk, device=DEV)[None]
+              > torch.arange(nq, device=DEV)[:, None] + (nk - nq))
+    for r in range(b):
+        qq = q[r].double().transpose(0, 1)
+        kk, vv = (x[r].double().transpose(0, 1).repeat_interleave(rep, 0)
+                  for x in (k, v))
+        s = (qq @ kk.transpose(1, 2)) * d ** -0.5
+        s = (cap * torch.tanh(s / cap)).masked_fill_(hidden, float("-inf"))
+        pr = torch.softmax(s, -1)
+        del s
+        out[r] = (pr @ vv).transpose(0, 1)
+        terms[r] = (pr @ vv.abs()).transpose(0, 1)
+        del pr
+    return out, terms
+
+
 def rel_norm(a, b) -> float:
     """‖a − b‖ / ‖b‖ in float32."""
     return float((a.float() - b.float()).norm() / (b.float().norm() + 1e-30))
 
 
 def kb_case(card, torch, what, b, nq, nk, h, kvh, d, causal, window,
-            d_v) -> dict:
+            d_v, softcap: float = 0.0, amp: float = 1.0) -> dict:
     """K-B vs its plain version on the same bf16 inputs and K-F's lse:
     ‖Δ‖ / ‖ref‖ of dq, dk and dv within 2⁻⁸ (both sum in float32 in
     other orders and round once to bf16: one rounding is ≤ 2⁻⁸ relative
@@ -3304,7 +3442,10 @@ def kb_case(card, torch, what, b, nq, nk, h, kvh, d, causal, window,
     backward (``torch.autograd.grad`` of one SDPA output with a contiguous
     dO, the graph kept) and its forward, each by ``device_ms`` (its host
     enqueue swung SDPA's backward 0.27-4.1 ms under plain events); its first, CUDA-core form's
-    recorded time at the shape (``KB_SIMT_MS``) is printed, not returned.
+    recorded time at the shape (``KB_SIMT_MS``, where there is one) is
+    printed, not returned. ``softcap`` caps the logits, and the library
+    call is then ``capped_flex``'s (its backward and forward, the same
+    way), and ``amp`` scales q and k (logits the cap bends).
     The bound is the larger of the bytes (q, k, v, o,
     dO, lse read once, dq, dk, dv written once; v, o, dO and dv at the
     ``d_v`` columns the function uses) at the HBM rate and the
@@ -3321,10 +3462,12 @@ def kb_case(card, torch, what, b, nq, nk, h, kvh, d, causal, window,
 
     q, k, v = rand(b, nq, h, d), rand(b, nk, kvh, d), rand(b, nk, kvh, d)
     do = rand(b, nq, h, d)
+    if amp != 1.0:
+        q, k = ((x * amp).to(bf) for x in (q, k))
     if d_v is not None:
         v[..., d_v:] = 0
         do[..., d_v:] = 0
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse = kf.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     got = kf.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
     plan = kf.last_bwd_plan
@@ -3360,12 +3503,31 @@ def kb_case(card, torch, what, b, nq, nk, h, kvh, d, causal, window,
         mask = (key <= pos) & (key > pos - window)
     sdpa_kw = dict(enable_gqa=True, attn_mask=mask,
                    is_causal=causal and mask is None and nq == nk)
-    ref = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+    lib = "SDPA"
+    t0 = time.perf_counter()
+    if softcap:
+        lib = "flex_attention (compiled, tanh-cap score_mod)"
+        library, (qt, kt, vt) = capped_flex(
+            torch, q, k, v, causal=causal, window=window, cap=softcap,
+            grad=True)
+    else:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+    ref = library()
+    lib_grads = torch.autograd.grad(ref, (qt, kt, vt), dot,
+                                    retain_graph=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0      # flex: its compile
+    lib_err = max(float((g.transpose(1, 2).float() - w.float()).abs().max())
+                  for g, w in zip(lib_grads, got))
+    del lib_grads
     lib_ms = device_ms(torch, lambda: torch.autograd.grad(
         ref, (qt, kt, vt), dot, retain_graph=True), iters=20)
-    with torch.no_grad():
-        fwd_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, **sdpa_kw))
+    if softcap:       # through the graph that the backward was built on
+        fwd_ms = device_ms(torch, library)
+    else:
+        with torch.no_grad():
+            fwd_ms = device_ms(torch, library)
     del ref, qt, kt, vt, dot
     pos = torch.arange(nq, device=DEV, dtype=torch.float64) + (nk - nq)
     lo = torch.zeros_like(pos) if window is None else \
@@ -3383,28 +3545,35 @@ def kb_case(card, torch, what, b, nq, nk, h, kvh, d, causal, window,
     t_b = n_bytes / H100_HBM_BYTES_S * 1e3
     t_f = ops_n / H100_BF16_FLOPS_S * 1e3
     b_ms, b_by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
-    old_ms = KB_SIMT_MS[what]
+    old_ms = KB_SIMT_MS.get(what)
     print(f"[{card}] K-B flash attention backward ({what}) q "
           f"{tuple(q.shape)} kv {tuple(k.shape)} bf16"
           + ("" if causal else " non-causal")
           + ("" if window is None else f" window {window}")
+          + (f" cap {softcap}" if softcap else "")
           + ("" if d_v is None else f" v padded from {d_v}")
           + f": route {plan.route}, width {plan.width}, {plan.key_tile} keys"
           f" a dk/dv block in steps of {plan.step_rows} rows, "
           f"{plan.row_tile} rows a dq block, {plan.splits} row splits; "
           f"‖Δ‖/‖ref‖ dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
           f"{errs[2]:.3e} (limit 2^-8), max |err| {max_err:.3e}; kernel "
-          f"{ms:.4f} ms (its CUDA-core form's recorded {old_ms:.4f} ms, "
-          f"PERF.md §6, {old_ms / ms:.2f}x), plain {plain_ms:.4f} ms, SDPA backward "
-          f"{lib_ms:.4f} ms (its forward {fwd_ms:.4f} ms); bound "
+          f"{ms:.4f} ms"
+          + ("" if old_ms is None else
+             f" (its CUDA-core form's recorded {old_ms:.4f} ms, PERF.md §6, "
+             f"{old_ms / ms:.2f}x)")
+          + f", plain {plain_ms:.4f} ms, {lib} backward "
+          f"{lib_ms:.4f} ms (its forward {fwd_ms:.4f} ms; its gradients "
+          f"max |diff| {lib_err:.3e} from K-B's; its first forward and "
+          f"backward {first_s:.1f} s); bound "
           f"{b_ms:.4f} ms ({b_by}: {pairs:.4e} visible pairs x 2(3d + "
           f"2d_v) bf16 operations, {n_bytes:.4e} bytes)", flush=True)
     return dict(shape=what, max_abs_err=max_err, rel_errs=errs, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, sdpa_forward_ms=fwd_ms,
+                library=lib, library_max_abs_diff=lib_err,
                 route=plan.route, width=plan.width,
                 key_tile=plan.key_tile, step_rows=plan.step_rows,
-                row_tile=plan.row_tile, splits=plan.splits)
+                row_tile=plan.row_tile, splits=plan.splits, softcap=softcap)
 
 
 def kf_lse_checks(card, torch) -> list:
@@ -3732,6 +3901,584 @@ def phase_training(card, torch, launches, out_dir: Path) -> tuple:
     return cases, out
 
 
+A6E_ARCH = "llama3.2-3b"     # phase 22: the capped and read-only paths
+A6E_CAP = 50.0               # Gemma 2's attn_logit_softcapping
+A6E_AMP = 1.5                # q, k scale of the capped kernel cases
+A6E_AMP_HIGH = 3.0           # and of one capped prefill near the cap
+A6E_TRAIN_STEPS = 4          # capped training: batch 4 x 1,024, AdamW, remat
+A6E_READONLY_STEPS = 16      # read-only decode steps (phase 19 too)
+# the sharded step: llama3.2-3b's full width cut to 8 of 28 layers (2
+# simulated shards need 6.4 GB of gathered bf16 weights each, gradients and
+# 38.5 GB of fp32 AdamW state at full depth: more than the card's 80 GB)
+A6E_SHARD_LAYERS, A6E_SHARD_STEPS = 8, 2
+# master weights after step 1 against one device's: the worst leaf's
+# ‖ΔM‖ / ‖update‖ (AdamW's first update is ~lr·sign(g): the bf16 gradients'
+# sums in another order flip the sign of the entries near 0, each by 2·lr;
+# 0.109 / 0.112 at 2 / 4 shards on an H100 80GB HBM3 at 700 W) and its
+# update's length, which those flips keep (6.2e-4 / 4.0e-4 there)
+A6E_SHARD_UPDATE = (0.4, 0.005)
+
+
+def bf16_close(torch, a, b) -> float:
+    """max |a − b| over the limit one bf16 rounding of the larger
+    magnitude of the two tensors puts on it (2⁻⁷ · max(|a|, |b|)), as a
+    share (≤ 1 passes)."""
+    a, b = a.float(), b.float()
+    lim = 2.0 ** -7 * float(torch.maximum(a.abs().max(), b.abs().max()))
+    return float((a - b).abs().max()) / max(lim, 1e-30)
+
+
+def readonly_check(card, torch, cfg, params, opts, prompts, what: str,
+                   path: str, launches) -> dict:
+    """The read-only serving cache at full width: the prompts prefilled
+    into a written cache and a copy of it, then ``A6E_READONLY_STEPS``
+    teacher-forced steps (the written decode's greedy tokens fed to both):
+    a read-only ``forward`` (counted under ``path``: K-F once an attention
+    layer a step) whose input cache keeps every byte (compared with a
+    copy taken before the step), its fresh pieces appended out of band
+    (``append_readonly``), against the written-cache decode: logits within
+    one bf16 rounding of the larger logit (``bf16_close``)."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import append_readonly, forward, init_cache
+    from repro_torch.tree import leaves
+    ro = dc.replace(opts, readonly_cache=True)
+    tmax = max(map(len, prompts))
+    pad = np.zeros((len(prompts), tmax), np.int32)
+    for r, p in enumerate(prompts):
+        pad[r, tmax - len(p):] = p
+    written = init_cache(cfg, len(prompts), tmax + A6E_READONLY_STEPS, opts,
+                         device=DEV)
+    logits, written = forward(params, cfg, torch.as_tensor(pad, device=DEV),
+                              cache=written, opts=opts, mode="prefill")
+    # a copy in init_cache's layout (the read-only MLA path reads it in place)
+    appended = init_cache(cfg, len(prompts), tmax + A6E_READONLY_STEPS, opts,
+                          device=DEV)
+    for a, b in zip(leaves(appended["layers"]), leaves(written["layers"])):
+        a.copy_(b)
+    appended["pos"] = written["pos"]
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    worst, same, ro_ms, w_ms = 0.0, True, [], []
+    kf_calls = 0
+    for _ in range(A6E_READONLY_STEPS):
+        before = [x.clone() for x in leaves(appended["layers"])]
+        begin_path(ops, path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, fresh = forward(params, cfg, tok, cache=appended, opts=ro,
+                             mode="decode")
+        torch.cuda.synchronize()
+        ro_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = end_path(ops)
+        kf_calls += counts["flash_attention"]
+        launches[path] = {k: launches.get(path, {}).get(k, 0) + v
+                          for k, v in counts.items()}
+        same = same and all(torch.equal(a, b) for a, b in
+                            zip(before, leaves(appended["layers"])))
+        del before
+        t0 = time.perf_counter()
+        want, written = forward(params, cfg, tok, cache=written, opts=opts,
+                                mode="decode")
+        torch.cuda.synchronize()
+        w_ms.append((time.perf_counter() - t0) * 1e3)
+        worst = max(worst, bf16_close(torch, got, want))
+        appended = append_readonly(appended, fresh)
+        tok = torch.argmax(want[:, -1], -1).to(torch.int32)[:, None]
+    n_attn = attention_calls(cfg)
+    check(same, f"{what} read-only decode: the input cache's bytes changed")
+    check(kf_calls == n_attn * A6E_READONLY_STEPS,
+          f"{what} read-only decode: K-F launched {kf_calls} times, expected "
+          f"{n_attn} x {A6E_READONLY_STEPS}")
+    check(worst <= 1.0, f"{what} read-only decode: logits {worst:.3f} of one "
+          f"bf16 rounding off the written decode's")
+    check(all(torch.equal(a, b) for a, b in zip(
+        leaves(appended["layers"]), leaves(written["layers"]))),
+          f"{what}: the appended cache differs from the written one")
+    print(f"[{card}] {what} read-only cache: {len(prompts)} prompts of "
+          f"{min(map(len, prompts))}-{tmax} tokens prefilled, "
+          f"{A6E_READONLY_STEPS} teacher-forced read-only steps with the "
+          f"fresh pieces appended out of band: the input cache's bytes "
+          f"unchanged at every step; logits vs the written decode {worst:.4f}"
+          f" of one bf16 rounding; the appended cache equals the written one "
+          f"bit for bit; K-F {kf_calls} launches; step ms read-only median "
+          f"{float(np.median(ro_ms)):.3f} (written {float(np.median(w_ms)):.3f})",
+          flush=True)
+    del written, appended
+    torch.cuda.empty_cache()
+    return dict(worst_bf16=worst, readonly_ms=ro_ms, written_ms=w_ms,
+                kf_launches=kf_calls)
+
+
+def a6e_kernel_cases(card, torch) -> tuple:
+    """K-F with the cap in each form — the tensor-core prefill (causal,
+    llama3.2-3b's prefill shape; windowed at recurrentgemma's shapes;
+    non-causal at whisper's encoder) and the split-KV decode — and the
+    read-only decode (the cache's live keys plus one fresh key as K-F's
+    second source, bytes-bound) against their plain versions; K-B with
+    the cap at phase 21's llama and recurrentgemma shapes on its bf16
+    route. The capped cases' library call is ``capped_flex``'s (its
+    output's max |diff| from the plain version printed); the read-only
+    one times SDPA over the keys concatenated beforehand. q and k at
+    ``A6E_AMP`` times the unit scale peak the softmax, so the K-F cases
+    take phase 19's limit (``attention_case(cancel=True)``); one more
+    capped prefill at ``A6E_AMP_HIGH`` (logits near the cap) is held to
+    the same limit, and the kernel's and the plain version's outputs
+    there are read against a float64 witness (``f64_witness``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kf
+    cfg_h, cfg_kvh, dh = 24, 8, 128
+    gen = torch.Generator(device=DEV).manual_seed(22)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEV) * scale
+                ).to(torch.bfloat16)
+
+    flex = "flex_attention (compiled, tanh-cap score_mod)"
+
+    def capped(what, q, k, v, *, causal=True, window=None):
+        call, _ = capped_flex(torch, q, k, v, causal=causal, window=window,
+                              cap=A6E_CAP)
+        t0 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        diff = float((got.transpose(1, 2).float() - kf.flash_attention_plain(
+            q, k, v, causal=causal, window=window, softcap=A6E_CAP).float()
+        ).abs().max())
+        del got
+        print(f"[{card}] {flex} ({what}): max |diff| {diff:.3e} from K-F's "
+              f"plain version; its first call {first_s:.1f} s", flush=True)
+        case = attention_case(card, torch, what, q, k, v, causal=causal,
+                              window=window, softcap=A6E_CAP, cancel=True,
+                              library=call, library_name=flex)
+        return dict(case, library=flex, library_max_abs_diff=diff)
+
+    n = LM_PROMPT[1]
+    cases = []
+    # q and k at 1.5x the unit scale: logits up to ~±12, where a cap of 50
+    # moves the output by ~0.08
+    amp = A6E_AMP
+    q, k, v = rand(LM_BATCH, n, cfg_h, dh, scale=amp), rand(
+        LM_BATCH, n, cfg_kvh, dh, scale=amp), rand(LM_BATCH, n, cfg_kvh, dh)
+    cases.append(capped(f"capped prefill b={LM_BATCH} nq=nk={n}", q, k, v))
+    del q, k, v
+    # at 3x: logits up to ~±40, near the cap, where the plain float32
+    # version is itself ~4 bf16 roundings off a float64 witness at the
+    # outputs that cancel toward 0 (phase 19's limit holds both)
+    q, k, v = rand(LM_BATCH, n, cfg_h, dh, scale=A6E_AMP_HIGH), rand(
+        LM_BATCH, n, cfg_kvh, dh, scale=A6E_AMP_HIGH), rand(
+        LM_BATCH, n, cfg_kvh, dh)
+    what = f"capped prefill at {A6E_AMP_HIGH:g}x b={LM_BATCH} nq=nk={n}"
+    high = capped(what, q, k, v)
+    out = kf.flash_attention_cuda(q, k, v, softcap=A6E_CAP)
+    ref = kf.flash_attention_plain(q, k, v, softcap=A6E_CAP)
+    w_out, w_terms = f64_witness(torch, q, k, v, cap=A6E_CAP)
+    readings = {}
+    for name, x in (("kernel", out), ("plain", ref)):
+        err, used, old, *_ = attention_err_terms(torch, x, w_out, w_terms)
+        readings[name] = dict(max_abs_err=err, limit_share=used,
+                              one_rounding_share=old)
+        print(f"[{card}] K-F ({what}): the {name} output against a float64 "
+              f"witness: max |err| {err:.3e}, {used:.3f} of one rounding + "
+              f"2^-14 sum p|v|, {old:.3f} of one bf16 rounding alone",
+              flush=True)
+    cases.append(dict(high, f64_witness=readings))
+    del q, k, v, out, ref, w_out, w_terms
+    torch.cuda.empty_cache()
+    q, k, v = rand(2, n, 16, 256, scale=amp), rand(2, n, 1, 256, scale=amp), \
+        rand(2, n, 1, 256)
+    cases.append(capped(
+        f"capped recurrentgemma windowed prefill b=2 nq=nk={n} h=16 kvh=1 "
+        f"d=256", q, k, v, window=2048))
+    del q, k, v
+    q, k, v = rand(4, 1500, 12, 64, scale=amp), rand(4, 1500, 12, 64,
+                                                      scale=amp), \
+        rand(4, 1500, 12, 64)
+    cases.append(capped("capped whisper encoder b=4 nq=nk=1500 (non-causal)",
+                        q, k, v, causal=False))
+    del q, k, v
+    nk = n + LM_NEW
+    kc, vc = rand(LM_BATCH, nk + 64, cfg_kvh, dh, scale=amp), rand(
+        LM_BATCH, nk + 64, cfg_kvh, dh)
+    q1 = rand(LM_BATCH, 1, cfg_h, dh, scale=amp)
+    cases.append(capped(f"capped decode b={LM_BATCH} nq=1 nk={nk}", q1,
+                        kc[:, :nk], vc[:, :nk]))
+    # the read-only decode: the cache's live keys in place, one fresh key
+    k1, v1 = rand(LM_BATCH, 1, cfg_kvh, dh, scale=amp), rand(LM_BATCH, 1,
+                                                            cfg_kvh, dh)
+    kcat = torch.cat([kc[:, :nk], k1], 1).transpose(1, 2)
+    vcat = torch.cat([vc[:, :nk], v1], 1).transpose(1, 2)
+    q1t = q1.transpose(1, 2)
+    cases.append(attention_case(
+        card, torch, f"read-only decode b={LM_BATCH} nq=1 nk={nk}+1", q1,
+        kc[:, :nk], vc[:, :nk], causal=False, k_new=k1, v_new=v1,
+        cancel=True, library=lambda: F.scaled_dot_product_attention(
+            q1t, kcat, vcat, enable_gqa=True)))
+    del kc, vc, q1, k1, v1, kcat, vcat, q1t
+    torch.cuda.empty_cache()
+    kb = [kb_case(card, torch, f"{name}, cap {A6E_CAP:g}", *shape,
+                  softcap=A6E_CAP, amp=amp)
+          for name, *shape in KB_SHAPES[:3]]
+    torch.cuda.empty_cache()
+    return cases, kb
+
+
+def reduced_capped(card, torch) -> dict:
+    """The capped reduced llama3.2-3b in fp32 card vs CPU, same weights:
+    ``reduced_family``'s logits (2e-5 + 2e-5·|logit|) and greedy tokens;
+    one read-only decode step over a prefilled cache (logits, the same
+    limit); ``loss_and_grads`` (K-B's fp32 route with the cap): the loss
+    within 1e-5 rel, each gradient leaf within 2e-5 of its largest
+    entry."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import ModelOptions, forward, init_cache, init_params
+    from repro_torch.tree import leaves_with_path, path_str
+    from repro_torch.train.train_step import loss_and_grads
+    cfg = dc.replace(configs.get_reduced(A6E_ARCH), attn_logit_softcap=A6E_CAP)
+    rng = np.random.default_rng(22)
+    out = dict(logits=reduced_family(card, torch, A6E_ARCH, rng, cfg=cfg))
+    opts = ModelOptions(dtype=torch.float32, remat=False)
+    cpu_p = init_params(cfg, torch.Generator().manual_seed(3), opts,
+                        device="cpu")
+    dev_p = to_device(cpu_p)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 65)))
+    got = {}
+    for where, p, dev in (("cpu", cpu_p, "cpu"), ("card", dev_p, DEV)):
+        c = init_cache(cfg, 4, 80, opts, device=dev)
+        _, c = forward(p, cfg, toks[:, :64].to(dev), cache=c, opts=opts,
+                       mode="prefill")
+        got[where] = forward(p, cfg, toks[:, 64:].to(dev), cache=c,
+                             opts=dc.replace(opts, readonly_cache=True),
+                             mode="decode")[0].cpu()
+    ro_diff = float((got["card"] - got["cpu"]).abs().max())
+    check(bool(((got["card"] - got["cpu"]).abs()
+                <= 2e-5 + 2e-5 * got["cpu"].abs()).all()),
+          f"capped reduced read-only decode: card off the CPU by {ro_diff:.3e}")
+    batch = {"tokens": toks[:, :64], "labels": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (4, 64)))}
+    lc, gc = loss_and_grads(cpu_p, cfg, batch, opts, 1e-4)
+    ld, gd = loss_and_grads(dev_p, cfg, to_device(batch), opts, 1e-4)
+    check(abs(float(ld) - float(lc)) <= 1e-5 * abs(float(lc)),
+          f"capped reduced loss: card {float(ld)} vs CPU {float(lc)}")
+    worst = 0.0
+    for (path, a), (_, b) in zip(leaves_with_path(gd), leaves_with_path(gc)):
+        err = float((a.cpu() - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+        worst = max(worst, err)
+        check(err <= 2e-5, f"capped reduced gradient {path_str(path)}: "
+              f"{err:.3e} of its largest entry off the CPU's")
+    print(f"[{card}] capped reduced {A6E_ARCH} (cap {A6E_CAP:g}, fp32): "
+          f"read-only decode card vs CPU max |diff| {ro_diff:.3e} (limit "
+          f"2e-5 + 2e-5·|logit|); loss card {float(ld):.7f} vs CPU "
+          f"{float(lc):.7f}; gradients (K-B's fp32 route with the cap) worst "
+          f"{worst:.3e} of a leaf's largest entry (limit 2e-5)", flush=True)
+    out.update(readonly_max_abs_diff=ro_diff, grad_worst=worst)
+    return out
+
+
+def capped_training(card, torch, cfg, launches) -> dict:
+    """The capped llama3.2-3b at full width and depth through
+    ``make_train_step`` (AdamW, remat, batch 4 × 1,024 of
+    ``synthetic_lm_batch``, ``A6E_TRAIN_STEPS`` steps), counted: K-F twice
+    a layer a step, K-B once; every loss finite and the last below the
+    first."""
+    import numpy as np
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.train import OptConfig, TrainConfig, make_train_step
+    opts = ModelOptions(dtype=torch.bfloat16, remat=True,
+                        max_abs_pos=max(4096, TRAIN_SEQ))
+    init, step = make_train_step(cfg, TrainConfig(opt=OptConfig(
+        lr=TRAIN_LR, warmup_steps=10, decay_steps=A6E_TRAIN_STEPS)), opts)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         opts, device=DEV)
+    state = init(params)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    losses, step_s = [], []
+    begin_path(ops, "a6e_capped_train")
+    for i in range(A6E_TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v, device=DEV)
+                 for k, v in synthetic_lm_batch(dcfg, i).items()}
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    counts = launches["a6e_capped_train"] = end_path(ops)
+    want_f = cfg.n_layers * 2 * A6E_TRAIN_STEPS
+    want_b = cfg.n_layers * A6E_TRAIN_STEPS
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"capped training: losses {losses}")
+    check(counts["flash_attention"] == want_f
+          and counts["flash_attention_bwd"] == want_b,
+          f"capped training: K-F / K-B launched {counts['flash_attention']} "
+          f"/ {counts['flash_attention_bwd']}, expected {want_f} / {want_b}")
+    print(f"[{card}] capped {A6E_ARCH} training at full width and depth (cap "
+          f"{A6E_CAP:g}, bf16, AdamW, remat, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {A6E_TRAIN_STEPS} steps): loss "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; s/step "
+          + ", ".join(f"{x:.3f}" for x in step_s) + f"; launches {counts}",
+          flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+    return dict(loss=losses, step_s=step_s, launches=counts)
+
+
+def sharded_training(card, torch, launches) -> dict:
+    """The FSDP step (``train.fsdp``) at llama3.2-3b's full width cut to
+    ``A6E_SHARD_LAYERS`` layers (bf16, AdamW, remat, batch 4 × 1,024),
+    every shard simulated on the card, against one device on the same
+    weights and batches: ``A6E_SHARD_STEPS`` steps at 2 and 4 shards,
+    counted; each step's loss within 3e-4 rel and grad norm within 1e-3
+    rel of one device's (bf16: the shards' GEMMs see fewer rows, and their
+    bf16 gradients are summed in fp32 across shards where one device
+    sums every row in one product; the gaps seen on an H100 80GB HBM3 at
+    700 W were 5.6e-5 and 1.46e-4), and the float32 master weights after
+    step 1 within
+    ``A6E_SHARD_UPDATE`` of one device's update: the worst leaf's
+    ‖M_n − M_1‖ / ‖M_1 − M_0‖ (M_0 the initial weights, M_1 one device's
+    after step 1) and | ‖M_n − M_0‖ / ‖M_1 − M_0‖ − 1 |, so that a
+    skipped update (1.0 and 1.0) or a half one (0.5 and 0.5) fails; each
+    shard's resident bytes, the
+    split leaves' about 1/N of one device's. The restart across shard
+    counts: the 2-shard state after step 1, gathered whole (a checkpoint's
+    leaves) and cut onto 4 shards by the functions ``FSDPTrainer.restore``
+    gives ``checkpoint.restore`` (``FSDPTrainer.place``), keeps every bit,
+    and its step 2 agrees
+    with the 2-shard run's within the same limits. (On disk at full width
+    the checkpoint would hold 17 GB; ``tests/test_torch_sharding.py``
+    restores from disk onto 1 and 4 shards.)"""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.distributed import make_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models import ModelOptions, count_params, init_params
+    from repro_torch.train import OptConfig, TrainConfig, make_train_step
+    from repro_torch.train.fsdp import FSDPTrainer
+    from repro_torch.tree import leaves
+    cfg = dc.replace(configs.get_arch(A6E_ARCH), n_layers=A6E_SHARD_LAYERS)
+    opts = ModelOptions(dtype=torch.bfloat16, remat=True,
+                        max_abs_pos=max(4096, TRAIN_SEQ))
+    tcfg = TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup_steps=10,
+                                     decay_steps=A6E_SHARD_STEPS))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batches = [{k: torch.as_tensor(v, device=DEV) for k, v in
+                synthetic_lm_batch(dcfg, i).items()}
+               for i in range(A6E_SHARD_STEPS)]
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                           opts, device=DEV)
+
+    init, step = make_train_step(cfg, tcfg, opts)
+    params = fresh()
+    n_params = count_params(params)
+    state = init(params)
+    one_bytes = (sum(x.numel() * x.element_size() for x in leaves(params)),
+                 sum(x.numel() * x.element_size() for x in leaves(state)))
+    m0 = [x.clone() for x in leaves(params)]     # bf16: M_0 is their value
+    ref, t0 = [], time.perf_counter()
+    for i, b in enumerate(batches):
+        params, state, m = step(params, state, b)
+        ref.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0:
+            m1 = [x.clone() for x in leaves(state["master"])]
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    del params, state
+    torch.cuda.empty_cache()
+    out = dict(layers=A6E_SHARD_LAYERS, params=n_params, one_device=ref,
+               one_device_s=t_one, one_device_bytes=one_bytes)
+
+    def agree(what, got, want):
+        for (lg, ng), (lw, nw) in zip(got, want):
+            check(abs(lg - lw) <= 3e-4 * abs(lw)
+                  and abs(ng - nw) <= 1e-3 * abs(nw),
+                  f"{what}: loss / grad norm {lg} / {ng} vs {lw} / {nw}")
+
+    def update_gap(masters) -> tuple:
+        """Of gathered float32 master weights M_n after step 1, the worst
+        leaf's ‖M_n − M_1‖ / ‖M_1 − M_0‖, | ‖M_n − M_0‖ / ‖M_1 − M_0‖ − 1 |
+        and ‖M_n − M_1‖ / ‖M_1‖."""
+        worst_up = worst_len = worst_ref = 0.0
+        for a, w, w0 in zip(leaves(masters), m1, m0):
+            gap = float((a - w).norm())
+            upd = max(float((w - w0.float()).norm()), 1e-30)
+            worst_up = max(worst_up, gap / upd)
+            worst_len = max(worst_len, abs(float(
+                (a - w0.float()).norm()) / upd - 1.0))
+            worst_ref = max(worst_ref, gap / max(float(w.norm()), 1e-30))
+        return worst_up, worst_len, worst_ref
+
+    keep = None          # the 2-shard state after step 1 (the restart's)
+    for n in (2, 4):
+        mesh = make_mesh((n,), ("data",), devices=[DEV] * n)
+        tr = FSDPTrainer(cfg, tcfg, opts, mesh)
+        local, states = tr.init(fresh())
+        res = tr.resident_bytes(local, states)
+        path = f"a6e_sharded_{n}"
+        begin_path(ops, path)
+        got, t0 = [], time.perf_counter()
+        for i, b in enumerate(batches):
+            local, states, m = tr.step(local, states, b)
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0:
+                masters = tr.gather([x["master"] for x in states],
+                                    first=True)[0]
+                up, length, rel = update_gap(masters)
+                del masters
+            if n == 2 and i == 0:
+                keep = (tr.gather(local, first=True)[0],
+                        tr.gather(states, tr.state_specs(states),
+                                  first=True)[0])
+        torch.cuda.synchronize()
+        t_n = time.perf_counter() - t0
+        counts = launches[path] = end_path(ops)
+        want_f = cfg.n_layers * 2 * n * A6E_SHARD_STEPS
+        check(counts["flash_attention"] == want_f
+              and counts["flash_attention_bwd"] == want_f // 2,
+              f"{n}-shard training: launches {counts}, expected K-F {want_f}"
+              f" / K-B {want_f // 2}")
+        agree(f"{n} shards vs one device", got, ref)
+        check(up <= A6E_SHARD_UPDATE[0] and length <= A6E_SHARD_UPDATE[1],
+              f"{n} shards: master weights after step 1 {up:.4f} of one "
+              f"device's update off, their update's length {length:.4f} "
+              f"off its (worst leaves)")
+        # the split leaves: each shard holds 1/n of them
+        split = sum(x.numel() * x.element_size() for x, sp in zip(
+            leaves(local[0]), _spec_leaves(tr.specs)) if "data" in sp)
+        whole = sum(x.numel() * x.element_size() for x, sp in zip(
+            leaves(local[0]), _spec_leaves(tr.specs)) if "data" not in sp)
+        check(split * n + whole == one_bytes[0]
+              and whole < 0.01 * one_bytes[0],
+              f"{n} shards: resident parameter bytes {split} split + {whole} "
+              f"whole against one device's {one_bytes[0]}")
+        print(f"[{card}] FSDP training over {n} simulated shards "
+              f"({A6E_ARCH} at full width, {A6E_SHARD_LAYERS} of 28 layers, "
+              f"{n_params} parameters, bf16, AdamW, remat, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}): loss / grad norm "
+              + "; ".join(f"{a:.5f} / {b:.4f}" for a, b in got)
+              + " (one device: " + "; ".join(f"{a:.5f} / {b:.4f}"
+                                             for a, b in ref)
+              + f"); master weights after step 1 vs one device's: worst "
+              f"leaf ||dM|| / ||update|| {up:.4e} (limit "
+              f"{A6E_SHARD_UPDATE[0]}), | ||update_n|| / ||update|| - 1 | "
+              f"{length:.4e} (limit {A6E_SHARD_UPDATE[1]}), ||dM|| / ||M|| "
+              f"{rel:.4e}"
+              f"; {t_n:.3f} s for {A6E_SHARD_STEPS} steps (one device "
+              f"{t_one:.3f} s); resident bytes a shard (parameters / "
+              f"optimizer state) " + ", ".join(f"{p} / {o}" for p, o in res)
+              + f", one device {one_bytes[0]} / {one_bytes[1]}; of a "
+              f"shard's parameters {split} bytes are its 1/{n} of the split "
+              f"leaves and {whole} whole; launches {counts}", flush=True)
+        out[f"shards_{n}"] = dict(steps=got, s=t_n, resident_bytes=res,
+                                  launches=counts, master_gap_update=up,
+                                  master_update_length=length,
+                                  master_gap_rel=rel)
+        if n == 2:
+            cont = got[1]
+        del local, states, tr
+        torch.cuda.empty_cache()
+    del m0, m1
+    # the restart of the 2-shard state after step 1 onto 4 shards
+    full_p, full_o = keep
+    del keep
+    tr = FSDPTrainer(cfg, tcfg, opts, make_mesh((4,), ("data",),
+                                                devices=[DEV] * 4))
+    local, states = tr.place(full_p, full_o)
+    same = all(torch.equal(a, b) for a, b in zip(leaves(tr.gather(
+        local, first=True)[0]), leaves(full_p))) and all(
+        torch.equal(a, b) for a, b in zip(leaves(tr.gather(
+            states, tr.state_specs(states[0]), first=True)[0]),
+            leaves(full_o)))
+    check(same, "restart onto 4 shards: the parts do not rebuild the "
+          "2-shard state")
+    del full_p, full_o
+    torch.cuda.empty_cache()
+    local, states, m = tr.step(local, states, batches[1])
+    again = (float(m["loss"]), float(m["grad_norm"]))
+    agree("2 shards restarted onto 4 vs 2 shards", [again], [cont])
+    print(f"[{card}] restart of the 2-shard state after step 1 onto 4 "
+          f"shards: every part rebuilds it bit for bit; step 2 loss / grad "
+          f"norm {again[0]:.5f} / {again[1]:.4f} (2 shards: {cont[0]:.5f} "
+          f"/ {cont[1]:.4f})", flush=True)
+    out["restart_2_to_4"] = dict(step2=again, two_shards=cont)
+    del local, states, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spec_leaves(specs) -> list:
+    """The placements of a spec tree in the order of its tree's leaves."""
+    if isinstance(specs, dict):
+        return [x for v in specs.values() for x in _spec_leaves(v)]
+    if isinstance(specs, list):
+        return [x for v in specs for x in _spec_leaves(v)]
+    return [specs]
+
+
+def phase_a6e(card, torch, rt, launches) -> tuple:
+    """22. Queue A6e on the card: (a) K-F with the logit softcap in its
+    tensor-core and split-KV forms and the read-only decode (a second key
+    source), K-B with the cap on its bf16 route, each against its plain
+    version (``a6e_kernel_cases``); (b) the capped reduced model card vs
+    CPU (``reduced_capped``); (c) llama3.2-3b with cap 50 at full width
+    and depth served through ``BatchedServer`` + ``make_knn_hook`` over
+    phase 14's keys (``serve_family``: phase 19's traffic, counted); (d)
+    the uncapped llama3.2-3b's read-only cache over phase 14's first 8
+    prompts against the written decode (``readonly_check``); (e) the
+    capped model trained (``capped_training``); (f) the FSDP step over 2
+    and 4 simulated shards against one device, and a restart from 2 onto
+    4 (``sharded_training``). Returns (K-F's cases, K-B's cases, the
+    phase's numbers)."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.serve import Datastore, KnnLMConfig
+    t_phase = time.perf_counter()
+    kf_cases, kb_cases = a6e_kernel_cases(card, torch)
+    out = dict(reduced=reduced_capped(card, torch))
+    base = configs.get_arch(A6E_ARCH)
+    capped = dc.replace(base, attn_logit_softcap=A6E_CAP)
+    rng = np.random.default_rng(14)          # phase 14's keys and prompts
+    keys = rng.standard_normal((LM_STORE_KEYS, LM_STORE_DIM),
+                               dtype=np.float32)
+    vals = rng.integers(0, base.vocab, LM_STORE_KEYS).astype(np.int32)
+    prompts = [rng.integers(0, base.vocab, int(rng.integers(
+        LM_PROMPT[0], LM_PROMPT[1] + 1))).astype(np.int32)
+        for _ in range(LM_REQUESTS)]
+    store = Datastore.build(keys, vals, k=8, n_pivots=128, n_groups=8,
+                            device=DEV)
+    out["capped_serve"] = serve_family(
+        card, torch, A6E_ARCH, store, keys, KnnLMConfig(lam=0.2, tau=50.0,
+                                                        k=8),
+        launches, cfg=capped, path="a6e_capped_serve",
+        prompts=prompts[:FAM_REQUESTS])
+    del store, keys
+    torch.cuda.empty_cache()
+    opts = ModelOptions(dtype=torch.bfloat16)
+    params = init_params(base, torch.Generator(device=DEV).manual_seed(0),
+                         opts, device=DEV)
+    out["readonly"] = readonly_check(card, torch, base, params, opts,
+                                     prompts[:LM_BATCH], A6E_ARCH,
+                                     "a6e_readonly", launches)
+    del params
+    torch.cuda.empty_cache()
+    out["capped_train"] = capped_training(card, torch, capped, launches)
+    out["sharded"] = sharded_training(card, torch, launches)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 22 (softcap, read-only cache, mesh layout) "
+          f"{out['phase_s']:.3f} s", flush=True)
+    return kf_cases, kb_cases, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
@@ -4016,29 +4763,36 @@ def main(argv=None) -> int:
     # ---- 21. the train path: K-B, K-F with lse, llama3.2-3b trained
     kb_cases, train_run = phase_training(card, torch, launches, out_dir)
     (out_dir / "phase_21.json").write_text(json.dumps(train_run))
+    # ---- 22. A6e: the softcap, the read-only cache, the mesh layout
+    a6e_kf, a6e_kb, a6e_run = phase_a6e(card, torch, rt, launches)
+    (out_dir / "phase_22.json").write_text(json.dumps(a6e_run))
     kb_row = dict(name="flash_attention_bwd", route="cuda",
                   source="src/repro_torch/csrc/flash_attn_bwd.cu",
                   replaces="src/repro/models/layers.py:130 (jax.grad of "
                            "_sdpa; the JAX package has no Pallas backward)")
     kb_row.update({key: kb_cases[0][key] for key in _ROW_KEYS})
-    kb_row["other_shapes"] = kb_cases[1:]
+    kb_row["other_shapes"] = kb_cases[1:] + a6e_kb
     rows.append(kb_row)
 
     owner = {"assign": ("megastep",), "distance_topk_gather": ("megastep",),
              "quant_coarse_gather": ("quantized",),
              "distance_topk": ("retrieval",),
              "flash_attention": ("lm_serve", "moe_serve", "moe_arctic",
-                                 "fam_recurrentgemma", "fam_xlstm",
-                                 "fam_qwen2", "fam_qwen2_vision",
-                                 "fam_whisper", "train"),
-             "flash_attention_bwd": ("train",)}
+                                 "moe_readonly", "fam_recurrentgemma",
+                                 "fam_xlstm", "fam_qwen2",
+                                 "fam_qwen2_vision", "fam_whisper", "train",
+                                 "a6e_capped_serve", "a6e_readonly",
+                                 "a6e_capped_train", "a6e_sharded_2",
+                                 "a6e_sharded_4"),
+             "flash_attention_bwd": ("train", "a6e_capped_train",
+                                     "a6e_sharded_2", "a6e_sharded_4")}
     for row in rows:
         if row["name"] in caps:
             row["cap_shapes"] = caps[row["name"]]
         if row["name"] == "assign":
             row["path_shapes"] = assign_paths
         if row["name"] == "flash_attention":
-            row["other_shapes"] += mla_cases + fam_cases
+            row["other_shapes"] += mla_cases + fam_cases + a6e_kf
         # the main paths' launches, plus the mesh paths' (phase 18)
         row["launches"] = sum(launches[p][row["name"]]
                               for p in owner[row["name"]] + tuple(mesh_paths))

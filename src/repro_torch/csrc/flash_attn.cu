@@ -12,7 +12,7 @@
 // nq = 1). Key j is visible to it when j < nk, j <= its position (causal)
 // and j > its position - window (a window). Over key tiles, in order, with
 // inputs upcast to fp32:
-//   s = (q · k) * scale, masked to -1e30
+//   s = (q · k) * scale, capped s = cap · tanh(s / cap) when cap > 0, masked to -1e30
 //   m' = max(m, max s)   p = exp(s - m') (0 where masked)
 //   l = l * exp(m - m') + Σ p      acc = acc * exp(m - m') + p · v
 // and o = acc / max(l, 1e-30), cast to q's type: a row that sees no key is 0.
@@ -21,6 +21,16 @@
 // lse = m + log l (fp32, (b, h, nq); -inf for a row that sees no key), which
 // the backward kernel (flash_attn_bwd.cu) recomputes p from. Every
 // instruction that produces o is the same with and without it.
+// The logit softcap (Gemma 2's attn_logit_softcapping; the JAX package's
+// _sdpa) is a compile-time variant of every kernel: cap = 0 runs the
+// instances without it, so the uncapped kernels keep their instructions. The
+// cap is applied to the scaled logit before the mask is written (a masked key
+// stays at -1e30, never -cap), with IEEE tanhf (no tanh.approx.f32).
+// A second key/value source (the read-only serving cache's decode: the
+// cache's live keys read in place through their strides, then the step's
+// fresh keys) is logically appended after the first source's nk1 keys: key j
+// of the nk = nk1 + nk2 keys is read from k2 / v2 at j - nk1 when j >= nk1.
+// Only fa_simt takes it (the wrapper plans that route); nothing is copied.
 // p is never rounded below fp32, exp is expf and the division IEEE (never
 // build with --use_fast_math). A key tile that no row of the block can see
 // is skipped before its load; for a row that sees none of a tile the update
@@ -106,6 +116,8 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
+  const void* k2;   // the second source (k2 = k, v2 = v, nk1 = nk when there is none)
+  const void* v2;
   void* o;
   float* part_m;    // split-KV partials (null when splits == 1):
   float* part_l;    //   (splits, b·nq·h) and
@@ -114,13 +126,28 @@ struct Args {
   long long qsb, qsn, qsh;  // element strides of q, k, v (the last axis is contiguous)
   long long ksb, ksn, ksh;
   long long vsb, vsn, vsh;
+  long long k2sb, k2sn, k2sh;
+  long long v2sb, v2sn, v2sh;
   int b, nq, nk, h, kvh, d;
+  int nk1;         // keys of the first source; keys nk1 .. nk - 1 come from k2 / v2
   int causal, use_window, window;
   float scale;
+  float softcap;   // > 0: the capped instances run
   int zc;          // chunks of the output's d (grid.z = zc · splits)
   int splits;      // key ranges [s·split_keys, (s+1)·split_keys)
   int split_keys;
 };
+
+// The scaled logit s, capped to cap · tanh(s / cap) in the CAP instances
+// (the JAX package's tanh(s / cap) * cap).
+template <bool CAP>
+__device__ __forceinline__ float capped(float s, float cap) {
+  if constexpr (CAP) {
+    return tanhf(s / cap) * cap;
+  } else {
+    return s;
+  }
+}
 
 __device__ __forceinline__ bool visible(const Args& a, int key, int qpos) {
   bool mk = key < a.nk;
@@ -239,7 +266,7 @@ __device__ __forceinline__ void stage_kv(bf16* dst, const bf16* src, long long r
   }
 }
 
-template <int DK, int DV, bool VEC>
+template <int DK, int DV, bool VEC, bool CAP>
 __global__ void __launch_bounds__(kMmaThreads) fa_mma(const Args a) {
   constexpr int QS = DK + 8;  // row strides in bf16: rows 16 bytes apart mod 128 (no bank conflicts)
   constexpr int VS = DV + 8;
@@ -386,10 +413,10 @@ __global__ void __launch_bounds__(kMmaThreads) fa_mma(const Args a) {
     if (full) {
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        s[n][0] *= a.scale;
-        s[n][1] *= a.scale;
-        s[n][2] *= a.scale;
-        s[n][3] *= a.scale;
+        s[n][0] = capped<CAP>(s[n][0] * a.scale, a.softcap);
+        s[n][1] = capped<CAP>(s[n][1] * a.scale, a.softcap);
+        s[n][2] = capped<CAP>(s[n][2] * a.scale, a.softcap);
+        s[n][3] = capped<CAP>(s[n][3] * a.scale, a.softcap);
         mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
         mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
       }
@@ -402,7 +429,7 @@ __global__ void __launch_bounds__(kMmaThreads) fa_mma(const Args a) {
           const int key = key0 + n * 8 + 2 * tq + (e & 1);
           const bool mk =
               (e < 2) ? (ok0 && visible(a, key, qpos0)) : (ok1 && visible(a, key, qpos1));
-          s[n][e] = mk ? s[n][e] * a.scale : kNegInf;
+          s[n][e] = mk ? capped<CAP>(s[n][e] * a.scale, a.softcap) : kNegInf;
           if (mk) vis |= 1u << (n * 4 + e);
           if (e < 2) mx0 = fmaxf(mx0, s[n][e]); else mx1 = fmaxf(mx1, s[n][e]);
         }
@@ -532,13 +559,21 @@ constexpr size_t simt_smem_bytes() {
                           static_cast<size_t>(BQ) * (kBK + 1) + 3 * BQ);
 }
 
-// Stage kHalf rows x kDC columns (row r at src + (row0 + r)·rs, columns from
-// col0) as fp32 into dst (row stride kCP); rows at or past n_rows and
-// columns at or past ncols are 0. VEC: 16-byte loads (the wrapper checked
-// the alignment).
+// Stage kHalf rows x kDC columns (row j at src + j·rs for j < n1, else at
+// src2 + (j - n1)·rs2, for j = row0 + r; columns from the bases' offset) as
+// fp32 into dst (row stride kCP); rows at or past n_rows and columns at or
+// past ncols are 0. VEC: 16-byte loads (the wrapper checked the alignment of
+// both sources).
+template <typename T>
+__device__ __forceinline__ const T* key_row(const T* src, long long rs, const T* src2,
+                                            long long rs2, int n1, int j) {
+  return j < n1 ? src + j * rs : src2 + (j - n1) * rs2;
+}
+
 template <typename T, bool VEC>
-__device__ __forceinline__ void stage_f32(float* dst, const T* src, long long rs, int row0,
-                                          int n_rows, int ncols, int tid) {
+__device__ __forceinline__ void stage_f32(float* dst, const T* src, long long rs, const T* src2,
+                                          long long rs2, int n1, int row0, int n_rows, int ncols,
+                                          int tid) {
   if constexpr (VEC) {
     constexpr int VW = 16 / sizeof(T);
     constexpr int CH = kDC / VW;
@@ -548,7 +583,8 @@ __device__ __forceinline__ void stage_f32(float* dst, const T* src, long long rs
       const int c = (e - r * CH) * VW;
       float* out = dst + r * kCP + c;
       if (row0 + r < n_rows && c < ncols) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c);
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(key_row(src, rs, src2, rs2, n1, row0 + r) + c);
         const T* vals = reinterpret_cast<const T*>(&raw);
 #pragma unroll
         for (int j = 0; j < VW; ++j) out[j] = to_f(vals[j]);
@@ -562,7 +598,9 @@ __device__ __forceinline__ void stage_f32(float* dst, const T* src, long long rs
     for (int e = tid; e < kHalf * kDC; e += kThreads) {
       const int r = e / kDC;
       const int c = e - r * kDC;
-      dst[r * kCP + c] = (row0 + r < n_rows && c < ncols) ? to_f(src[(row0 + r) * rs + c]) : 0.f;
+      dst[r * kCP + c] = (row0 + r < n_rows && c < ncols)
+                             ? to_f(key_row(src, rs, src2, rs2, n1, row0 + r)[c])
+                             : 0.f;
     }
   }
 }
@@ -588,7 +626,7 @@ __device__ __forceinline__ void stage_q(float* q_s, const Args& a, int v0, int c
   }
 }
 
-template <typename T, int DV, int BQ, bool VEC>
+template <typename T, int DV, int BQ, bool VEC, bool CAP>
 __global__ void __launch_bounds__(kThreads) fa_simt(const Args a) {
   constexpr int SP = kBK + 1;
   constexpr int RPT = BQ / 16;        // rows per thread in the register tiles
@@ -604,6 +642,8 @@ __global__ void __launch_bounds__(kThreads) fa_simt(const Args a) {
 
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
+  const T* k2 = static_cast<const T*>(a.k2);
+  const T* v2 = static_cast<const T*>(a.v2);
   T* o = static_cast<T*>(a.o);
   const int nq = a.nq, nk = a.nk, d = a.d;
   const int rep = a.h / a.kvh;
@@ -646,6 +686,8 @@ __global__ void __launch_bounds__(kThreads) fa_simt(const Args a) {
 
   const T* kbase = k + bb * a.ksb + g * a.ksh;
   const T* vbase = v + bb * a.vsb + g * a.vsh + col0;
+  const T* k2base = k2 + bb * a.k2sb + g * a.k2sh;
+  const T* v2base = v2 + bb * a.v2sb + g * a.v2sh + col0;
   for (int first_k = key_lo; first_k < key_hi; first_k += kBK) {
     if (!(v0 < nv && tile_relevant(a, first_k, first_k + kBK - 1, first_q, last_q)))
       continue;  // block-uniform
@@ -662,7 +704,8 @@ __global__ void __launch_bounds__(kThreads) fa_simt(const Args a) {
         const int c0 = ch * kDC;
         __syncthreads();  // q_s / kv_s are free
         if (n_chunks > 1) stage_q<T, BQ>(q_s, a, v0, c0, tid);
-        stage_f32<T, VEC>(kv_s, kbase + c0, a.ksn, kb, key_hi, d - c0, tid);
+        stage_f32<T, VEC>(kv_s, kbase + c0, a.ksn, k2base + c0, a.k2sn, a.nk1, kb, key_hi,
+                          d - c0, tid);
         __syncthreads();
         const int w = min(kDC, d - c0);
 #pragma unroll 4
@@ -688,7 +731,7 @@ __global__ void __launch_bounds__(kThreads) fa_simt(const Args a) {
           const int col = half * kHalf + tx + 16 * c;
           const int key = first_k + col;
           const bool mk = vr < nv && key < key_hi && visible(a, key, qpos);
-          s_s[row * SP + col] = mk ? sacc[r][c] * a.scale : kNegInf;
+          s_s[row * SP + col] = mk ? capped<CAP>(sacc[r][c] * a.scale, a.softcap) : kNegInf;
         }
       }
     }
@@ -732,7 +775,7 @@ __global__ void __launch_bounds__(kThreads) fa_simt(const Args a) {
     for (int half = 0; half < 2; ++half) {
       const int kb = first_k + half * kHalf;
       __syncthreads();  // kv_s is free
-      stage_f32<T, VEC>(kv_s, vbase, a.vsn, kb, key_hi, d - col0, tid);
+      stage_f32<T, VEC>(kv_s, vbase, a.vsn, v2base, a.v2sn, a.nk1, kb, key_hi, d - col0, tid);
       __syncthreads();
 #pragma unroll 4
       for (int c2 = 0; c2 < kHalf; ++c2) {
@@ -812,33 +855,33 @@ __global__ void __launch_bounds__(kThreads) fa_combine(const Args a) {
 
 // ------------------------------------------------------------ launch
 
-template <int DK, bool VEC>
+template <int DK, bool VEC, bool CAP>
 cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   constexpr int DV = DK < 128 ? DK : 128;
   constexpr size_t smem = mma_smem_bytes<DK, DV>();
-  cudaError_t err = cudaFuncSetAttribute(fa_mma<DK, DV, VEC>,
+  cudaError_t err = cudaFuncSetAttribute(fa_mma<DK, DV, VEC, CAP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  if (a.zc != (a.d + DV - 1) / DV || a.splits != 1) return cudaErrorInvalidValue;
+  if (a.zc != (a.d + DV - 1) / DV || a.splits != 1 || a.nk1 != a.nk) return cudaErrorInvalidValue;
   const long long nv = static_cast<long long>(a.h / a.kvh) * a.nq;
   const dim3 grid(static_cast<unsigned>((nv + kMmaBQ - 1) / kMmaBQ),
                   static_cast<unsigned>(a.b * a.kvh), static_cast<unsigned>(a.zc));
-  fa_mma<DK, DV, VEC><<<grid, kMmaThreads, smem, stream>>>(a);
+  fa_mma<DK, DV, VEC, CAP><<<grid, kMmaThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int DV, int BQ, bool VEC>
+template <typename T, int DV, int BQ, bool VEC, bool CAP>
 cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = simt_smem_bytes<BQ>();
-  cudaError_t err = cudaFuncSetAttribute(fa_simt<T, DV, BQ, VEC>,
+  cudaError_t err = cudaFuncSetAttribute(fa_simt<T, DV, BQ, VEC, CAP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long nv = static_cast<long long>(a.h / a.kvh) * a.nq;
   const dim3 grid(static_cast<unsigned>((nv + BQ - 1) / BQ), static_cast<unsigned>(a.b * a.kvh),
                   static_cast<unsigned>(a.zc * a.splits));
-  fa_simt<T, DV, BQ, VEC><<<grid, kThreads, smem, stream>>>(a);
+  fa_simt<T, DV, BQ, VEC, CAP><<<grid, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   const long long n = static_cast<long long>(a.b) * a.nq * a.h * a.d;
@@ -846,14 +889,14 @@ cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int DV, bool VEC>
+template <typename T, int DV, bool VEC, bool CAP>
 cudaError_t launch_simt_bq(const Args& a, int bq, cudaStream_t stream) {
-  if (bq == 16) return launch_simt<T, DV, 16, VEC>(a, stream);
-  if (bq == 64) return launch_simt<T, DV, 64, VEC>(a, stream);
+  if (bq == 16) return launch_simt<T, DV, 16, VEC, CAP>(a, stream);
+  if (bq == 64) return launch_simt<T, DV, 64, VEC, CAP>(a, stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool CAP>
 cudaError_t launch_simt_dv(const Args& a, int bq, int dv, cudaStream_t stream) {
   if (a.zc != (a.d + dv - 1) / dv || a.split_keys % kBK != 0 ||
       static_cast<long long>(a.splits) * a.split_keys < a.nk)
@@ -861,29 +904,29 @@ cudaError_t launch_simt_dv(const Args& a, int bq, int dv, cudaStream_t stream) {
   if (a.splits > 1 && (a.part_m == nullptr || a.part_l == nullptr || a.part_acc == nullptr))
     return cudaErrorInvalidValue;
   switch (dv) {
-    case 16: return launch_simt_bq<T, 16, VEC>(a, bq, stream);
-    case 32: return launch_simt_bq<T, 32, VEC>(a, bq, stream);
-    case 64: return launch_simt_bq<T, 64, VEC>(a, bq, stream);
-    case 128: return launch_simt_bq<T, 128, VEC>(a, bq, stream);
+    case 16: return launch_simt_bq<T, 16, VEC, CAP>(a, bq, stream);
+    case 32: return launch_simt_bq<T, 32, VEC, CAP>(a, bq, stream);
+    case 64: return launch_simt_bq<T, 64, VEC, CAP>(a, bq, stream);
+    case 128: return launch_simt_bq<T, 128, VEC, CAP>(a, bq, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool VEC>
+template <bool VEC, bool CAP>
 cudaError_t launch_route(const Args& a, int dtype, int route, int width, int bq,
                          cudaStream_t stream) {
   if (route == 0) {  // tensor cores: bf16, width = DK
     if (dtype != 1 || a.d > width) return cudaErrorInvalidValue;
     switch (width) {
-      case 64: return launch_mma<64, VEC>(a, stream);
-      case 128: return launch_mma<128, VEC>(a, stream);
-      case 256: return launch_mma<256, VEC>(a, stream);
+      case 64: return launch_mma<64, VEC, CAP>(a, stream);
+      case 128: return launch_mma<128, VEC, CAP>(a, stream);
+      case 256: return launch_mma<256, VEC, CAP>(a, stream);
       default: return cudaErrorInvalidValue;
     }
   }
   if (route == 1) {  // CUDA cores, split-KV: width = DV
-    if (dtype == 0) return launch_simt_dv<float, VEC>(a, bq, width, stream);
-    if (dtype == 1) return launch_simt_dv<bf16, VEC>(a, bq, width, stream);
+    if (dtype == 0) return launch_simt_dv<float, VEC, CAP>(a, bq, width, stream);
+    if (dtype == 1) return launch_simt_dv<bf16, VEC, CAP>(a, bq, width, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -898,32 +941,48 @@ cudaError_t launch_route(const Args& a, int dtype, int route, int width, int bq,
 // 32, 64, 128}, bq in {16, 64}, zc = ceil(d / DV), split_keys a multiple of
 // 128 with splits·split_keys >= nk; splits > 1 needs the partials, fp32
 // (splits, b·nq·h) for m and l and (splits, b·nq·h, d) for acc). lse: null,
-// or fp32 (b, h, nq) for each row's log-sum-exp. vec = 1:
-// q, k, v are 16-byte aligned with strides and d multiples of 16 bytes'
-// elements. b, nq, h, kvh, d >= 1, nk >= 0, h a multiple of kvh,
-// b·kvh <= 65535, zc·splits <= 65535, window >= 0 when used. The output is
-// (b, nq, h, d), contiguous.
-extern "C" int repro_flash_attn(const void* q, const void* k, const void* v, void* o,
-                                void* part_m, void* part_l, void* part_acc, void* lse,
-                                int dtype, int b,
-                                int nq, int nk, int h, int kvh, int d, long long qsb,
-                                long long qsn, long long qsh, long long ksb, long long ksn,
-                                long long ksh, long long vsb, long long vsn, long long vsh,
-                                int causal, int use_window, int window, float scale, int route,
-                                int width, int bq, int zc, int splits, int split_keys, int vec,
-                                void* stream) {
-  if (b < 1 || nq < 1 || nk < 0 || h < 1 || kvh < 1 || d < 1 || h % kvh != 0 ||
-      static_cast<long long>(b) * kvh > 65535 ||
+// or fp32 (b, h, nq) for each row's log-sum-exp. k2 and v2 (null: none) are
+// a second source of nk - nk1 keys, (b, nk - nk1, kvh, d) with their own
+// strides, read after k and v's first nk1 keys (route 1 only). softcap >= 0
+// (0: no cap). vec = 1: q, k, v (and k2, v2) are 16-byte aligned with
+// strides and d multiples of 16 bytes' elements. b, nq, h, kvh, d >= 1,
+// 0 <= nk1 <= nk, h a multiple of kvh, b·kvh <= 65535, zc·splits <= 65535,
+// window >= 0 when used. The output is (b, nq, h, d), contiguous.
+extern "C" int repro_flash_attn(const void* q, const void* k, const void* v, const void* k2,
+                                const void* v2, void* o, void* part_m, void* part_l,
+                                void* part_acc, void* lse, int dtype, int b, int nq, int nk,
+                                int nk1, int h, int kvh, int d, long long qsb, long long qsn,
+                                long long qsh, long long ksb, long long ksn, long long ksh,
+                                long long vsb, long long vsn, long long vsh, long long k2sb,
+                                long long k2sn, long long k2sh, long long v2sb, long long v2sn,
+                                long long v2sh, int causal, int use_window, int window,
+                                float scale, float softcap, int route, int width, int bq, int zc,
+                                int splits, int split_keys, int vec, void* stream) {
+  if (b < 1 || nq < 1 || nk < 0 || nk1 < 0 || nk1 > nk || h < 1 || kvh < 1 || d < 1 ||
+      h % kvh != 0 || static_cast<long long>(b) * kvh > 65535 ||
       static_cast<long long>(h / kvh) * nq > 0x7fffffffLL || (use_window && window < 0) ||
-      zc < 1 || splits < 1 || split_keys < 1 || static_cast<long long>(zc) * splits > 65535)
+      zc < 1 || splits < 1 || split_keys < 1 || static_cast<long long>(zc) * splits > 65535 ||
+      !(softcap >= 0.f) || ((k2 == nullptr) != (v2 == nullptr)) ||
+      (k2 == nullptr && nk1 != nk))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q,   k,   v,   o,   static_cast<float*>(part_m), static_cast<float*>(part_l),
-         static_cast<float*>(part_acc), static_cast<float*>(lse),
-         qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
-         b,   nq,  nk,  h,   kvh, d,   causal, use_window, window, scale, zc, splits,
-         split_keys};
+  if (k2 == nullptr) {  // one source: the second is never read
+    k2 = k;
+    v2 = v;
+    k2sb = ksb, k2sn = ksn, k2sh = ksh;
+    v2sb = vsb, v2sn = vsn, v2sh = vsh;
+  }
+  Args a{q,    k,    v,    k2,   v2,   o,    static_cast<float*>(part_m),
+         static_cast<float*>(part_l),  static_cast<float*>(part_acc), static_cast<float*>(lse),
+         qsb,  qsn,  qsh,  ksb,  ksn,  ksh,  vsb,  vsn,  vsh,  k2sb, k2sn, k2sh,
+         v2sb, v2sn, v2sh, b,    nq,   nk,   h,    kvh,  d,    nk1,  causal, use_window,
+         window, scale, softcap, zc, splits, split_keys};
   auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = vec ? launch_route<true>(a, dtype, route, width, bq, st)
-                              : launch_route<false>(a, dtype, route, width, bq, st);
+  cudaError_t err;
+  if (softcap > 0.f)
+    err = vec ? launch_route<true, true>(a, dtype, route, width, bq, st)
+              : launch_route<false, true>(a, dtype, route, width, bq, st);
+  else
+    err = vec ? launch_route<true, false>(a, dtype, route, width, bq, st)
+              : launch_route<false, false>(a, dtype, route, width, bq, st);
   return static_cast<int>(err);
 }

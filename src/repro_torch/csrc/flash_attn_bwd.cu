@@ -16,6 +16,10 @@
 //   s = (q · k)·scale,  p = exp(s - lse) (0 where masked: a row that sees no
 //   key has lse = -inf and gets 0, never NaN),  dP = dO · vᵀ,
 //   dS = p ∘ (dP - D)
+// With the logit softcap (cap > 0; a compile-time variant of every kernel, so
+// the uncapped instances are unchanged) s is the capped logit cap·tanh(s/cap),
+// as K-F's forward took it (IEEE tanhf), and dS gains the cap's derivative:
+//   dS = p ∘ (dP - D) ∘ (1 - tanh²(s/cap)).
 //   dv = Σ_i pᵀ dO,  dk = (Σ_i dSᵀ q)·scale           (the dk/dv pass)
 //   dq = (Σ_j dS k)·scale                              (the dq pass)
 // written in the inputs' type. No atomics: every output element is summed in
@@ -132,6 +136,7 @@ struct Args {
   int b, nq, nk, h, kvh, d;
   int causal, use_window, window;
   float scale;
+  float softcap;  // > 0: the capped instances run
   int splits;   // mma route: interleaved parts of each group's row steps in the dk/dv pass
 };
 
@@ -139,6 +144,19 @@ constexpr int kThreads = 256;
 constexpr int kBR = 32;       // virtual rows per tile
 constexpr int kBC = 32;       // keys per tile
 constexpr int kPS = kBC + 1;  // row stride of the p / dS tiles
+
+// The logit p is taken from: the scaled logit x, capped to cap·tanh(x / cap)
+// in the CAP instances, and the factor the cap puts on dS (1 - tanh²).
+template <bool CAP>
+__device__ __forceinline__ float capped(float x, float cap, float* fac) {
+  if constexpr (CAP) {
+    const float t = tanhf(x / cap);
+    *fac = 1.f - t * t;
+    return t * cap;
+  } else {
+    return x;
+  }
+}
 
 __device__ __forceinline__ bool visible(const Args& a, int key, int qpos) {
   bool mk = key < a.nk;
@@ -221,7 +239,7 @@ constexpr size_t smem_bytes() {
 
 // S = q·kᵀ and dP = dO·vᵀ for a 32 x 32 tile, then p and dS into p_s / ds_s.
 // Thread (ty, tx): rows ty + 16r, keys tx + 16c (r, c < 2).
-template <int DP>
+template <int DP, bool CAP>
 __device__ __forceinline__ void tile_p_ds(const Args& a, const float* q_s, const float* g_s,
                                           const float* k_s, const float* v_s,
                                           const float* lse_s, const float* dsum_s, float* p_s,
@@ -255,9 +273,15 @@ __device__ __forceinline__ void tile_p_ds(const Args& a, const float* q_s, const
     for (int c = 0; c < 2; ++c) {
       const int col = tx + 16 * c;
       const bool mk = vr < nv && visible(a, k0 + col, qpos);
-      const float p = mk ? expf(sa[r][c] * a.scale - lse_s[row]) : 0.f;
+      float fac;
+      const float p = mk ? expf(capped<CAP>(sa[r][c] * a.scale, a.softcap, &fac) - lse_s[row])
+                         : 0.f;
       p_s[row * kPS + col] = p;
-      ds_s[row * kPS + col] = p * (pa[r][c] - dsum_s[row]);
+      if constexpr (CAP) {
+        ds_s[row * kPS + col] = mk ? p * (pa[r][c] - dsum_s[row]) * fac : 0.f;
+      } else {
+        ds_s[row * kPS + col] = p * (pa[r][c] - dsum_s[row]);
+      }
     }
   }
 }
@@ -286,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dsum(const Args a) {
 
 // ------------------------------------------------------------ bwd_dkdv
 
-template <typename T, int DP>
+template <typename T, int DP, bool CAP>
 __global__ void __launch_bounds__(kThreads) bwd_dkdv(const Args a) {
   constexpr int S = DP + 1;
   constexpr int CPT = DP / 32;  // columns a thread in the accumulation
@@ -330,7 +354,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv(const Args a) {
       dsum_s[tid] = vr < nv ? a.dsum[stat_off(a, bb, g, vr)] : 0.f;
     }
     __syncthreads();
-    tile_p_ds<DP>(a, q_s, g_s, k_s, v_s, lse_s, dsum_s, p_s, ds_s, v0, nv, k0, tid);
+    tile_p_ds<DP, CAP>(a, q_s, g_s, k_s, v_s, lse_s, dsum_s, p_s, ds_s, v0, nv, k0, tid);
     __syncthreads();
     // dV += pᵀ dO, dK += dSᵀ q: keys warp + 8r, columns lane + 32c
     const int rows = min(kBR, nv - v0);
@@ -376,7 +400,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv(const Args a) {
 
 // ------------------------------------------------------------ bwd_dq
 
-template <typename T, int DP>
+template <typename T, int DP, bool CAP>
 __global__ void __launch_bounds__(kThreads) bwd_dq(const Args a) {
   constexpr int S = DP + 1;
   constexpr int CPT = DP / 32;
@@ -421,7 +445,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq(const Args a) {
     stage_keys<T, DP>(k_s, static_cast<const T*>(a.k), a, bb, g, k0, tid);
     stage_keys<T, DP>(v_s, static_cast<const T*>(a.v), a, bb, g, k0, tid);
     __syncthreads();
-    tile_p_ds<DP>(a, q_s, g_s, k_s, v_s, lse_s, dsum_s, p_s, ds_s, v0, nv, k0, tid);
+    tile_p_ds<DP, CAP>(a, q_s, g_s, k_s, v_s, lse_s, dsum_s, p_s, ds_s, v0, nv, k0, tid);
     __syncthreads();
     // dQ += dS k: rows warp + 8r, columns lane + 32c
     const int keys = min(kBC, a.nk - k0);
@@ -632,7 +656,7 @@ __device__ __forceinline__ void mma_frag_b(float (&c)[NC][4], const uint32_t (&f
 // causal mask or a window the key tiles are the slowest index (the first
 // tiles, the longest, start first in every group); without one the group is
 // (the group's tiles run side by side and share its rows in L2).
-template <int DP>
+template <int DP, bool CAP>
 __global__ void __launch_bounds__(128 * kv_group_warps<DP>()) bwd_dkdv_mma(const Args a) {
   constexpr int G = kv_group_warps<DP>();
   constexpr int NTH = 128 * G;
@@ -757,12 +781,19 @@ __global__ void __launch_bounds__(128 * kv_group_warps<DP>()) bwd_dkdv_mma(const
           m1 = ok && visible(a, key_a + 8, qpos);
         }
         const float l = lse_t[row], dd = dsum_t[row];
-        const float p0 = m0 ? expf(sa[n][c] * a.scale - l) : 0.f;
-        const float p1 = m1 ? expf(sa[n][2 + c] * a.scale - l) : 0.f;
+        float f0, f1;
+        const float p0 = m0 ? expf(capped<CAP>(sa[n][c] * a.scale, a.softcap, &f0) - l) : 0.f;
+        const float p1 =
+            m1 ? expf(capped<CAP>(sa[n][2 + c] * a.scale, a.softcap, &f1) - l) : 0.f;
         sa[n][c] = p0;
         sa[n][2 + c] = p1;
-        da[n][c] = p0 * (da[n][c] - dd);
-        da[n][2 + c] = p1 * (da[n][2 + c] - dd);
+        if constexpr (CAP) {
+          da[n][c] = m0 ? p0 * (da[n][c] - dd) * f0 : 0.f;
+          da[n][2 + c] = m1 ? p1 * (da[n][2 + c] - dd) * f1 : 0.f;
+        } else {
+          da[n][c] = p0 * (da[n][c] - dd);
+          da[n][2 + c] = p1 * (da[n][2 + c] - dd);
+        }
       }
     uint32_t pf[2][KW][4], df[2][KW][4];
     split_frags<NT>(pf, sa);
@@ -851,7 +882,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_reduce(const Args a) {
 }
 
 // ---- bwd_dq_mma: a 1-D grid of (row tile of 64, b·kvh), the last fastest
-template <int DP>
+template <int DP, bool CAP>
 __global__ void __launch_bounds__(32 * dq_warps<DP>()) bwd_dq_mma(const Args a) {
   constexpr int kDqRows = 16 * dq_warps<DP>();
   constexpr int kDqThreads = 32 * dq_warps<DP>();
@@ -959,8 +990,15 @@ __global__ void __launch_bounds__(32 * dq_warps<DP>()) bwd_dq_mma(const Args a) 
         const int key = key0 + n * 8 + 2 * tq + (e & 1);
         const bool mk =
             full || ((e < 2) ? (ok0 && visible(a, key, qpos0)) : (ok1 && visible(a, key, qpos1)));
-        const float p = mk ? expf(s[n][e] * a.scale - (e < 2 ? lse0 : lse1)) : 0.f;
-        dp[n][e] = p * (dp[n][e] - (e < 2 ? dd0 : dd1));
+        float fac;
+        const float p =
+            mk ? expf(capped<CAP>(s[n][e] * a.scale, a.softcap, &fac) - (e < 2 ? lse0 : lse1))
+               : 0.f;
+        if constexpr (CAP) {
+          dp[n][e] = mk ? p * (dp[n][e] - (e < 2 ? dd0 : dd1)) * fac : 0.f;
+        } else {
+          dp[n][e] = p * (dp[n][e] - (e < 2 ? dd0 : dd1));
+        }
       }
     uint32_t df[2][NT / 2][4];
     split_frags<NT>(df, dp);
@@ -990,14 +1028,14 @@ __global__ void __launch_bounds__(32 * dq_warps<DP>()) bwd_dq_mma(const Args a) 
 
 // ------------------------------------------------------------ launch
 
-template <typename T, int DP>
+template <typename T, int DP, bool CAP>
 cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(bwd_dkdv<T, DP>,
+  cudaError_t err = cudaFuncSetAttribute(bwd_dkdv<T, DP, CAP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dq<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(bwd_dq<T, DP, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long n_rows = static_cast<long long>(a.b) * a.nq * a.h;
@@ -1008,39 +1046,39 @@ cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
   const long long nv = static_cast<long long>(a.h / a.kvh) * a.nq;
   const dim3 grid_kv(static_cast<unsigned>((a.nk + kBC - 1) / kBC),
                      static_cast<unsigned>(a.b * a.kvh));
-  bwd_dkdv<T, DP><<<grid_kv, kThreads, smem, stream>>>(a);
+  bwd_dkdv<T, DP, CAP><<<grid_kv, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_q(static_cast<unsigned>((nv + kBR - 1) / kBR), static_cast<unsigned>(a.b * a.kvh));
-  bwd_dq<T, DP><<<grid_q, kThreads, smem, stream>>>(a);
+  bwd_dq<T, DP, CAP><<<grid_q, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CAP>
 cudaError_t launch_simt_width(const Args& a, int width, const int tiles[3], cudaStream_t stream) {
   if (a.d > width || a.splits != 1 || tiles[0] != kBC || tiles[1] != kBR || tiles[2] != kBR)
     return cudaErrorInvalidValue;
   switch (width) {
-    case 32: return launch_simt<T, 32>(a, stream);
-    case 64: return launch_simt<T, 64>(a, stream);
-    case 128: return launch_simt<T, 128>(a, stream);
-    case 192: return launch_simt<T, 192>(a, stream);
-    case 256: return launch_simt<T, 256>(a, stream);
+    case 32: return launch_simt<T, 32, CAP>(a, stream);
+    case 64: return launch_simt<T, 64, CAP>(a, stream);
+    case 128: return launch_simt<T, 128, CAP>(a, stream);
+    case 192: return launch_simt<T, 192, CAP>(a, stream);
+    case 256: return launch_simt<T, 256, CAP>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int DP>
+template <int DP, bool CAP>
 cudaError_t launch_mma(const Args& a, const int tiles[3], cudaStream_t stream) {
   if (tiles[0] != kKvKeys || tiles[1] != 16 * dq_warps<DP>() || tiles[2] != kKvRows)
     return cudaErrorInvalidValue;
   constexpr size_t kv_smem = kv_smem_bytes<DP>();
   constexpr size_t dq_smem = dq_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(bwd_dkdv_mma<DP>,
+  cudaError_t err = cudaFuncSetAttribute(bwd_dkdv_mma<DP, CAP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kv_smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dq_mma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(bwd_dq_mma<DP, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(dq_smem));
   if (err != cudaSuccess) return err;
   const long long n_rows = static_cast<long long>(a.b) * a.nq * a.h;
@@ -1050,7 +1088,7 @@ cudaError_t launch_mma(const Args& a, const int tiles[3], cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const long long groups = static_cast<long long>(a.b) * a.kvh;
   const long long n_kv = (a.nk + kKvKeys - 1) / kKvKeys * a.splits * groups;
-  bwd_dkdv_mma<DP><<<static_cast<unsigned>(n_kv), 128 * kv_group_warps<DP>(), kv_smem,
+  bwd_dkdv_mma<DP, CAP><<<static_cast<unsigned>(n_kv), 128 * kv_group_warps<DP>(), kv_smem,
                      stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1063,11 +1101,12 @@ cudaError_t launch_mma(const Args& a, const int tiles[3], cudaStream_t stream) {
   }
   const long long nv = static_cast<long long>(a.h / a.kvh) * a.nq;
   constexpr int dq_rows = 16 * dq_warps<DP>();
-  bwd_dq_mma<DP><<<static_cast<unsigned>((nv + dq_rows - 1) / dq_rows * groups),
+  bwd_dq_mma<DP, CAP><<<static_cast<unsigned>((nv + dq_rows - 1) / dq_rows * groups),
                    32 * dq_warps<DP>(), dq_smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <bool CAP>
 cudaError_t launch_mma_width(const Args& a, int width, const int tiles[3], cudaStream_t stream) {
   const long long groups = static_cast<long long>(a.b) * a.kvh;
   const long long nv = static_cast<long long>(a.h / a.kvh) * a.nq;
@@ -1076,11 +1115,11 @@ cudaError_t launch_mma_width(const Args& a, int width, const int tiles[3], cudaS
       (nv + 63) / 64 * groups > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   switch (width) {
-    case 32: return launch_mma<32>(a, tiles, stream);
-    case 64: return launch_mma<64>(a, tiles, stream);
-    case 128: return launch_mma<128>(a, tiles, stream);
-    case 192: return launch_mma<192>(a, tiles, stream);
-    case 256: return launch_mma<256>(a, tiles, stream);
+    case 32: return launch_mma<32, CAP>(a, tiles, stream);
+    case 64: return launch_mma<64, CAP>(a, tiles, stream);
+    case 128: return launch_mma<128, CAP>(a, tiles, stream);
+    case 192: return launch_mma<192, CAP>(a, tiles, stream);
+    case 256: return launch_mma<256, CAP>(a, tiles, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1095,7 +1134,8 @@ cudaError_t launch_mma_width(const Args& a, int width, const int tiles[3], cudaS
 // dq (b, nq, h, d); k, v, dk, dv (b, nk, kvh, d); lse and dsum (scratch for
 // D) fp32 (b, h, nq); part, when splits > 1, fp32 (2, splits, b, nk, kvh, d).
 // width in {32, 64, 128, 192, 256} >= d; b, nq, nk, h, kvh, d >= 1, h a
-// multiple of kvh, b·kvh <= 65535, window >= 0 when used. key_tile, row_tile
+// multiple of kvh, b·kvh <= 65535, window >= 0 when used, softcap >= 0 (0: no
+// cap; the capped instances otherwise). key_tile, row_tile
 // and step_rows (the keys of a dk/dv block, the rows of a dq block, the rows of
 // a dk/dv step) must be what the route is built for at this width: the
 // caller's plan is refused otherwise, so a plan that is reported is the one
@@ -1106,19 +1146,24 @@ extern "C" int repro_flash_attn_bwd(const void* q, const void* k, const void* v,
                                     int nk, int h, int kvh, int d, int route, int width,
                                     int key_tile, int row_tile, int step_rows, int splits,
                                     int causal, int use_window, int window, float scale,
-                                    void* stream) {
+                                    float softcap, void* stream) {
   if (b < 1 || nq < 1 || nk < 1 || h < 1 || kvh < 1 || d < 1 || h % kvh != 0 ||
       static_cast<long long>(b) * kvh > 65535 ||
       static_cast<long long>(h / kvh) * nq > 0x7fffffffLL || (use_window && window < 0) ||
-      splits < 1)
+      splits < 1 || !(softcap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,  k,  v,  o,  dout, static_cast<const float*>(lse), static_cast<float*>(dsum),
          dq, dk, dv, static_cast<float*>(part), b, nq, nk, h, kvh, d, causal, use_window,
-         window, scale, splits};
+         window, scale, softcap, splits};
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   const int tiles[3] = {key_tile, row_tile, step_rows};
-  if (route == 0 && dtype == 1) err = launch_mma_width(a, width, tiles, st);
-  if (route == 1 && dtype == 0) err = launch_simt_width<float>(a, width, tiles, st);
+  const bool cap = softcap > 0.f;
+  if (route == 0 && dtype == 1)
+    err = cap ? launch_mma_width<true>(a, width, tiles, st)
+              : launch_mma_width<false>(a, width, tiles, st);
+  if (route == 1 && dtype == 0)
+    err = cap ? launch_simt_width<float, true>(a, width, tiles, st)
+              : launch_simt_width<float, false>(a, width, tiles, st);
   return static_cast<int>(err);
 }

@@ -5,8 +5,8 @@ package's ``Mesh`` + ``shard_map`` collectives (``all_gather``,
 The JAX package runs one program over a mesh (single-controller SPMD).
 The port keeps that shape with plain functions on tensors:
 
-* :class:`Mesh` — a 1-D or 2-D grid of ``torch.device``\\ s with axis
-  names. :func:`make_mesh` takes the present cards by default and raises
+* :class:`Mesh` — a grid of ``torch.device``\\ s with one to three named
+  axes (the LM's layouts name ``("pod", "data", "model")``). :func:`make_mesh` takes the present cards by default and raises
   when more shards are asked for than there are cards. Several shards
   on one device (on one card, or on the CPU in the tests) come only from
   an explicit list such as ``devices=["cuda:0"] * 4`` — the counterpart
@@ -45,9 +45,10 @@ class Mesh:
                  axis_names: Sequence[str]):
         shape = tuple(int(x) for x in shape)
         names = tuple(str(x) for x in axis_names)
-        if len(shape) != len(names) or not 1 <= len(shape) <= 2:
-            raise ValueError(f"a mesh has 1 or 2 named axes, got shape "
-                             f"{shape} and names {names}")
+        if len(shape) != len(names) or not 1 <= len(shape) <= 3 \
+                or len(set(names)) != len(names):
+            raise ValueError(f"a mesh has 1 to 3 distinct named axes, got "
+                             f"shape {shape} and names {names}")
         if any(x < 1 for x in shape):
             raise ValueError(f"mesh extents must be >= 1, got {shape}")
         devs = [resolve_device(d) for d in devices]
@@ -65,6 +66,13 @@ class Mesh:
     def flat(self, name: str = "shard") -> "Mesh":
         """The same devices as a 1-D mesh along ``name``."""
         return Mesh(self.devices, (self.size,), (name,))
+
+    def coords(self, j: int) -> dict:
+        """Shard ``j``'s index along each axis (row-major devices)."""
+        out = {}
+        for name in reversed(self.axis_names):
+            j, out[name] = divmod(j, self.shape[name])
+        return {name: out[name] for name in self.axis_names}
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, devices="
@@ -149,6 +157,14 @@ class LocalComm:
     def pmax(self, xs):
         return self._reduce(xs, "max")
 
+    def psum_scatter(self, xs) -> List[torch.Tensor]:
+        """``xs[i][j]`` is shard i's part for shard j (n parts of one
+        shape each); shard j gets the sum over i of ``xs[i][j]``, folded
+        in shard order."""
+        self._check(xs)
+        return [_fold([x[j].to(d, non_blocking=True) for x in xs], torch.add)
+                for j, d in enumerate(self.devices)]
+
 
 class GroupComm:
     """The same collectives over a ``torch.distributed`` process group:
@@ -198,6 +214,16 @@ class GroupComm:
     def _reduce(self, xs, op):
         # gather and fold in rank order: the same bits as LocalComm
         return [_fold(list(self.all_gather(xs)[0].unbind(0)), _OPS[op])]
+
+    def psum_scatter(self, xs):
+        """``xs[0][j]`` is this rank's part for rank j; this rank gets the
+        sum over ranks of their parts for it, folded in rank order (the
+        same bits as LocalComm)."""
+        if len(xs) != 1:
+            raise ValueError(f"a process holds one shard, got {len(xs)}")
+        parts = xs[0]
+        return [_fold(list(self.all_to_all([torch.stack(
+            [t.contiguous() for t in parts])])[0].unbind(0)), torch.add)]
 
     def psum(self, xs):
         return self._reduce(xs, "sum")

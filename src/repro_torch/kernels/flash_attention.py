@@ -15,6 +15,16 @@ tile rescaled by ``exp(m − m')``), p forced to 0 where masked, p·v in
 float32, and ``acc / max(l, 1e−30)`` cast to q's dtype — a row that
 sees no key comes out 0, not NaN. ``scale`` defaults to ``d ** −0.5``.
 
+Two extensions of the TPU kernel's function, both from the JAX package's
+jnp attention (``models/layers.py``): ``softcap`` > 0 caps each scaled
+logit to ``tanh(s / cap) · cap`` before the mask (Gemma 2's logit
+softcap; ``_sdpa``, the ring and the read-only decode), and ``k_new``,
+``v_new`` (``(b, t_new, kvh, d)``) are keys appended after k and v's
+``nk`` (the read-only serving cache's decode: the cache's live keys and
+the step's fresh ones, one softmax over both). The kernel reads the
+second source in place beside the first (no concatenation); a call
+with it always takes the CUDA-core form.
+
 The kernel takes any d. :func:`plan_attention` chooses, from the shapes
 alone, which of its forms runs and how its grid is cut: bf16 with more
 than 16 rows per kv head (prefill) on the tensor cores up to d = 256,
@@ -89,11 +99,12 @@ class AttentionPlan(NamedTuple):
 
 
 def plan_attention(bf16: bool, b: int, nq: int, nk: int, h: int, kvh: int,
-                   d: int) -> AttentionPlan:
+                   d: int, *, appended: bool = False) -> AttentionPlan:
     """K-F's plan from the shapes alone (no tensor is read); split-KV aims
-    at ``BLOCKS_PER_SM`` blocks per SM."""
+    at ``BLOCKS_PER_SM`` blocks per SM. ``nk`` counts every key; with
+    ``appended`` (a second key source) the CUDA-core form runs."""
     nv = (h // kvh) * nq            # rows per kv head
-    if bf16 and d <= _MMA_WIDTHS[-1] and nv > 16:
+    if bf16 and d <= _MMA_WIDTHS[-1] and nv > 16 and not appended:
         dk = next(w for w in _MMA_WIDTHS if w >= d)
         dv = min(dk, 128)
         return AttentionPlan("mma", dk, 64, -(-d // dv), 1, max(nk, 1))
@@ -127,20 +138,25 @@ def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None,
     scale: Optional[float] = None, bq: int = 128, bk: int = 128,
-    return_lse: bool = False,
+    return_lse: bool = False, softcap: float = 0.0,
+    k_new: Optional[torch.Tensor] = None,
+    v_new: Optional[torch.Tensor] = None,
 ):
     """The kernel's function in float32, walking the TPU kernel's (bq,
     bk) tiles with its online softmax; a tile no row of the q tile can
     see is skipped, as there (for each row such a tile's update is a
     no-op). With ``return_lse`` also each row's log-sum-exp ``m + log l``
-    of the scaled logits, float32 ``(b, h, nq)``, −inf for a row that
-    sees no key."""
+    of the (capped) scaled logits, float32 ``(b, h, nq)``, −inf for a row
+    that sees no key. ``k_new`` / ``v_new`` are appended to k / v."""
+    if k_new is not None:
+        k, v = torch.cat([k, k_new], 1), torch.cat([v, v_new], 1)
     b, nq, h, d = q.shape
     nk, kvh = k.shape[1], k.shape[2]
     if h % kvh:
         raise ValueError(f"q heads {h} are not a multiple of kv heads {kvh}")
     rep = h // kvh
     scale32 = torch.tensor(_scale(d, scale), dtype=torch.float32)
+    cap32 = torch.tensor(softcap, dtype=torch.float32)
     dev = q.device
     qf = q.to(torch.float32).permute(0, 2, 1, 3)               # (b, h, nq, d)
     kf = k.to(torch.float32).permute(0, 2, 1, 3).repeat_interleave(rep, 1)
@@ -162,8 +178,10 @@ def flash_attention_plain(
             mask = _tile_mask(nq, nk, i0, i1, j0, j1, causal=causal,
                               window=window, dev=dev)
             s = torch.matmul(qf[:, :, i0:i1],
-                             kf[:, :, j0:j1].transpose(-1, -2))
-            s = torch.where(mask, s * scale32, NEG_INF)
+                             kf[:, :, j0:j1].transpose(-1, -2)) * scale32
+            if softcap > 0:
+                s = torch.tanh(s / cap32) * cap32
+            s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
             alpha = torch.exp(m - m_new)
@@ -181,12 +199,14 @@ def flash_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: torch.Tensor, *, causal: bool = True,
     window: Optional[int] = None, scale: Optional[float] = None,
-    bq: int = 128, bk: int = 128,
+    bq: int = 128, bk: int = 128, softcap: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K-B's function in float32 (FlashAttention-2's backward): ``D_i =
     Σ dO_i·o_i``; over the forward's (bq, bk) tiles (a tile no row of
     the q tile can see is skipped) ``p = exp(s − lse)`` with masked p
-    forced to 0, ``dP = dO·vᵀ``, ``dS = p ∘ (dP − D)``; ``dv = Σ pᵀ dO``,
+    forced to 0 (s capped to ``tanh(s / cap) · cap`` when ``softcap`` >
+    0), ``dP = dO·vᵀ``, ``dS = p ∘ (dP − D)`` (times ``1 − tanh²(s /
+    cap)`` under the cap); ``dv = Σ pᵀ dO``,
     ``dk = Σ dSᵀ q · scale``, ``dq = Σ dS k · scale``, the GQA group's
     heads summed into their kv head. Returns ``(dq, dk, dv)`` in the
     inputs' dtype. A row that sees no key (lse −inf) gets 0."""
@@ -194,6 +214,7 @@ def flash_attention_bwd_plain(
     nk, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
     sc = _scale(d, scale)
+    cap32 = torch.tensor(softcap, dtype=torch.float32)
     dev = q.device
     f32 = torch.float32
     qf = q.to(f32).permute(0, 2, 1, 3)                   # (b, h, nq, d)
@@ -218,11 +239,16 @@ def flash_attention_bwd_plain(
                               window=window, dev=dev)
             s = torch.matmul(qf[:, :, i0:i1],
                              kf[:, :, j0:j1].transpose(-1, -2)) * sc
+            if softcap > 0:
+                t = torch.tanh(s / cap32)
+                s = t * cap32
             p = torch.where(mask, torch.exp(s - lse[:, :, i0:i1, None]),
                             0.0)
             dp = torch.matmul(dof[:, :, i0:i1],
                               vf[:, :, j0:j1].transpose(-1, -2))
             ds = p * (dp - dsum[:, :, i0:i1, None])
+            if softcap > 0:
+                ds = ds * (1 - t * t)
             dq[:, :, i0:i1] += torch.matmul(ds, kf[:, :, j0:j1])
             dk[:, :, j0:j1] += torch.matmul(ds.transpose(-1, -2),
                                             qf[:, :, i0:i1])
@@ -239,30 +265,33 @@ def flash_attention_bwd_plain(
 def _entry():
     """The kernel's C entry, loaded and typed once per process."""
     fn = build.library("flash_attn").repro_flash_attn
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _vec_ok(d: int, *ts: torch.Tensor) -> bool:
+def _vec_ok(d: int, *ts: Optional[torch.Tensor]) -> bool:
     """16-byte loads: aligned bases, strides and d in whole 16 bytes."""
     per = 16 // ts[0].element_size()
     return d % per == 0 and all(
         t.data_ptr() % 16 == 0 and all(st % per == 0 for st in t.stride()[:3])
-        for t in ts)
+        for t in ts if t is not None)
 
 
 def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None,
     scale: Optional[float] = None, return_lse: bool = False,
+    softcap: float = 0.0, k_new: Optional[torch.Tensor] = None,
+    v_new: Optional[torch.Tensor] = None,
 ):
     """Launch K-F on the current stream of ``q``'s device, cut as
-    :func:`plan_attention` says. k and v are read in place through their
-    strides (a live slice of a decode cache needs no copy); the output is
+    :func:`plan_attention` says. k and v (and ``k_new``, ``v_new``, read
+    after them) are read in place through their strides (a live slice of
+    a decode cache needs no copy); the output is
     a new contiguous ``(b, nq, h, d)`` tensor of q's dtype, and with
     ``return_lse`` also each row's log-sum-exp (float32 ``(b, h, nq)``,
     −inf for a row that sees no key; every bit of the output is the same
@@ -279,7 +308,13 @@ def flash_attention_cuda(
             "flash attention kernel: an input requires grad, and the "
             "kernel's output carries none; call kernels.ops."
             "flash_attention (FlashAttentionFn, whose backward is K-B)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    if (k_new is None) != (v_new is None):
+        raise ValueError("flash attention kernel: k_new and v_new come "
+                         "together")
+    for name, t in (("q", q), ("k", k), ("v", v), ("k_new", k_new),
+                    ("v_new", v_new)):
+        if t is None:
+            continue
         if t.device != q.device or t.dtype != q.dtype or t.dim() != 4 \
                 or t.stride(-1) != 1:
             raise ValueError(
@@ -288,24 +323,32 @@ def flash_attention_cuda(
                 f"axis, got {t.dtype} {tuple(t.shape)} strides {t.stride()} "
                 f"on {t.device}")
     b, nq, h, d = q.shape
-    nk, kvh = k.shape[1], k.shape[2]
+    nk1, kvh = k.shape[1], k.shape[2]
+    nk = nk1 + (0 if k_new is None else k_new.shape[1])
     if (q.dtype not in _DTYPES or d < 1
-            or tuple(k.shape) != (b, nk, kvh, d) or v.shape != k.shape
+            or tuple(k.shape) != (b, nk1, kvh, d) or v.shape != k.shape
+            or (k_new is not None and (
+                (k_new.shape[0], *k_new.shape[2:]) != (b, kvh, d)
+                or v_new.shape != k_new.shape))
             or kvh < 1 or h % kvh or b * kvh > 65535
             or (h // kvh) * nq >= 2 ** 31 or nk >= 2 ** 31 - _SIMT_BK
-            or (window is not None and window < 0)):
+            or (window is not None and window < 0) or not softcap >= 0):
         raise ValueError(
             f"flash attention kernel takes float32 or bfloat16, k and v of "
-            f"one shape (b, nk, kvh, d), h a multiple of kvh, b·kvh <= "
-            f"65535, fewer than 2^31 rows per kv head and keys, and a "
-            f"window >= 0; got {q.dtype}, q {tuple(q.shape)}, k "
-            f"{tuple(k.shape)}, v {tuple(v.shape)}, window={window}")
+            f"one shape (b, nk, kvh, d) (k_new and v_new of one shape (b, "
+            f"t, kvh, d)), h a multiple of kvh, b·kvh <= 65535, fewer than "
+            f"2^31 rows per kv head and keys, a window >= 0 and a softcap "
+            f">= 0; got {q.dtype}, q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}, k_new "
+            f"{None if k_new is None else tuple(k_new.shape)}, "
+            f"window={window}, softcap={softcap}")
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if b == 0 or nq == 0:
         return (out, lse) if return_lse else out
-    plan = plan_attention(q.dtype == torch.bfloat16, b, nq, nk, h, kvh, d)
+    plan = plan_attention(q.dtype == torch.bfloat16, b, nq, nk, h, kvh, d,
+                          appended=k_new is not None)
     part_m = part_l = part_acc = None
     if plan.splits > 1:
         part_m = torch.empty((plan.splits, b, nq, h), dtype=torch.float32,
@@ -315,15 +358,20 @@ def flash_attention_cuda(
                                dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _entry()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(None if t is None else t.data_ptr()
+              for t in (k_new, v_new)), out.data_ptr(),
             *(None if t is None else t.data_ptr()
               for t in (part_m, part_l, part_acc, lse)),
-            _DTYPES[q.dtype], b, nq, nk, h, kvh, d,
+            _DTYPES[q.dtype], b, nq, nk, nk1, h, kvh, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *(k_new.stride()[:3] if k_new is not None else (0, 0, 0)),
+            *(v_new.stride()[:3] if v_new is not None else (0, 0, 0)),
             int(causal), int(window is not None),
             0 if window is None else int(window), _scale(d, scale),
-            0 if plan.route == "mma" else 1, plan.width, plan.bq, plan.zc,
-            plan.splits, plan.split_keys, int(_vec_ok(d, q, k, v)),
+            float(softcap), 0 if plan.route == "mma" else 1, plan.width,
+            plan.bq, plan.zc, plan.splits, plan.split_keys,
+            int(_vec_ok(d, q, k, v, k_new, v_new)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
@@ -415,7 +463,7 @@ def _bwd_entry():
     """K-B's C entry, loaded and typed once per process."""
     fn = build.library("flash_attn_bwd").repro_flash_attn_bwd
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 16
-                   + [ctypes.c_float] + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -424,6 +472,7 @@ def flash_attention_bwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: torch.Tensor, *, causal: bool = True,
     window: Optional[int] = None, scale: Optional[float] = None,
+    softcap: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K-B (``csrc/flash_attn_bwd.cu``) on the current stream of
     ``q``'s device, cut as :func:`plan_attention_bwd` says: ``(dq, dk,
@@ -452,14 +501,15 @@ def flash_attention_bwd_cuda(
     if (q.dtype not in _DTYPES or not 1 <= d <= BWD_MAX_D or kvh < 1
             or h % kvh or lse.dtype != torch.float32
             or tuple(lse.shape) != (b, h, nq) or lse.device != q.device
-            or b * kvh > 65535
+            or b * kvh > 65535 or not softcap >= 0
             or (window is not None and window < 0)):
         raise ValueError(
             f"flash attention backward kernel takes float32 or bfloat16, d "
             f"<= {BWD_MAX_D}, h a multiple of kvh, b·kvh <= 65535, a float32 "
-            f"lse (b, h, nq) and a window >= 0; got {q.dtype}, q "
-            f"{tuple(q.shape)}, k {tuple(k.shape)}, lse {lse.dtype} "
-            f"{tuple(lse.shape)}, window={window}")
+            f"lse (b, h, nq), a window >= 0 and a softcap >= 0; got "
+            f"{q.dtype}, q {tuple(q.shape)}, k {tuple(k.shape)}, lse "
+            f"{lse.dtype} {tuple(lse.shape)}, window={window}, "
+            f"softcap={softcap}")
     plan = plan_attention_bwd(q.dtype == torch.bfloat16, b, nq, nk, h, kvh,
                               d)
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
@@ -484,7 +534,7 @@ def flash_attention_bwd_cuda(
             plan.key_tile, plan.row_tile, plan.step_rows, plan.splits,
             int(causal), int(window is not None),
             0 if window is None else int(window), _scale(d, scale),
-            torch.cuda.current_stream().cuda_stream)
+            float(softcap), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: "
                            f"CUDA error {err} (plan {plan})")
@@ -498,15 +548,16 @@ def flash_attention_bwd_cuda(
 class FlashAttentionFn(torch.autograd.Function):
     """K-F's function with a gradient: forward K-F with lse, backward K-B
     (CUDA tensors); the two plain versions on CPU tensors.
-    ``FlashAttentionFn.apply(q, k, v, causal, window, scale)``."""
+    ``FlashAttentionFn.apply(q, k, v, causal, window, scale, softcap)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
+    def forward(ctx, q, k, v, causal, window, scale, softcap=0.0):
         fn = flash_attention_cuda if q.is_cuda else flash_attention_plain
         out, lse = fn(q, k, v, causal=causal, window=window, scale=scale,
-                      return_lse=True)
+                      return_lse=True, softcap=softcap)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.attn = dict(causal=causal, window=window, scale=scale)
+        ctx.attn = dict(causal=causal, window=window, scale=scale,
+                        softcap=softcap)
         return out
 
     @staticmethod
@@ -516,4 +567,4 @@ class FlashAttentionFn(torch.autograd.Function):
         fn = (flash_attention_bwd_cuda if q.is_cuda
               else flash_attention_bwd_plain)
         dq, dk, dv = fn(q, k, v, out, dout, lse, **ctx.attn)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None

@@ -75,22 +75,30 @@ def quant_coarse_topk(
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, softcap: float = 0.0,
+    k_new: Optional[torch.Tensor] = None,
+    v_new: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention over q ``(b, nq, h, d)`` and k, v ``(b, nk, kvh, d)``
-    (GQA), queries right-aligned to the keys, causal and/or windowed;
-    output ``(b, nq, h, d)`` in q's dtype, float32 math inside. The LM's
-    every attention layer, prefill, decode and training: where grad is
-    enabled and q, k or v requires it, through ``FlashAttentionFn`` (K-F
-    with lse forward, K-B backward; their plain versions on the CPU)."""
+    (GQA), queries right-aligned to the keys, causal and/or windowed,
+    each scaled logit capped to ``tanh(s / cap) · cap`` when ``softcap``
+    > 0; ``k_new``, ``v_new`` (``(b, t, kvh, d)``) are keys read after
+    k and v's (the read-only cache's decode). Output ``(b, nq, h, d)`` in
+    q's dtype, float32 math inside. The LM's every attention layer,
+    prefill, decode and training: where grad is enabled and q, k or v
+    requires it, through ``FlashAttentionFn`` (K-F with lse forward, K-B
+    backward; their plain versions on the CPU)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _flash.FlashAttentionFn.apply(q, k, v, causal, window, scale)
-    if q.is_cuda:
-        return _flash.flash_attention_cuda(q, k, v, causal=causal,
-                                           window=window, scale=scale)
-    return _flash.flash_attention_plain(q, k, v, causal=causal,
-                                        window=window, scale=scale)
+        if k_new is not None:
+            raise ValueError("flash_attention: appended keys are a "
+                             "decode-only input (no gradient)")
+        return _flash.FlashAttentionFn.apply(q, k, v, causal, window, scale,
+                                             softcap)
+    fn = (_flash.flash_attention_cuda if q.is_cuda
+          else _flash.flash_attention_plain)
+    return fn(q, k, v, causal=causal, window=window, scale=scale,
+              softcap=softcap, k_new=k_new, v_new=v_new)
 
 
 def launch_counts() -> Dict[str, int]:

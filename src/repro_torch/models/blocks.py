@@ -12,7 +12,10 @@ attention's place; ``MLSTM`` and ``SLSTM`` are one residual cell each
 (``models.recurrent``).
 
 ``block_apply`` returns ``(x, cache)``: an attention cache is written in
-place and returned, a recurrent state is a new dict.
+place and returned, a recurrent state is a new dict. With ``readonly``
+(the read-only serving cache's decode) an attention cache is not written
+and the attention's fresh pieces come back in its place
+(``layers.attn_apply``).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from ..configs.base import (ATTN, ATTN_BIDIR, LOCAL, MLSTM, RGLRU, SLSTM,
                             XATTN, ArchConfig)
 from . import recurrent as R
 from .layers import (attn_apply, attn_init, apply_norm, dense, mla_apply,
-                     mla_init, mlp_apply, mlp_init, norm_init)
+                     mla_cache, mla_init, mlp_apply, mlp_init, norm_init)
 from .moe import moe_apply, moe_init
 
 __all__ = ["block_init", "block_apply", "init_block_cache"]
@@ -82,7 +85,8 @@ def block_init(kind: str, gen: torch.Generator, cfg: ArchConfig, dtype,
 
 def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                 positions: torch.Tensor, cache: Optional[Params] = None,
-                pos: int = 0, enc_out: Optional[torch.Tensor] = None
+                pos: int = 0, enc_out: Optional[torch.Tensor] = None,
+                readonly: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     base = _base(kind)
     h = apply_norm(p["norm1"], x, cfg.norm)
@@ -97,7 +101,8 @@ def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     elif base == XATTN:
         a, self_cache = attn_apply(
             p["attn"], h, cfg, positions=positions, causal=True,
-            cache=None if cache is None else cache["self"], pos=pos)
+            cache=None if cache is None else cache["self"], pos=pos,
+            readonly=readonly)
         x = x + a
         hx = apply_norm(p["normx"], x, cfg.norm)
         if enc_out is None and cache is not None:
@@ -113,13 +118,13 @@ def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
             cache = {"self": self_cache, "xk": xk, "xv": xv}
     elif cfg.mla is not None:
         a, cache = mla_apply(p["attn"], h, cfg, positions=positions,
-                             cache=cache, pos=pos)
+                             cache=cache, pos=pos, readonly=readonly)
     else:
         a, cache = attn_apply(
             p["attn"], h, cfg, positions=positions,
             causal=base != ATTN_BIDIR,
             window=cfg.local_window if base == LOCAL else None, cache=cache,
-            pos=pos)
+            pos=pos, readonly=readonly)
     x = x + a
     x = x + _ffn_apply(p, apply_norm(p["norm2"], x, cfg.norm), cfg)
     return x, cache
@@ -133,7 +138,8 @@ def init_block_cache(kind: str, cfg: ArchConfig, batch: int, cache_len: int,
     cache_len, kv_lora_rank), "k_rope": (batch, cache_len, rope)}``;
     XATTN's ``{"self": {"k", "v"}, "xk", "xv"}`` (the projected encoder
     kv, ``(batch, enc_len, kv heads, dh)``); a recurrent kind's initial
-    state."""
+    state. MLA's two tensors are views of one buffer
+    (``layers.mla_cache``)."""
     base = _base(kind)
     if base == RGLRU:
         return R.rglru_init_state(cfg, batch, dtype, device)
@@ -142,11 +148,8 @@ def init_block_cache(kind: str, cfg: ArchConfig, batch: int, cache_len: int,
     if base == SLSTM:
         return R.slstm_init_state(cfg, batch, dtype, device)
     if cfg.mla is not None:
-        c = cfg.mla
-        return {"ckv": torch.zeros((batch, cache_len, c.kv_lora_rank),
-                                   dtype=dtype, device=device),
-                "k_rope": torch.zeros((batch, cache_len, c.rope_head_dim),
-                                      dtype=dtype, device=device)}
+        return mla_cache(batch, cache_len, cfg.mla.kv_lora_rank,
+                         cfg.mla.rope_head_dim, dtype, device)
 
     def kv(n: int) -> Params:
         shape = (batch, n, cfg.n_kv_heads, cfg.dh)

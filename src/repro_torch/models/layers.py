@@ -29,8 +29,22 @@ rope)^−0.5.
 Local attention decodes over a ring-buffer cache (:func:`attn_apply`),
 cross-attention (whisper's decoder) runs K-F non-causal over the
 projected encoder output, and M-RoPE (qwen2-vl) rotates sections of the
-head by three position axes. The read-only serving cache and a logit
-softcap are not ported (``not_ported``, Queue A6e).
+head by three position axes. ``cfg.attn_logit_softcap`` > 0 caps every
+standard attention's logits inside K-F (and K-B), as the JAX ``_sdpa``,
+ring and read-only decode do; MLA never takes the cap (the JAX package
+passes ``softcap=0.0`` there).
+
+The read-only serving cache (``readonly=True``, decode only): the
+layer's cache is an input that is never written; its keys before
+``pos`` and the step's fresh key are one softmax, K-F reading the cache
+in place and the fresh k / v as a second key source. The layer returns
+the fresh pieces for an out-of-band append (``{"k_new", "v_new",
+"pos"}``; MLA ``{"ckv_new", "k_rope_new", "pos"}``), keyed as in the JAX
+package. A local layer's ring cache ignores it, as there (its ring is
+copied before the step's write, so the input stays untouched). MLA's
+cache (:func:`mla_cache`) keeps ``ckv`` and ``k_rope`` as two views of
+one ``(b, n, kv_lora + rope)`` buffer, so the absorbed form's keys
+``[ckv, k_rope]`` are that buffer, read in place.
 """
 from __future__ import annotations
 
@@ -40,13 +54,12 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..core.index import not_ported
 from ..kernels import ops
 
 __all__ = ["dense_init", "dense", "normal_init", "norm_init", "apply_norm",
            "rope_freqs", "rope_tables", "apply_rope", "apply_mrope",
            "mlp_init", "mlp_apply", "repeat_kv", "attn_init", "attn_apply",
-           "mla_init", "mla_apply"]
+           "mla_init", "mla_apply", "mla_cache", "latent_keys"]
 
 Params = Dict[str, Any]
 
@@ -234,6 +247,7 @@ def attn_apply(
     cache: Optional[Params] = None,    # {"k", "v"} decode cache of this layer
     pos: int = 0,                      # the cache's position (host int)
     xattn_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    readonly: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Self-attention, writing this step's k and v into ``cache`` in
     place (the JAX package returns an updated copy), or cross-attention
@@ -246,17 +260,17 @@ def attn_apply(
     — every one visible to the query, so their order does not matter; a
     prefill from position 0 attends over the prompt with window W, as a
     token-by-token fill of the ring would, and leaves its last W keys in
-    their slots."""
-    if cfg.attn_logit_softcap > 0:
-        raise not_ported("attention with a logit softcap (K-F has none, as "
-                         "the TPU kernel)", "A6")
+    their slots.
+
+    With ``readonly`` (decode, t = 1; module docstring) ``cache`` is not
+    written and the return is ``(out, {"k_new", "v_new", "pos"})``."""
     b, t, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    scale = dh ** -0.5
+    attn = dict(scale=dh ** -0.5, softcap=cfg.attn_logit_softcap)
     q = dense(p["q"], x).reshape(b, t, h, dh)
     if xattn_kv is not None:
         k, v = xattn_kv
-        out = ops.flash_attention(q, k, v, causal=False, scale=scale)
+        out = ops.flash_attention(q, k, v, causal=False, **attn)
         return dense(p["o"], out.reshape(b, t, h * dh)), None
     k = dense(p["k"], x).reshape(b, t, kvh, dh)
     v = dense(p["v"], x).reshape(b, t, kvh, dh)
@@ -275,6 +289,8 @@ def attn_apply(
     if cache is not None and window is not None \
             and cache["k"].shape[1] <= window:
         w_sz = cache["k"].shape[1]
+        if readonly:
+            cache = {"k": cache["k"].clone(), "v": cache["v"].clone()}
         if t == 1:
             slot = pos % w_sz
             cache["k"][:, slot:slot + 1] = k
@@ -282,10 +298,10 @@ def attn_apply(
             live = min(pos + 1, w_sz)
             out = ops.flash_attention(q, cache["k"][:, :live],
                                       cache["v"][:, :live], causal=False,
-                                      scale=scale)
+                                      **attn)
         elif pos == 0:
             out = ops.flash_attention(q, k, v, causal=True, window=w_sz,
-                                      scale=scale)
+                                      **attn)
             first = max(0, t - w_sz)
             slots = torch.arange(first, t, device=k.device) % w_sz
             cache["k"][:, slots] = k[:, first:]
@@ -296,6 +312,14 @@ def attn_apply(
                 f"position {pos} (only a prefill from position 0 or "
                 f"one-token decode steps)")
         return dense(p["o"], out.reshape(b, t, h * dh)), cache
+    if cache is not None and readonly:
+        if t != 1:
+            raise ValueError(f"the read-only cache is a decode-only path "
+                             f"(one token a step), got {t} tokens")
+        out = ops.flash_attention(q, cache["k"][:, :pos], cache["v"][:, :pos],
+                                  causal=False, k_new=k, v_new=v, **attn)
+        return (dense(p["o"], out.reshape(b, t, h * dh)),
+                {"k_new": k, "v_new": v, "pos": pos + t})
     if cache is not None:
         cache["k"][:, pos:pos + t] = k
         cache["v"][:, pos:pos + t] = v
@@ -305,8 +329,7 @@ def attn_apply(
             # the JAX package's bidirectional attention over a cache sees
             # every slot of it, the unwritten ones included
             k, v = cache["k"], cache["v"]
-    out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              scale=scale)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, **attn)
     return dense(p["o"], out.reshape(b, t, h * dh)), cache
 
 
@@ -331,14 +354,43 @@ def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
     }
 
 
+def mla_cache(batch: int, cache_len: int, lat: int, rope: int, dtype,
+              device) -> Params:
+    """MLA's decode cache ``{"ckv": (batch, cache_len, lat), "k_rope":
+    (batch, cache_len, rope)}`` of zeros: two views of one ``(batch,
+    cache_len, lat + rope)`` buffer (:func:`latent_keys`)."""
+    buf = torch.zeros((batch, cache_len, lat + rope), dtype=dtype,
+                      device=device)
+    return {"ckv": buf[..., :lat], "k_rope": buf[..., lat:]}
+
+
+def latent_keys(ckv: torch.Tensor, k_rope: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """The absorbed form's keys ``[ckv, k_rope]`` of the first ``n``
+    positions as a ``(b, n, 1, lat + rope)`` view of :func:`mla_cache`'s
+    buffer, read in place; raises on any other layout."""
+    lat = ckv.shape[-1]
+    if (ckv.stride() != k_rope.stride() or ckv.stride(-1) != 1
+            or ckv.stride(1) != lat + k_rope.shape[-1]
+            or k_rope.data_ptr() != ckv.data_ptr() + lat * ckv.element_size()):
+        raise ValueError("an MLA cache must be mla_cache's layout (ckv and "
+                         "k_rope views of one buffer), read in place")
+    b, width = ckv.shape[0], lat + k_rope.shape[-1]
+    return ckv.as_strided((b, n, 1, width),
+                          (ckv.stride(0), ckv.stride(1), width, 1))
+
+
 def mla_apply(
     p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     positions: torch.Tensor, cache: Optional[Params] = None, pos: int = 0,
+    readonly: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Multi-head latent attention, writing this step's latent and rope
     key into ``cache`` (``{"ckv", "k_rope"}``) at ``pos`` in place;
     returns ``(out, cache)``. Expanded form without a cache, absorbed
-    with one (module docstring)."""
+    with one (module docstring). With ``readonly`` (decode, t = 1) the
+    cache, :func:`mla_cache`'s layout, is not written and the return is
+    ``(out, {"ckv_new", "k_rope_new", "pos"})``."""
     c = cfg.mla
     b, t, _ = x.shape
     h, nope, rope, lat = (cfg.n_heads, c.qk_nope_head_dim, c.rope_head_dim,
@@ -353,29 +405,39 @@ def mla_apply(
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0]
 
     if cache is not None:
-        cache["ckv"][:, pos:pos + t] = ckv
-        cache["k_rope"][:, pos:pos + t] = k_rope
-        ckv_all = cache["ckv"][:, :pos + t]
-        kr_all = cache["k_rope"][:, :pos + t]
-        # absorbed: MQA over the latent, d = kv_lora + rope
+        # absorbed: MQA over the latent, d = kv_lora + rope, v = k
         wuk = p["uk"]["w"].reshape(lat, h, nope)
         q_abs = torch.einsum("bthd,lhd->bthl", q_nope, wuk)
         qq = torch.cat([q_abs, q_rope], dim=-1)
-        kk = torch.cat([ckv_all, kr_all], dim=-1)[:, :, None, :]
-        o_lat = ops.flash_attention(qq, kk, kk, causal=True,
-                                    scale=scale)[..., :lat]
+        if readonly:
+            if t != 1:
+                raise ValueError(f"the read-only cache is a decode-only "
+                                 f"path (one token a step), got {t} tokens")
+            kk = latent_keys(cache["ckv"], cache["k_rope"], pos)
+            kn = torch.cat([ckv, k_rope], dim=-1)[:, :, None, :]
+            o_lat = ops.flash_attention(qq, kk, kk, causal=False,
+                                        scale=scale, k_new=kn,
+                                        v_new=kn)[..., :lat]
+            new = {"ckv_new": ckv, "k_rope_new": k_rope, "pos": pos + t}
+        else:
+            cache["ckv"][:, pos:pos + t] = ckv
+            cache["k_rope"][:, pos:pos + t] = k_rope
+            kk = latent_keys(cache["ckv"], cache["k_rope"], pos + t)
+            o_lat = ops.flash_attention(qq, kk, kk, causal=True,
+                                        scale=scale)[..., :lat]
+            new = cache
         wuv = p["uv"]["w"].reshape(lat, h, c.v_head_dim)
         out = torch.einsum("bthl,lhv->bthv", o_lat, wuv)
-    else:
-        # expanded: per-head keys and values out of the latent
-        k_nope = dense(p["uk"], ckv).reshape(b, t, h, nope)
-        v = dense(p["uv"], ckv).reshape(b, t, h, c.v_head_dim)
-        k_full = torch.cat([k_nope, k_rope[:, :, None].expand(b, t, h, rope)],
-                           dim=-1)
-        q_full = torch.cat([q_nope, q_rope], dim=-1)
-        width = max(dq, c.v_head_dim)
-        out = ops.flash_attention(
-            F.pad(q_full, (0, width - dq)), F.pad(k_full, (0, width - dq)),
-            F.pad(v, (0, width - c.v_head_dim)), causal=True,
-            scale=scale)[..., :c.v_head_dim]
+        return dense(p["o"], out.reshape(b, t, h * c.v_head_dim)), new
+    # expanded: per-head keys and values out of the latent
+    k_nope = dense(p["uk"], ckv).reshape(b, t, h, nope)
+    v = dense(p["uv"], ckv).reshape(b, t, h, c.v_head_dim)
+    k_full = torch.cat([k_nope, k_rope[:, :, None].expand(b, t, h, rope)],
+                       dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    width = max(dq, c.v_head_dim)
+    out = ops.flash_attention(
+        F.pad(q_full, (0, width - dq)), F.pad(k_full, (0, width - dq)),
+        F.pad(v, (0, width - c.v_head_dim)), causal=True,
+        scale=scale)[..., :c.v_head_dim]
     return dense(p["o"], out.reshape(b, t, h * c.v_head_dim)), cache

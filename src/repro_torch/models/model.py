@@ -11,12 +11,19 @@ attention over a ring cache), ``ssm`` (xLSTM), ``audio`` (whisper: a
 bidirectional encoder over stub frame embeddings, a decoder with
 cross-attention and learned positions) and ``vlm`` (qwen2-vl: M-RoPE
 over (3, B, T) positions, stub vision embeddings over the first
-positions). A logit softcap and the read-only serving cache raise
-``not_ported``.
+positions). A config's ``attn_logit_softcap`` caps the attention logits
+inside K-F and K-B (``layers``).
 
 A decode cache is ``{"pos": int, "layers": [one per layer]}``: the
 position is a host int, not a device scalar; an attention layer's
 tensors are written in place, a recurrent layer's state is replaced.
+With ``ModelOptions.readonly_cache`` (the JAX package's serving layout)
+a decode step writes nothing into the cache it is given: it returns a
+new ``{"pos": pos + 1, "layers": [...]}`` whose attention layers hold
+the step's fresh pieces (``{"k_new", "v_new", "pos"}``; MLA
+``{"ckv_new", "k_rope_new", "pos"}``; whisper's ``{"self": ..., "xk",
+"xv"}``) and whose ring and recurrent layers hold their new state, and
+:func:`append_readonly` writes those pieces into the cache out of band.
 
 Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
 fills the cache from position 0 on), ``decode`` (positions continue from
@@ -35,13 +42,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ATTN_BIDIR, ArchConfig
-from ..core.index import not_ported
 from ..device import resolve_device
 from .blocks import block_apply, block_init, init_block_cache
 from .layers import apply_norm, norm_init, normal_init
 
 __all__ = ["ModelOptions", "init_params", "init_cache", "encode", "forward",
-           "count_params", "layer_kinds"]
+           "append_readonly", "count_params", "layer_kinds"]
 
 Params = Dict[str, Any]
 
@@ -55,17 +61,9 @@ class ModelOptions:
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
     max_abs_pos: int = 4096  # learned position table (rope == "none")
-    # the JAX serving layout of a mesh (a read-only, length-sharded cache)
+    # the JAX serving layout: decode treats the cache as a read-only input
+    # and returns the step's fresh pieces for an out-of-band append
     readonly_cache: bool = False
-
-
-def _check_arch(cfg: ArchConfig, opts: ModelOptions) -> None:
-    if cfg.attn_logit_softcap > 0:
-        raise not_ported("attention with a logit softcap (K-F has none, as "
-                         "the TPU kernel)", "A6")
-    if opts.readonly_cache:
-        raise not_ported("the read-only serving cache (a mesh layout; "
-                         "A6e)", "A6")
 
 
 def layer_kinds(cfg: ArchConfig) -> List[str]:
@@ -81,7 +79,6 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     ``device``) in ``opts.dtype``, with the JAX package's shapes and
     scales (its draws differ: ``models.convert`` carries JAX parameters
     across)."""
-    _check_arch(cfg, opts)
     dev = resolve_device(device)
     dtype = opts.dtype
 
@@ -111,7 +108,6 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                opts: ModelOptions = ModelOptions(), *,
                device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """An empty decode cache at position 0."""
-    _check_arch(cfg, opts)
     dev = resolve_device(device)
     return {"pos": 0,
             "layers": [init_block_cache(kind, cfg, batch, cache_len,
@@ -152,8 +148,9 @@ def forward(
     position advances by T. An encoder-decoder arch needs ``enc_out``
     (:func:`encode`'s output) or ``enc_frames`` (encoded here);
     ``vision_embeds`` (B, n_vision_embeds, D) replace the first
-    positions' embeddings outside decode."""
-    _check_arch(cfg, opts)
+    positions' embeddings outside decode. With
+    ``opts.readonly_cache`` a decode step leaves ``cache`` untouched and
+    returns a new one (module docstring)."""
     b, t = tokens.shape
     dev = params["embed"].device
     pos = 0 if cache is None else int(cache["pos"])
@@ -181,19 +178,51 @@ def forward(
         enc_out = encode(params, cfg, enc_frames, opts)
     kinds = layer_kinds(cfg)
     remat = opts.remat and mode == "train" and torch.is_grad_enabled()
+    readonly = opts.readonly_cache and mode == "decode" and cache is not None
+    out_cache = {"pos": pos, "layers": [None] * len(kinds)} if readonly \
+        else cache
     for i, (kind, lp) in enumerate(zip(kinds, params["layers"])):
         x, new = _apply(remat, kind, lp, x, cfg, positions=positions,
-                             cache=None if cache is None
-                             else cache["layers"][i], pos=pos,
-                             enc_out=enc_out)
-        if cache is not None:
-            cache["layers"][i] = new
+                        cache=None if cache is None else cache["layers"][i],
+                        pos=pos, enc_out=enc_out, readonly=readonly)
+        if out_cache is not None:
+            out_cache["layers"][i] = new
     x = apply_norm(params["final_norm"], x, cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x, head).to(torch.float32)
-    if cache is not None:
-        cache["pos"] = pos + t
-    return logits, cache
+    if out_cache is not None:
+        out_cache["pos"] = pos + t
+    return logits, out_cache
+
+
+def append_readonly(cache: Dict[str, Any], fresh: Dict[str, Any]
+                    ) -> Dict[str, Any]:
+    """Write a read-only decode step's fresh pieces (``fresh``, what
+    :func:`forward` returned) into ``cache`` at its position, in place —
+    the out-of-band append of the JAX package's serving layout — and
+    advance its position; ring and recurrent layers take their new
+    state. Returns ``cache``."""
+    pos = int(cache["pos"])
+
+    def write(layer, new):
+        if "k_new" in new:
+            t = new["k_new"].shape[1]
+            layer["k"][:, pos:pos + t] = new["k_new"]
+            layer["v"][:, pos:pos + t] = new["v_new"]
+            return layer
+        if "ckv_new" in new:
+            t = new["ckv_new"].shape[1]
+            layer["ckv"][:, pos:pos + t] = new["ckv_new"]
+            layer["k_rope"][:, pos:pos + t] = new["k_rope_new"]
+            return layer
+        if "self" in new:
+            return dict(layer, self=write(layer["self"], new["self"]))
+        return new
+
+    cache["layers"] = [write(layer, new) for layer, new
+                       in zip(cache["layers"], fresh["layers"])]
+    cache["pos"] = fresh["pos"]
+    return cache
 
 
 def _apply(remat: bool, kind: str, lp: Params, x: torch.Tensor,

@@ -14,7 +14,11 @@
   ``ValueError`` for a shape that differs;
 * numpy has no bfloat16: a bf16 leaf is stored as its bits (``uint16``)
   with ``"dtype": "bfloat16"`` in the manifest, and restored to the same
-  bits.
+  bits;
+* the leaves are whole whatever the run's shard count: ``restore`` with
+  ``shardings`` gives each leaf to a function that cuts a shard's part
+  out of it (``train.fsdp``), so a checkpoint restores onto any shard
+  count — the JAX package's elastic restore.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from ..tree import leaves_with_path, path_str, tree_map
+from ..tree import get_path, leaves_with_path, path_str, tree_map
 
 __all__ = ["save", "latest_step", "restore"]
 
@@ -92,10 +96,12 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(directory: str, target: Any, step: Optional[int] = None
-            ) -> Tuple[Any, int]:
+def restore(directory: str, target: Any, step: Optional[int] = None,
+            shardings: Any = None) -> Tuple[Any, int]:
     """Restore into the structure of ``target`` (a tree of tensors: each
-    leaf gives the dtype and device to restore to). Returns ``(tree,
+    leaf gives the dtype, device and shape to restore to). ``shardings``:
+    a tree matching ``target`` of functions from a whole checkpointed
+    leaf to the part ``target`` holds (a shard's part). Returns ``(tree,
     step)``."""
     step = latest_step(directory) if step is None else step
     if step is None:
@@ -115,14 +121,18 @@ def restore(directory: str, target: Any, step: Optional[int] = None
     paths = iter(path for path, _ in leaves_with_path(target))
 
     def one(tgt):
-        key = path_str(next(paths))
+        path = next(paths)
+        key = path_str(path)
         if key not in manifest["leaves"]:
             raise KeyError(f"checkpoint misses leaf {key}")
         arr, dtype = load(key)
-        if list(arr.shape) != list(tgt.shape):
+        full = _from_numpy(arr, dtype)
+        part = full if shardings is None else get_path(shardings, path)(full)
+        if list(part.shape) != list(tgt.shape):
             raise ValueError(
-                f"shape mismatch for {key}: ckpt {arr.shape} vs "
-                f"{tuple(tgt.shape)}")
-        return _from_numpy(arr, dtype).to(device=tgt.device, dtype=tgt.dtype)
+                f"shape mismatch for {key}: ckpt {tuple(part.shape)}"
+                + ("" if shardings is None else f" (of {arr.shape})")
+                + f" vs {tuple(tgt.shape)}")
+        return part.to(device=tgt.device, dtype=tgt.dtype, copy=True)
 
     return tree_map(one, target), step

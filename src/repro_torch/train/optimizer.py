@@ -26,6 +26,12 @@ The state is updated in place (the JAX package returns a new one; at
 full width a second copy of a 3.2e9-parameter AdamW state would not fit
 the card beside the first) and returned; the parameters come back as new
 tensors, and the gradients are not modified.
+
+For the sharded step (``train.fsdp``) both updates take the clip factor
+and norm from outside (``clip=``, the global norm over every shard's
+part), and Adafactor a ``local`` hook: it is given full gradients and
+its factored state in full, and ``local(path, u)`` cuts each leaf's
+update to the shard's part of the parameter it is applied to.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from ..tree import (get_path, leaves, leaves_with_path, tree_map,
                    tree_map_with_path)
 
 __all__ = ["OptConfig", "lr_schedule", "global_norm", "clip_scale",
+           "clip_from_norm",
            "layer_stacks", "adamw_init", "adamw_update", "adafactor_init",
            "adafactor_update", "make_optimizer"]
 
@@ -81,12 +88,17 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def clip_from_norm(norm: torch.Tensor, max_norm: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the clip factor min(1, max_norm / max(norm, 1e-9)), the norm)."""
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return scale, norm
+
+
 def clip_scale(grads, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(the clip factor min(1, max_norm / max(norm, 1e-9)), the norm):
     each gradient is used as ``g * scale.to(g.dtype)``."""
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return scale, norm
+    return clip_from_norm(global_norm(grads), max_norm)
 
 
 def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -112,10 +124,11 @@ def adamw_init(params) -> Dict[str, Any]:
     }
 
 
-def adamw_update(grads, state, params, cfg: OptConfig):
+def adamw_update(grads, state, params, cfg: OptConfig, clip=None):
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    scale, gnorm = clip_scale(grads, cfg.grad_clip)
+    scale, gnorm = clip if clip is not None else clip_scale(grads,
+                                                            cfg.grad_clip)
     stepf = step.to(torch.float32)
     bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
                                      device=stepf.device), stepf)
@@ -205,8 +218,10 @@ def adafactor_init(params, stacks=()) -> Dict[str, Any]:
     }
 
 
-def _adafactor_leaf(g, v, p, lr, decay, scale, cfg: OptConfig):
-    """One leaf's update (the JAX ``upd``); ``v`` is updated in place."""
+def _adafactor_leaf(g, v, p, lr, decay, scale, cfg: OptConfig,
+                    cut=lambda u: u):
+    """One leaf's update (the JAX ``upd``); ``v`` is updated in place;
+    ``cut`` takes the update to ``p``'s part of the leaf."""
     g = _clipped(g, scale)
     g2 = g * g + 1e-30
     dims = _factored_dims(g.shape)
@@ -225,15 +240,17 @@ def _adafactor_leaf(g, v, p, lr, decay, scale, cfg: OptConfig):
     u = g * prec
     # update clipping (Shazeer & Stern): RMS(u) <= 1
     rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
-    u = u / torch.clamp(rms_u, min=1.0)
+    u = cut(u / torch.clamp(rms_u, min=1.0))
     pf = p.to(torch.float32)
     return (pf - lr * (u + cfg.weight_decay * pf)).to(p.dtype)
 
 
-def adafactor_update(grads, state, params, cfg: OptConfig, stacks=()):
+def adafactor_update(grads, state, params, cfg: OptConfig, stacks=(),
+                     clip=None, local=None):
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    scale, gnorm = clip_scale(grads, cfg.grad_clip)
+    scale, gnorm = clip if clip is not None else clip_scale(grads,
+                                                            cfg.grad_clip)
     decay = 1.0 - (step.to(torch.float32) + 1.0) ** -0.8
     stacked = _stacked_leaves(params, stacks)
 
@@ -241,15 +258,20 @@ def adafactor_update(grads, state, params, cfg: OptConfig, stacks=()):
         v = get_path(state["v"], path)
         if not v:                       # a stacked leaf: updated below
             return None
+        cut = ((lambda u: u) if local is None
+               else (lambda u: local(path, u)))
         return _adafactor_leaf(get_path(grads, path), v, p, lr, decay,
-                               scale, cfg)
+                               scale, cfg, cut)
 
     new_params = tree_map_with_path(upd, params)
     for name, (key, idx, sub) in stacked.items():
         p = torch.stack([get_path(params[key][i], sub) for i in idx])
         g = torch.stack([get_path(grads[key][i], sub) for i in idx])
+        cut = ((lambda u: u) if local is None else (
+            lambda u: torch.stack([local((key, i) + sub, u[r])
+                                   for r, i in enumerate(idx)])))
         newp = _adafactor_leaf(g, state["stacked"][name], p, lr, decay,
-                               scale, cfg)
+                               scale, cfg, cut)
         for r, i in enumerate(idx):
             parent = get_path(new_params[key][i], sub[:-1])
             parent[sub[-1]] = newp[r].clone()

@@ -11,7 +11,7 @@ K-B (``kernels.ops.flash_attention`` routes through
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -20,8 +20,8 @@ from ..models import ModelOptions, forward
 from .optimizer import OptConfig, make_optimizer
 from ..tree import leaves, tree_map
 
-__all__ = ["TrainConfig", "cross_entropy", "loss_fn", "loss_and_grads",
-           "make_train_step"]
+__all__ = ["TrainConfig", "cross_entropy", "cross_entropy_terms", "loss_fn",
+           "loss_and_grads", "make_train_step"]
 
 Batch = Dict[str, torch.Tensor]
 
@@ -35,10 +35,13 @@ class TrainConfig:
     accum_dtype: Any = torch.float32
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  z_loss: float = 0.0) -> torch.Tensor:
-    """Mean token CE (+ z-loss). logits (B, T, V) f32, labels (B, T)
-    integer. Labels < 0 are masked."""
+def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor,
+                        z_loss: float = 0.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Σ nll·mask, Σ mask) of token CE (+ z-loss): the numerator and
+    the denominator of :func:`cross_entropy`, which a sharded step sums
+    across shards before it divides (a mean of per-shard means is wrong
+    whenever the shards' counts differ)."""
     mask = labels >= 0
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, torch.clamp(labels, min=0).to(
@@ -46,26 +49,39 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * torch.square(lse)
-    denom = torch.clamp(mask.sum(), min=1)
-    return (nll * mask).sum() / denom
+    return (nll * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token CE (+ z-loss). logits (B, T, V) f32, labels (B, T)
+    integer. Labels < 0 are masked."""
+    num, count = cross_entropy_terms(logits, labels, z_loss)
+    return num / torch.clamp(count, min=1)
 
 
 def loss_fn(params, cfg: ArchConfig, batch: Batch, opts: ModelOptions,
-            z_loss: float = 0.0) -> torch.Tensor:
+            z_loss: float = 0.0, denom: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """The batch's mean token loss; with ``denom`` its summed loss over
+    ``denom`` (a sharded step's global count of unmasked labels)."""
     extra = {k: batch[k] for k in ("enc_frames", "vision_embeds", "positions")
              if k in batch}
     logits, _ = forward(params, cfg, batch["tokens"], opts=opts,
                         mode="train", **extra)
-    return cross_entropy(logits, batch["labels"], z_loss)
+    if denom is None:
+        return cross_entropy(logits, batch["labels"], z_loss)
+    return cross_entropy_terms(logits, batch["labels"], z_loss)[0] / denom
 
 
 def loss_and_grads(params, cfg: ArchConfig, batch: Batch, opts: ModelOptions,
-                   z_loss: float = 0.0) -> Tuple[torch.Tensor, Any]:
+                   z_loss: float = 0.0, denom: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Any]:
     """``(loss, grads)`` of :func:`loss_fn` at ``params`` (the counterpart
     of ``jax.value_and_grad(loss_fn)``); ``params`` are not modified."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss = loss_fn(live, cfg, batch, opts, z_loss)
+        loss = loss_fn(live, cfg, batch, opts, z_loss, denom)
         grads = torch.autograd.grad(loss, leaves(live))
     it = iter(grads)
     return loss.detach(), tree_map(lambda _: next(it), live)

@@ -997,7 +997,7 @@ def test_mla_on_kf_matches_plain(cuda, form):
     version's on the same inputs, and the layer's output too."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as kf
-    from repro_torch.models.layers import mla_apply, mla_init
+    from repro_torch.models.layers import mla_apply, mla_cache, mla_init
     cfg = configs.get_arch("deepseek-v2-lite-16b")
     c = cfg.mla
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -1009,10 +1009,8 @@ def test_mla_on_kf_matches_plain(cuda, form):
     def cache():
         if form == "expanded":
             return None
-        return {"ckv": torch.zeros((2, 300, c.kv_lora_rank), device=cuda,
-                                   dtype=torch.bfloat16),
-                "k_rope": torch.zeros((2, 300, c.rope_head_dim),
-                                      device=cuda, dtype=torch.bfloat16)}
+        return mla_cache(2, 300, c.kv_lora_rank, c.rope_head_dim,
+                         torch.bfloat16, cuda)
 
     seen = []
     flash = ops.flash_attention
@@ -1395,3 +1393,78 @@ def test_train_step_card_equals_cpu(cuda):
     card = dict(leaves_with_path(out["card"][0]))
     for path, t in leaves_with_path(out["cpu"][0]):
         assert _rel_norm(card[path].cpu(), t) <= 1e-5
+
+
+# ---- the logit softcap and the read-only decode (A6e)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 256, 256, 8, 2, 64, True, None),      # prefill (tensor cores in bf16)
+    (4, 1, 300, 8, 2, 128, True, None),       # decode, split-KV + combine
+    (2, 200, 200, 4, 1, 256, True, 64),       # windowed, MQA
+    (2, 150, 300, 6, 6, 64, False, None),     # non-causal (cross-attention)
+])
+def test_flash_attention_softcap_matches_plain(cuda, dtype, shape):
+    """K-F and K-B with a cap of 30 against their plain versions (fp32:
+    2e-5 abs; bf16: one rounding plus 2⁻¹⁴ of Σ p·|v| forward, ‖Δ‖/‖ref‖
+    ≤ 2⁻⁸ backward); a cap of 0 gives the uncapped launch's bits."""
+    from repro_torch.kernels import flash_attention as kf
+    b, nq, nk, h, kvh, d, causal, window = shape
+    g = torch.Generator(device=cuda).manual_seed(25)
+    q = (torch.randn((b, nq, h, d), generator=g, device=cuda) * 1.5).to(dtype)
+    k = (torch.randn((b, nk, kvh, d), generator=g, device=cuda) * 1.5
+         ).to(dtype)
+    v = torch.randn((b, nk, kvh, d), generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=30.0)
+    out, lse = kf.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    ref = kf.flash_attention_plain(q, k, v, **kw)
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 2e-5
+    else:
+        terms = kf.flash_attention_plain(q, k, v.abs(), **kw).float()
+        lim = (2.0 ** -7 * torch.maximum(out.float().abs(), ref.float().abs())
+               + 2.0 ** -14 * terms + 1e-6)
+        assert bool((diff <= lim).all())
+    assert torch.equal(kf.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window, softcap=0.0),
+                       kf.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window))
+    if d > kf.BWD_MAX_D:
+        return
+    do = torch.randn(out.shape, generator=g, device=cuda).to(dtype)
+    got = kf.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    want = kf.flash_attention_bwd_plain(q, k, v, out, do, lse, **kw)
+    for a, w in zip(got, want):
+        rel = float((a.float() - w.float()).norm() / w.float().norm())
+        assert rel <= (1e-5 if dtype == torch.float32 else 2.0 ** -8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,kvh,t_new", [(128, 2, 1), (576, 1, 1), (64, 4, 3)])
+def test_flash_attention_appended_keys_match_plain(cuda, dtype, d, kvh,
+                                                   t_new):
+    """K-F over a cache's live keys read in place (a strided slice) with
+    fresh keys as its second source: the concatenation's function (the
+    plain version), and the same bits as the concatenated call."""
+    from repro_torch.kernels import flash_attention as kf
+    g = torch.Generator(device=cuda).manual_seed(26)
+    b, h, nk = 3, 2 * kvh, 700
+    q = torch.randn((b, 1, h, d), generator=g, device=cuda).to(dtype)
+    cache = torch.randn((b, nk + 64, kvh, d), generator=g, device=cuda
+                        ).to(dtype)
+    vcache = torch.randn((b, nk + 64, kvh, d), generator=g, device=cuda
+                         ).to(dtype)
+    kn = torch.randn((b, t_new, kvh, d), generator=g, device=cuda).to(dtype)
+    vn = torch.randn((b, t_new, kvh, d), generator=g, device=cuda).to(dtype)
+    k, v = cache[:, :nk], vcache[:, :nk]
+    before = (cache.clone(), vcache.clone())
+    out = kf.flash_attention_cuda(q, k, v, causal=False, k_new=kn, v_new=vn)
+    assert kf.last_plan.route == "simt"
+    assert torch.equal(cache, before[0]) and torch.equal(vcache, before[1])
+    cat = kf.flash_attention_cuda(q, torch.cat([k, kn], 1),
+                                  torch.cat([v, vn], 1), causal=False)
+    assert torch.equal(out, cat)
+    ref = kf.flash_attention_plain(q, k, v, causal=False, k_new=kn, v_new=vn)
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert float((out.float() - ref.float()).abs().max()) <= tol * max(
+        1.0, float(ref.float().abs().max()))

@@ -161,8 +161,9 @@ def test_batched_server_with_knn_hook_matches_jax():
 
 def test_init_params_shapes_and_unported_families():
     """``init_params`` draws the JAX package's shapes from a generator,
-    for every family; a logit softcap (not ported) raises, naming its
-    item."""
+    for every family; a config with a logit softcap (ported: K-F and K-B
+    take the cap) builds the same shapes and its ``BatchedServer`` picks
+    the JAX server's tokens."""
     (jcfg, jp, _), (cfg, _) = _pair("qwen3-14b")
     got = init_params(cfg, torch.Generator().manual_seed(0),
                       ModelOptions(dtype=torch.float32), device="cpu")
@@ -188,9 +189,21 @@ def test_init_params_shapes_and_unported_families():
         assert [tuple(t.shape) for t in flat(got)] == \
             [tuple(t.shape) for t in flat(ported)]
         assert count_params(got) == sum(x.size for x in flat(jp))
-    soft = dataclasses.replace(cfg, attn_logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        init_params(soft, torch.Generator(), device="cpu")
+    (jcfg, jp, jopts), (cfg, params) = _pair("llama3.2-3b")
+    soft, jsoft = (dataclasses.replace(c, attn_logit_softcap=30.0)
+                   for c in (cfg, jcfg))
+    got = init_params(soft, torch.Generator().manual_seed(0),
+                      ModelOptions(dtype=torch.float32), device="cpu")
+    assert [tuple(t.shape) for t in flat(got)] == \
+        [tuple(t.shape) for t in flat(params)]
+    prompts = _prompts(cfg.vocab)
+    want = JServer(jsoft, JServeConfig(batch=2), jp, jopts).generate(
+        prompts, max_new_tokens=6)
+    got = BatchedServer(soft, ServeConfig(batch=2), params,
+                        ModelOptions(dtype=torch.float32)).generate(
+        prompts, max_new_tokens=6)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
 
 
 def test_repeat_kv_sample_and_launcher():

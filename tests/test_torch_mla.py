@@ -28,7 +28,7 @@ from repro.models.layers import mla_apply as jmla_apply  # noqa: E402
 from repro.models.layers import mla_init as jmla_init  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.models.layers import mla_apply  # noqa: E402
+from repro_torch.models.layers import mla_apply, mla_cache  # noqa: E402
 
 ATOL = RTOL = 2e-5
 ARCH = "deepseek-v2-lite-16b"
@@ -59,8 +59,9 @@ def _cache(cfg, b, n, dtype):
     return ({"ckv": jnp.zeros((b, n, c.kv_lora_rank), dtype),
              "k_rope": jnp.zeros((b, n, c.rope_head_dim), dtype),
              "pos": jnp.zeros((), jnp.int32)},
-            {"ckv": torch.zeros((b, n, c.kv_lora_rank)),
-             "k_rope": torch.zeros((b, n, c.rope_head_dim))})
+            mla_cache(b, n, c.kv_lora_rank, c.rope_head_dim,
+                      torch.bfloat16 if dtype == jnp.bfloat16
+                      else torch.float32, "cpu"))
 
 
 def _close(got, want, **kw):
@@ -117,7 +118,6 @@ def test_mla_absorbed_bf16_within_one_rounding():
     of the largest output (JAX rounds the probabilities first)."""
     (jcfg, jp, jx), (cfg, tp, tx) = _setup("bf16", seed=7)
     jc, tc = _cache(cfg, 2, 16, jnp.bfloat16)
-    tc = {k: v.to(torch.bfloat16) for k, v in tc.items()}
     jpos, tpos = _pos(2, 0, 12)
     _, jc = jmla_apply(jp, jx[:, :12], jcfg, positions=jpos, cache=jc)
     mla_apply(tp, tx[:, :12], cfg, positions=tpos, cache=tc, pos=0)

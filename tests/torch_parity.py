@@ -1,5 +1,6 @@
 """Helpers shared by the port's parity tests (``tests/test_torch_*.py``):
-carrying a JAX-built index across, counting float32 ulps, and plain
+carrying a JAX-built index across, the port's LM weights into the JAX
+package's layout (``params_to_jax``), counting float32 ulps, and plain
 models of how the CUDA kernels cut their work (K-F's split-KV and
 three-term p, K-G's split schedule)."""
 import numpy as np
@@ -7,6 +8,50 @@ import numpy as np
 # XLA contracts the JAX chains' multiply-adds into FMAs; the port's
 # eager chains round each op — 1–3 ulp apart (ROADMAP Queue C1)
 ULP_BOUND = 4
+
+
+def params_to_jax(params, cfg):
+    """The JAX package's parameter tree (numpy float32 leaves) of the
+    port's ``params``: the inverse of ``params_from_jax``, each scanned
+    group of ``cfg.layout()`` stacking its layers' leaves along a leading
+    axis under ``f"l{j}_{kind}"``. The port's ``init_params`` builds a
+    model in a fraction of a second where the JAX one, run eagerly,
+    compiles each random draw (~12 s for the reduced deepseek), so a test
+    can build its weights in the port and give the JAX package the same
+    ones."""
+    import torch
+    from repro_torch.configs.base import ATTN_BIDIR
+
+    def leaf(x):
+        return x.detach().to(torch.float32).numpy()
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [conv(v) for v in tree]
+        return leaf(tree)
+
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([x[k] for x in layers]) for k in first}
+        if isinstance(first, (list, tuple)):
+            return [stack([x[i] for x in layers]) for i in range(len(first))]
+        return np.stack([leaf(x) for x in layers])
+
+    out = {k: conv(v) for k, v in params.items()
+           if k not in ("layers", "encoder")}
+    groups, start = [], 0
+    for unit, reps in cfg.layout():
+        groups.append({f"l{j}_{kind}": stack(
+            [params["layers"][start + r * len(unit) + j] for r in range(reps)])
+            for j, kind in enumerate(unit)})
+        start += reps * len(unit)
+    out["groups"] = groups
+    if "encoder" in params:
+        out["encoder"] = {f"l0_{ATTN_BIDIR}": stack(params["encoder"])}
+    return out
 
 
 def ulps(a, b):
