@@ -206,18 +206,40 @@ force and against each other. Phases:
    steps) against the written decode, the cache's bytes unchanged; the
    FSDP train step (``train.fsdp``) over 2 and 4 shards simulated on the
    card at full width cut to 8 layers against one device, and the
-   2-shard state restarted onto 4.
+   2-shard state restarted onto 4;
+23. the port's six examples (``examples/*_torch.py``), each through its
+   ``main`` in-process at its defaults (forest_selfjoin cut to ``--n
+   4000``, 80 pivots, from the phase's budget: ``EXAMPLE_RUNS``; its
+   default 256 pivots wait for B13), each a counted path whose kernels
+   must launch (quickstart, outlier_detection and forest_selfjoin K-A;
+   distributed_join, ``--shards 8 --simulate``, K-A and K-G;
+   serve_retrieval K-F and K-G; train_lm K-F and K-B, exactly 12 layers a
+   step), its own asserts hard checks: train_lm 40 steps with a
+   checkpoint every 20, then ``--restart --steps 60``, which resumes at
+   step 40; K-F with lse and K-B at train_lm's float32 shape (b 8, T 256,
+   GQA 12 / 4, d 64) against their plain versions, SDPA beside each;
+24. qwen3-14b (40 layers, per-head q / k RMSNorm, GQA 40 / 8),
+   nemotron-4-15b (32 layers, LayerNorm, squared ReLU, a 256,000-token
+   head, GQA 48 / 8) at full width and depth and granite-34b (MQA 48 / 1)
+   at full width cut to 44 of its 88 layers (94.5 GB in bf16 at full
+   depth), bf16, seeded: K-F vs its plain version at each one's prefill
+   (b 8, T 2,048, d 128) with SDPA beside it; each served through
+   ``BatchedServer`` + ``make_knn_hook`` over phase 14's keys on phase
+   19's traffic, counted (K-F layers × 17 times), every retrieval exact,
+   the layer check; each reduced config on the card and the CPU with the
+   same weights (logits within 2e-5 + 2e-5·|logit|, tokens equal).
 
-Every time printed stands beside the card's name and power limit. The
-line before the last two is one JSON object with each kernel's launches
-(its main paths' plus phase 18's; K-F's main paths are phases 14 and
-19-22, K-B's phases 21 and 22),
+Each of phases 23 and 24 prints its wall time. Every time printed stands
+beside the card's name and power limit. The line before the last two is one JSON object with each kernel's launches
+(its main paths' plus phase 18's; K-F's main paths are phases 14, 19-22,
+23's serve_retrieval and train_lm and 24, K-B's phases 21, 22 and 23's
+train_lm; K-A's and K-G's include phase 23's examples, and K-G's phase 24),
 error, times and bound; the line before the last is the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before those lines, with its message on stdout and stderr
 (also without a card, or where the script stands alone, away from the
 repository's ``src/``). Long reports (nvcc's ``ptxas``
-output, the profiles by kernel, phases 16–22's numbers as JSON) go
+output, the profiles by kernel, phases 16–24's numbers as JSON) go
 to ``--out`` (default ``build/chip_smoke/``). Needs one card, no network; imports nothing of
 JAX.
 """
@@ -4479,6 +4501,304 @@ def phase_a6e(card, torch, rt, launches) -> tuple:
     return kf_cases, kb_cases, out
 
 
+# phase 23: the port's six examples (examples/*_torch.py), in-process at
+# their defaults but two: train_lm 40 steps with a checkpoint every 20,
+# then a restart to 60; and forest_selfjoin at n = 4,000, which also cuts
+# its pivots from 256 to 80 (its own min(256, n // 50)). Its default
+# configuration (20,000 rows, 256 pivots) does not run here: PBJ's pruned
+# reducer loops over 256 x 256 partition pairs a block on the host, a sync
+# each (ROADMAP B13), 86.7-134.0 s of PBJ on an NVIDIA H100 80GB HBM3 at
+# 700 W. n comes from the phase's budget of 60 s: the other five examples
+# and the kernel cases took 33.7-41.2 s there, which leaves forest_selfjoin
+# at least 18.8 s; its time goes with PBJ's pivots squared (13.6-15.2 s at
+# 80 pivots, of it PBJ 12.3-13.6 s), so on the slowest host seen 80 *
+# sqrt(18.8 / 15.2) = 89 pivots (n = 4,450) would fill the budget, and n =
+# 4,000 keeps ~3.6 s of it for the host's spread. Each entry: (example,
+# argv, kernels its path must launch)
+EXAMPLE_RUNS = (
+    ("quickstart", [], ("assign",)),
+    ("outlier_detection", [], ("assign",)),
+    ("forest_selfjoin", ["--n", "4000"], ("assign",)),
+    ("distributed_join", ["--shards", "8", "--simulate"],
+     ("assign", "distance_topk_gather")),
+    ("serve_retrieval", [], ("flash_attention", "distance_topk_gather")),
+    ("train_lm", ["--steps", "40", "--ckpt-every", "20"],
+     ("flash_attention", "flash_attention_bwd")),
+    ("train_lm", ["--restart", "--steps", "60"],
+     ("flash_attention", "flash_attention_bwd")),
+)
+TRAIN_LM_LAYERS = 12        # the example's small_llama
+
+
+def _json_item(x):
+    """A numpy scalar in a phase's numbers, for ``json.dumps``."""
+    return x.item()
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` of this checkout as a module."""
+    import importlib.util
+    path = ROOT / "examples" / f"{name}_torch.py"
+    check(path.is_file(), f"example {path} is missing")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_lm_kernel_cases(card, torch) -> tuple:
+    """K-F with lse and K-B at the train example's float32 shape (b 8, T
+    256, GQA 12 / 4, d 64, causal: their CUDA-core route) against their
+    plain versions on the same inputs: K-F's output within 2e-5 abs
+    (``attention_err``) and its lse within 1e-4, K-B's dq, dk, dv within
+    1e-5 of ‖ref‖ (both sum in float32 in other orders; the card tests'
+    limit). Each timed beside its plain version and SDPA (forward; backward
+    through ``torch.autograd.grad``) by ``device_ms``; the bounds at the
+    float32 CUDA-core peak (no tensor cores in IEEE float32): 2·(d + d)
+    operations a visible pair and head forward, 2·(3d + 2d) backward, or
+    the bytes of the inputs and outputs. Returns (K-F's case, K-B's)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kf
+    b, n, h, kvh, d = 8, 256, 12, 4, 64
+    what = f"train_lm float32 b={b} T={n} h={h} kvh={kvh} d={d}"
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    q, do = (torch.randn((b, n, h, d), generator=gen, device=DEV)
+             for _ in range(2))
+    k, v = (torch.randn((b, n, kvh, d), generator=gen, device=DEV)
+            for _ in range(2))
+    out, lse = kf.flash_attention_cuda(q, k, v, return_lse=True)
+    f_plan = kf.last_plan
+    ref, ref_lse = kf.flash_attention_plain(q, k, v, return_lse=True)
+    f_err, f_used = attention_err(torch, out, ref)
+    lse_err = float((lse - ref_lse).abs().max())
+    check(f_used <= 1.0 and lse_err <= 1e-4,
+          f"K-F ({what}): {f_used:.3f} of the limit, lse off by "
+          f"{lse_err:.3e}")
+    got = kf.flash_attention_bwd_cuda(q, k, v, out, do, lse)
+    b_plan = kf.last_bwd_plan
+    want = kf.flash_attention_bwd_plain(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    errs = [rel_norm(g, w) for g, w in zip(got, want)]
+    check(max(errs) <= 1e-5, f"K-B ({what}): ‖Δ‖/‖ref‖ of dq, dk, dv "
+          f"{errs} past 1e-5 against the plain version")
+    b_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    del want
+    f_ms = device_ms(torch, lambda: kf.flash_attention_cuda(
+        q, k, v, return_lse=True))
+    b_ms = device_ms(torch, lambda: kf.flash_attention_bwd_cuda(
+        q, k, v, out, do, lse))
+    f_plain = time_ms(lambda: kf.flash_attention_plain(
+        q, k, v, return_lse=True), warmup=1, iters=2)
+    b_plain = time_ms(lambda: kf.flash_attention_bwd_plain(
+        q, k, v, out, do, lse), warmup=1, iters=2)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    with torch.no_grad():
+        sdpa_f = device_ms(torch, sdpa)
+    sref = sdpa()
+    sdpa_b = device_ms(torch, lambda: torch.autograd.grad(
+        sref, (qt, kt, vt), dot, retain_graph=True))
+    del sref, qt, kt, vt, dot
+    pairs = float(b * h * n * (n + 1) // 2)
+    fwd_bytes = 4.0 * (2 * q.numel() + 2 * k.numel() + lse.numel())
+    bwd_bytes = 4.0 * (4 * q.numel() + 4 * k.numel() + lse.numel())
+    rows = []
+    for name, n_bytes, ops_n, ms, plain, lib, err, plan in (
+            ("K-F", fwd_bytes, 2.0 * 2 * d * pairs, f_ms, f_plain, sdpa_f,
+             f_err, f_plan),
+            ("K-B", bwd_bytes, 2.0 * 5 * d * pairs, b_ms, b_plain, sdpa_b,
+             b_err, b_plan)):
+        t_b = n_bytes / H100_HBM_BYTES_S * 1e3
+        t_f = ops_n / H100_FP32_FLOPS_S * 1e3
+        bnd, by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+        print(f"[{card}] {name} ({what}, route {plan.route}): max |err| "
+              f"{err:.3e} vs the plain version"
+              + (f" (lse {lse_err:.3e}; {f_used:.3f} of the 2e-5 limit)"
+                 if name == "K-F" else
+                 f" (‖Δ‖/‖ref‖ dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+                 f"{errs[2]:.3e}, limit 1e-5)")
+              + f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
+              f"{'forward' if name == 'K-F' else 'backward'} {lib:.4f} ms; "
+              f"bound {bnd:.4f} ms ({by}: {pairs:.4e} visible pairs x "
+              f"{ops_n / pairs:.0f} fp32 operations at 67 T/s, "
+              f"{n_bytes:.4e} bytes)", flush=True)
+        rows.append(dict(shape=what, max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=bnd, bound_by=by, library_ms=lib,
+                         form=plan.route))
+    return rows[0], rows[1]
+
+
+def phase_examples(card, torch, launches) -> tuple:
+    """23. The port's six examples (``examples/*_torch.py``) on the card,
+    each through its ``main`` in-process at its defaults
+    (forest_selfjoin at ``--n 4000``, see ``EXAMPLE_RUNS``;
+    distributed_join with ``--shards 8 --simulate``; train_lm 40 steps
+    with a checkpoint every 20 into a temporary directory, then
+    ``--restart --steps 60``, which must resume at step 40), each a
+    counted path whose listed kernels must launch; the example's own
+    asserts are hard checks. Then K-F with lse and K-B at train_lm's
+    float32 shape against their plain versions
+    (``train_lm_kernel_cases``). Returns (K-F's case, K-B's case, the
+    phase's numbers)."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics
+    import numpy as np
+    t_phase = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    # serve_retrieval's summary reads the process-wide registry: from 0
+    metrics.REGISTRY.reset()
+    out, trained = {}, 0
+    try:
+        for name, argv, kernels in EXAMPLE_RUNS:
+            restart = "--restart" in argv
+            path = f"ex_{name}" + ("_restart" if restart else "")
+            argv = argv + (["--ckpt-dir", ckpt] if name == "train_lm"
+                           else [])
+            main_fn = load_example(name).main
+            torch.cuda.synchronize()
+            begin_path(ops, path)
+            t0 = time.perf_counter()
+            try:
+                res = main_fn(argv)
+            except AssertionError as e:
+                raise SmokeFailure(f"example {name} {argv}: its check "
+                                   f"failed: {e}") from e
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launches[path] = end_path(ops)
+            check(all(counts[kern] > 0 for kern in kernels),
+                  f"example {name}: a kernel of its path was never "
+                  f"launched (needs {kernels}): {counts}")
+            if name == "train_lm":
+                # the restart resumes at the first run's last checkpoint
+                steps = int(argv[argv.index("--steps") + 1])
+                start = trained if restart else 0
+                trained = steps
+                check(res["start"] == start,
+                      f"train_lm {argv}: started at step {res['start']}, "
+                      f"expected {start}")
+                want = TRAIN_LM_LAYERS * (steps - start)   # no remat
+                check(counts["flash_attention"] == want
+                      and counts["flash_attention_bwd"] == want,
+                      f"train_lm {argv}: K-F / K-B launched "
+                      f"{counts['flash_attention']} / "
+                      f"{counts['flash_attention_bwd']} times, expected "
+                      f"{TRAIN_LM_LAYERS} layers x {steps - start} steps")
+                loss = res["loss"]
+                check(all(np.isfinite(x) for x in loss + res["grad_norm"]),
+                      f"train_lm {argv}: a non-finite loss or grad norm")
+                if restart:     # steps 1-10 against 51-60: the noise ~0.1
+                    first = float(np.mean(out["ex_train_lm"]["loss"][:10]))
+                    last = float(np.mean(loss[-10:]))
+                    check(last < first - 0.1,
+                          f"train_lm: mean loss {first:.4f} over steps 1-10,"
+                          f" {last:.4f} over the last 10: not falling")
+                res = {key: val for key, val in res.items()
+                       if key != "params"}
+            if name == "serve_retrieval":
+                check(res["n_completed"] == res["n_submitted"]
+                      and res["n_shed"] == 0 and res["n_degraded"] == 0,
+                      f"serve_retrieval: a retrieval was shed or degraded "
+                      f"({res})")
+            if name == "quickstart":
+                res = {key: val for key, val in res.items()
+                       if key not in ("config", "result")}
+            print(f"[{card}] example {name} {' '.join(argv)}: "
+                  f"{wall:.3f} s, launches {counts}", flush=True)
+            out[path] = dict(res, wall_s=wall, launches=counts)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    kf_case, kb_case = train_lm_kernel_cases(card, torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 23 (the six examples) {out['phase_s']:.3f} s",
+          flush=True)
+    return kf_case, kb_case, out
+
+
+# phase 24: the three dense configs the card had not run (A9), at full
+# width; granite-34b's 88 layers are 94.5 GB in bf16, past the card's 80
+DENSE_ARCHS = ("qwen3-14b", "nemotron-4-15b", "granite-34b")
+DENSE_LAYERS = {"granite-34b": 44}
+
+
+def dense_kf_cases(card, torch) -> list:
+    """K-F vs its plain version at each dense config's prefill (b 8, T
+    2,048, causal, d 128: qwen3 GQA 40 / 8, nemotron GQA 48 / 8, granite
+    MQA 48 / 1, on the tensor cores), SDPA beside each by ``device_ms``."""
+    import torch.nn.functional as F
+    from repro_torch import configs
+    gen = torch.Generator(device=DEV).manual_seed(24)
+    b, n = FAM_BATCH, LM_PROMPT[1]
+    cases = []
+    for arch in DENSE_ARCHS:
+        c = configs.get_arch(arch)
+        h, kvh, d = c.n_heads, c.n_kv_heads, c.dh
+        q, k, v = (torch.randn(s, generator=gen, device=DEV)
+                   .to(torch.bfloat16)
+                   for s in ((b, n, h, d), (b, n, kvh, d), (b, n, kvh, d)))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        cases.append(attention_case(
+            card, torch, f"{arch} prefill b={b} nq=nk={n} h={h} kvh={kvh} "
+            f"d={d}", q, k, v, library=lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)))
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return cases
+
+
+def phase_dense_configs(card, torch, rt, launches) -> tuple:
+    """24. The three dense configs on the card (A9): (a) K-F at their
+    prefill shapes (``dense_kf_cases``); (b) qwen3-14b (40 layers, per-head
+    q / k RMSNorm), nemotron-4-15b (32 layers, LayerNorm, squared ReLU, a
+    256,000-token head) at full width and depth and granite-34b (MQA 48 /
+    1) at full width cut to 44 of 88 layers, bf16, seeded, each through
+    ``BatchedServer`` + ``make_knn_hook`` over phase 14's 1,048,576 × 32
+    keys on phase 19's traffic (``serve_family``: K-F layers × 17 times,
+    every retrieval exact, the layer check); (c) each reduced config on
+    the card and the CPU with the same weights (``reduced_family``).
+    Returns (K-F's cases, the phase's numbers)."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.serve import Datastore, KnnLMConfig
+    t_phase = time.perf_counter()
+    cases = dense_kf_cases(card, torch)
+    rng = np.random.default_rng(14)          # phase 14's keys
+    keys = rng.standard_normal((LM_STORE_KEYS, LM_STORE_DIM),
+                               dtype=np.float32)
+    # values in the smallest of the three vocabularies, valid in each
+    vocab = min(configs.get_arch(arch).vocab for arch in DENSE_ARCHS)
+    vals = rng.integers(0, vocab, LM_STORE_KEYS).astype(np.int32)
+    store = Datastore.build(keys, vals, k=8, n_pivots=128, n_groups=8,
+                            device=DEV)
+    kcfg = KnnLMConfig(lam=0.2, tau=50.0, k=8)
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = configs.get_arch(arch)
+        if arch in DENSE_LAYERS:
+            cfg = dc.replace(cfg, n_layers=DENSE_LAYERS[arch])
+        out[arch] = serve_family(card, torch, arch, store, keys, kcfg,
+                                 launches, cfg=cfg,
+                                 path="dense_" + arch.split("-")[0])
+    del store
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(24)
+    for arch in DENSE_ARCHS:
+        out[f"reduced_{arch}"] = reduced_family(card, torch, arch, rng)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 24 (qwen3, nemotron, granite) "
+          f"{out['phase_s']:.3f} s", flush=True)
+    return cases, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
@@ -4766,15 +5086,28 @@ def main(argv=None) -> int:
     # ---- 22. A6e: the softcap, the read-only cache, the mesh layout
     a6e_kf, a6e_kb, a6e_run = phase_a6e(card, torch, rt, launches)
     (out_dir / "phase_22.json").write_text(json.dumps(a6e_run))
+    # ---- 23. the port's six examples, in-process at their defaults
+    ex_kf, ex_kb, ex_run = phase_examples(card, torch, launches)
+    (out_dir / "phase_23.json").write_text(json.dumps(ex_run,
+                                                      default=_json_item))
+    # ---- 24. qwen3-14b, nemotron-4-15b and granite-34b at full width
+    dense_cases, dense_run = phase_dense_configs(card, torch, rt, launches)
+    (out_dir / "phase_24.json").write_text(json.dumps(
+        dict(dense_run, kf_cases=dense_cases)))
     kb_row = dict(name="flash_attention_bwd", route="cuda",
                   source="src/repro_torch/csrc/flash_attn_bwd.cu",
                   replaces="src/repro/models/layers.py:130 (jax.grad of "
                            "_sdpa; the JAX package has no Pallas backward)")
     kb_row.update({key: kb_cases[0][key] for key in _ROW_KEYS})
-    kb_row["other_shapes"] = kb_cases[1:] + a6e_kb
+    kb_row["other_shapes"] = kb_cases[1:] + a6e_kb + [ex_kb]
     rows.append(kb_row)
 
-    owner = {"assign": ("megastep",), "distance_topk_gather": ("megastep",),
+    dense = ("dense_qwen3", "dense_nemotron", "dense_granite")
+    owner = {"assign": ("megastep", "ex_quickstart", "ex_outlier_detection",
+                        "ex_forest_selfjoin", "ex_distributed_join",
+                        "ex_serve_retrieval"),
+             "distance_topk_gather": ("megastep", "ex_distributed_join",
+                                      "ex_serve_retrieval") + dense,
              "quant_coarse_gather": ("quantized",),
              "distance_topk": ("retrieval",),
              "flash_attention": ("lm_serve", "moe_serve", "moe_arctic",
@@ -4783,16 +5116,20 @@ def main(argv=None) -> int:
                                  "fam_qwen2_vision", "fam_whisper", "train",
                                  "a6e_capped_serve", "a6e_readonly",
                                  "a6e_capped_train", "a6e_sharded_2",
-                                 "a6e_sharded_4"),
+                                 "a6e_sharded_4", "ex_serve_retrieval",
+                                 "ex_train_lm", "ex_train_lm_restart")
+             + dense,
              "flash_attention_bwd": ("train", "a6e_capped_train",
-                                     "a6e_sharded_2", "a6e_sharded_4")}
+                                     "a6e_sharded_2", "a6e_sharded_4",
+                                     "ex_train_lm", "ex_train_lm_restart")}
     for row in rows:
         if row["name"] in caps:
             row["cap_shapes"] = caps[row["name"]]
         if row["name"] == "assign":
             row["path_shapes"] = assign_paths
         if row["name"] == "flash_attention":
-            row["other_shapes"] += mla_cases + fam_cases + a6e_kf
+            row["other_shapes"] += (mla_cases + fam_cases + a6e_kf
+                                    + [ex_kf] + dense_cases)
         # the main paths' launches, plus the mesh paths' (phase 18)
         row["launches"] = sum(launches[p][row["name"]]
                               for p in owner[row["name"]] + tuple(mesh_paths))

@@ -22,6 +22,9 @@ from repro_torch.kernels import quant_topk as kq  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
+EXAMPLES = ("quickstart", "outlier_detection", "forest_selfjoin",
+            "distributed_join", "serve_retrieval", "train_lm")
+EXAMPLE_FILES = [ROOT / "examples" / f"{name}_torch.py" for name in EXAMPLES]
 
 
 def test_import_loads_neither_jax_nor_repro():
@@ -55,7 +58,7 @@ def test_sources_import_no_jax_or_repro():
     pat = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_torch)"
                      r"|from\s+(jax|jaxlib|repro)\b(?!_torch))", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
-        sorted((ROOT / "tools").glob("*.py"))
+        sorted((ROOT / "tools").glob("*.py")) + EXAMPLE_FILES
     assert len(files) >= 15
     for name in ("models/moe.py", "core/certify.py", "models/recurrent.py",
                  "train/optimizer.py", "train/train_step.py",
@@ -66,6 +69,38 @@ def test_sources_import_no_jax_or_repro():
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
     assert not offenders, offenders
+
+
+def test_examples_load_neither_jax_nor_repro():
+    """The port's six examples import torch, numpy and the port only:
+    loading all six (their imports, not their ``main``) leaves no JAX
+    module and no module of the JAX package behind."""
+    code = (
+        "import runpy, sys\n"
+        "for path in sys.argv[1:]:\n"
+        "    assert callable(runpy.run_path(path, run_name='example')"
+        "['main'])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    assert all(p.is_file() for p in EXAMPLE_FILES)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code]
+                         + [str(p) for p in EXAMPLE_FILES], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_main_needs_a_card(monkeypatch, name):
+    """Each example's ``main([])`` takes the card; without one it raises
+    before any work, never carrying on on the CPU."""
+    import runpy
+    main = runpy.run_path(str(ROOT / "examples" / f"{name}_torch.py"),
+                          run_name="example")["main"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([])
 
 
 def _small():
