@@ -227,9 +227,19 @@ force and against each other. Phases:
    ``BatchedServer`` + ``make_knn_hook`` over phase 14's keys on phase
    19's traffic, counted (K-F layers × 17 times), every retrieval exact,
    the layer check; each reduced config on the card and the CPU with the
-   same weights (logits within 2e-5 + 2e-5·|logit|, tokens equal).
+   same weights (logits within 2e-5 + 2e-5·|logit|, tokens equal);
+25. the dry run (``launch.dryrun``, over meta tensors): phase 21's cell
+   (llama3.2-3b, AdamW, remat, batch 4 × 1,024 on one device) traced,
+   its predicted peak within 10 % of the bytes phase 21's run allocated
+   at its peak (``max_memory_allocated`` less what was allocated before
+   it), its predicted flops equal to ``FlopCounterMode``'s count over one
+   real step of that cell on the card (counted: K-F and K-B launched
+   through their ``torch.library`` operators, 28 × 2 and 28 times), the
+   card's ``memory.total`` the dry run's ``HBM_BYTES``; two production
+   cells dry-run (llama3.2-3b × train_4k and deepseek-v2-lite-16b ×
+   decode_32k on the 256-card mesh), their records printed.
 
-Each of phases 23 and 24 prints its wall time. Every time printed stands
+Each of phases 23 to 25 prints its wall time. Every time printed stands
 beside the card's name and power limit. The line before the last two is one JSON object with each kernel's launches
 (its main paths' plus phase 18's; K-F's main paths are phases 14, 19-22,
 23's serve_retrieval and train_lm and 24, K-B's phases 21, 22 and 23's
@@ -240,7 +250,8 @@ exits non-zero before those lines, with its message on stdout and stderr
 (also without a card, or where the script stands alone, away from the
 repository's ``src/``). Long reports (nvcc's ``ptxas``
 output, the profiles by kernel, phases 16–24's numbers as JSON) go
-to ``--out`` (default ``build/chip_smoke/``). Needs one card, no network; imports nothing of
+to ``--out`` (default ``build/chip_smoke/``; phase 25's records in
+``phase_25.json``). Needs one card, no network; imports nothing of
 JAX.
 """
 from __future__ import annotations
@@ -3871,6 +3882,7 @@ def phase_training(card, torch, launches, out_dir: Path) -> tuple:
     cfg = configs.get_arch(TRAIN_ARCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()    # held before the run (phase 25)
     begin_path(ops, "train")
     t0 = time.perf_counter()
     run = launch_train.main(["--arch", TRAIN_ARCH, "--steps",
@@ -3914,7 +3926,7 @@ def phase_training(card, torch, launches, out_dir: Path) -> tuple:
                full=dict(loss=losses, grad_norm=norms, step_s=step_s,
                          s_per_step_median=steady,
                          tokens_per_s=tokens_per_s, peak_bytes=peak,
-                         wall_s=t_run, launches=counts))
+                         base_bytes=base, wall_s=t_run, launches=counts))
     torch.cuda.empty_cache()
     out["profile"] = profile_train_step(card, torch,
                                         out_dir / "train_profile.txt")
@@ -4799,6 +4811,130 @@ def phase_dense_configs(card, torch, rt, launches) -> tuple:
     return cases, out
 
 
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k"),           # phase 25: dry-run
+                ("deepseek-v2-lite-16b", "decode_32k"))  # on 256 cards
+DRYRUN_PEAK_TOL = 0.10      # predicted peak against phase 21's, relative
+
+
+def phase_dryrun(card, torch, launches, train_run: dict) -> dict:
+    """25. The dry run (``launch.dryrun``, ``launch.cost``) against the
+    card: (a) the card's ``memory.total`` is the dry run's
+    ``HBM_BYTES``; (b) phase 21's cell (llama3.2-3b, AdamW, remat, batch
+    4 × 1,024 on one device; ``specs.build_train_cell`` with 4 rows a
+    microbatch) traced over meta tensors: its predicted peak within
+    ``DRYRUN_PEAK_TOL`` of the bytes phase 21's run allocated at its peak
+    (``max_memory_allocated`` less what was allocated when it began);
+    (c) one real step of that cell on the card (phase 21's weights, state
+    and first batch) under ``FlopCounterMode``, counted: its flops equal
+    to the prediction, K-F and K-B launched through their operators 28 ×
+    2 and 28 times, its loss finite; (d) ``DRYRUN_CELLS`` on the
+    256-card mesh, each record's line printed (estimates from the H100
+    data sheet, not measurements). Returns the phase's numbers."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cost, dryrun, specs
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import init_params
+    from repro_torch.train import OptConfig, TrainConfig, make_train_step
+    t_phase = time.perf_counter()
+    total_mib = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.total",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    check(total_mib * 2 ** 20 == dryrun.HBM_BYTES,
+          f"dry run: the card's memory.total is {total_mib} MiB, the dry "
+          f"run's HBM_BYTES {dryrun.HBM_BYTES / 2 ** 20:.0f} MiB")
+    cfg = configs.get_arch(TRAIN_ARCH)
+    shape = ShapeConfig("phase_21", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    cell = specs.build_train_cell(cfg, shape, AbstractMesh((1,), ("data",)),
+                                  rows=TRAIN_BATCH)
+    _, pred = cost.trace_step(cell.step_fn, cell.abstract_args)
+    t_trace = time.perf_counter() - t0
+    full = train_run["full"]
+    measured = full["peak_bytes"] - full["base_bytes"]
+    rel = pred.peak_bytes / measured - 1
+    print(f"[{card}] dry run of phase 21's cell ({TRAIN_ARCH}, AdamW, remat, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, one device; {cell.notes}): "
+          f"traced in {t_trace:.3f} s ({pred.n_ops} ops); predicted peak "
+          f"{pred.peak_bytes / 2 ** 30:.3f} GiB (arguments "
+          f"{pred.argument_bytes / 2 ** 30:.3f}, outputs "
+          f"{pred.output_bytes / 2 ** 30:.3f}, temporaries "
+          f"{pred.temp_bytes / 2 ** 30:.3f}, aliased "
+          f"{pred.alias_bytes / 2 ** 30:.3f}) against phase 21's "
+          f"{measured / 2 ** 30:.3f} GiB (max_memory_allocated "
+          f"{full['peak_bytes'] / 2 ** 30:.3f} less "
+          f"{full['base_bytes'] / 2 ** 30:.3f} held before it): "
+          f"{rel:+.4%}; predicted flops {pred.flops:.6e}, HBM bytes "
+          f"{pred.bytes:.6e}", flush=True)
+    check(abs(rel) <= DRYRUN_PEAK_TOL,
+          f"dry run: predicted peak {pred.peak_bytes} bytes is {rel:+.2%} "
+          f"off phase 21's {measured} (limit {DRYRUN_PEAK_TOL:.0%})")
+    init, step = make_train_step(cfg, TrainConfig(opt=OptConfig(
+        lr=TRAIN_LR, warmup_steps=10, decay_steps=TRAIN_STEPS)), cell.opts)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         cell.opts, device=DEV)
+    state = init(params)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in
+             synthetic_lm_batch(DataConfig(vocab=cfg.vocab,
+                                           seq_len=TRAIN_SEQ,
+                                           global_batch=TRAIN_BATCH),
+                                0).items()}
+    torch.cuda.synchronize()
+    begin_path(ops, "dryrun_step")
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as counter:
+        params, state, metrics = step(params, state, batch)
+    loss = float(metrics["loss"])
+    t_step = time.perf_counter() - t0
+    counts = launches["dryrun_step"] = end_path(ops)
+    real = int(counter.get_total_flops())
+    del params, state, batch, metrics
+    torch.cuda.empty_cache()
+    by_op = {str(k): int(v) for k, v in
+             counter.get_flop_counts().get("Global", {}).items()}
+    print(f"[{card}] one real step of that cell on the card under "
+          f"FlopCounterMode ({t_step:.3f} s with the counter): {real:.6e} "
+          f"flops ({by_op}), the dry run's {pred.flops:.6e} "
+          f"({pred.flops_by_op}); loss {loss:.4f}; launches {counts}",
+          flush=True)
+    check(real == pred.flops, f"dry run: predicted flops {pred.flops} != "
+          f"FlopCounterMode's {real} over the real step")
+    check(counts["flash_attention"] == 2 * cfg.n_layers
+          and counts["flash_attention_bwd"] == cfg.n_layers,
+          f"dry run's real step: K-F / K-B launched "
+          f"{counts['flash_attention']} / {counts['flash_attention_bwd']} "
+          f"times, expected {2 * cfg.n_layers} / {cfg.n_layers}")
+    check(np.isfinite(loss), f"dry run's real step: loss {loss}")
+    records = []
+    for arch, shape_name in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape_name, multi_pod=False,
+                              verbose=False)
+        r, m = rec["roofline"], rec["memory"]
+        print(f"[{card}] dry run (H100 data-sheet estimates, not "
+              f"measurements) [{arch} x {shape_name} @ {rec['mesh']}]: peak "
+              f"{m['peak_bytes'] / 2 ** 30:.3f} GiB, fits {m['fits_hbm']}; "
+              f"compute {r['compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['collective_s'] * 1e3:.3f} ms ({r['collective_link']}), "
+              f"bottleneck {r['bottleneck']}, useful "
+              f"{rec['useful_flop_ratio']:.4f}; build {rec['build_s']} s, "
+              f"trace {rec['trace_s']} s ({rec['notes']})", flush=True)
+        records.append(rec)
+    out = dict(hbm_mib=total_mib, predicted=dict(
+        pred.memory(), flops=pred.flops, bytes=pred.bytes,
+        trace_s=t_trace), measured_peak_bytes=measured,
+        peak_rel=rel, real_step_flops=real, real_step_s=t_step,
+        real_step_launches=counts, records=records)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 25 (dry run) {out['phase_s']:.3f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
@@ -5094,6 +5230,10 @@ def main(argv=None) -> int:
     dense_cases, dense_run = phase_dense_configs(card, torch, rt, launches)
     (out_dir / "phase_24.json").write_text(json.dumps(
         dict(dense_run, kf_cases=dense_cases)))
+    # ---- 25. the dry run against phase 21's run and a real step
+    torch.cuda.empty_cache()
+    (out_dir / "phase_25.json").write_text(json.dumps(
+        phase_dryrun(card, torch, launches, train_run)))
     kb_row = dict(name="flash_attention_bwd", route="cuda",
                   source="src/repro_torch/csrc/flash_attn_bwd.cu",
                   replaces="src/repro/models/layers.py:130 (jax.grad of "

@@ -9,6 +9,8 @@ PyTorch version beside it:
   ``plan_queries``)
 - ``quant_topk``: the quantized tier's int8 coarse scan
 - ``flash_attention``: the LM's attention forward (prefill and decode)
+  and its backward, reached through ``torch.library`` operators
+  (``torch.ops.repro_torch.flash_attn*``: CUDA, CPU and fake kernels)
 
 ``ops`` dispatches on the tensors' device and reads the launch counts.
 """

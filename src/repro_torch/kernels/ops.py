@@ -85,9 +85,11 @@ def flash_attention(
     > 0; ``k_new``, ``v_new`` (``(b, t, kvh, d)``) are keys read after
     k and v's (the read-only cache's decode). Output ``(b, nq, h, d)`` in
     q's dtype, float32 math inside. The LM's every attention layer,
-    prefill, decode and training: where grad is enabled and q, k or v
-    requires it, through ``FlashAttentionFn`` (K-F with lse forward, K-B
-    backward; their plain versions on the CPU)."""
+    prefill, decode and training, through K-F's operators
+    (``kernels.flash_attention``: the kernel on the card, the plain
+    version on the CPU, the fake kernel under ``FakeTensorMode``): where
+    grad is enabled and q, k or v requires it, through
+    ``FlashAttentionFn`` (K-F with lse forward, K-B backward)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         if k_new is not None:
@@ -95,10 +97,9 @@ def flash_attention(
                              "decode-only input (no gradient)")
         return _flash.FlashAttentionFn.apply(q, k, v, causal, window, scale,
                                              softcap)
-    fn = (_flash.flash_attention_cuda if q.is_cuda
-          else _flash.flash_attention_plain)
-    return fn(q, k, v, causal=causal, window=window, scale=scale,
-              softcap=softcap, k_new=k_new, v_new=v_new)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale, softcap=softcap, k_new=k_new,
+                                  v_new=v_new)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,0 +1,246 @@
+"""Per-(arch × shape) step builders over meta tensors — PyTorch port of
+the JAX package's ``launch.specs``.
+
+:func:`build_cell` returns what the dry run (``launch.dryrun``) needs:
+one device's step function and its inputs, made as meta tensors
+(``launch.cost``: shapes and dtypes, no data and no allocation; the JAX
+package's ``ShapeDtypeStruct``\\ s). The steps are
+the programs the port runs, not what XLA would make of the JAX package:
+
+- **train** (:func:`build_train_cell`): on a mesh of several devices,
+  ``train.fsdp.FSDPTrainer``'s step for one rank (rank 0) over
+  :class:`launch.cost.RecordingComm` — what ``launch/train.py --shards
+  N`` runs on each card: the whole-model gather, forward and backward on
+  the rank's rows, the float32 reduce-scatter, the rank's AdamW part; on
+  one device, ``train.make_train_step``'s step (``launch/train.py``
+  without ``--shards``);
+- **prefill** and **decode** (:func:`build_prefill_cell`,
+  :func:`build_decode_cell`): ``models.forward`` as one data-parallel
+  replica with whole weights, as ``launch/serve.py`` runs on each card.
+  The port has no tensor parallelism, so no weight is split over the
+  devices; a mesh's ``"model"`` axis must have extent 1.
+
+As in the JAX package: bf16 weights, remat for train, the read-only
+cache for decode (``model_options``; its ``chunk_q`` has no counterpart:
+K-F runs every length); Adafactor with bf16 gradient accumulation above
+100e9 parameters, AdamW below; one sequence a data replica and ``accum
+= global_batch // replicas`` microbatches; the batch split over the data
+axes where it divides them, replicated where it does not (decode_32k's
+128 rows over 256 replicas), as JAX's ``bspec``. A decode step enters
+with a full cache (position ``cache_len − 1``).
+
+The train rank's batch: ``FSDPTrainer.step`` takes the global batch and
+cuts its rank's rows from it. A rank's card holds only its own rows, so
+the global batch is given as a view of the rank's rows with the global
+shape (stride 0 along the rows): the rows the rank cuts are its own, and
+its device's arguments are its rows, as the JAX dry run's per-device
+batch is.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import SHAPES, ArchConfig, ShapeConfig
+from ..distributed.mesh import Mesh
+from ..models import ModelOptions, forward, init_cache, init_params
+from ..train import OptConfig, TrainConfig, make_train_step
+from .cost import RecordingComm, abstract
+from .mesh import NODE_CARDS
+
+__all__ = ["Cell", "model_options", "META", "abstract_params",
+           "build_train_cell", "build_prefill_cell", "build_decode_cell",
+           "build_cell"]
+
+# archs whose AdamW state cannot fit (12 B a parameter) train with
+# Adafactor and bf16 gradient accumulation, as in the JAX package
+_ADAFACTOR_ABOVE = 100e9
+
+
+@dataclasses.dataclass
+class Cell:
+    """One (arch × shape × mesh) cell: ``step_fn(*abstract_args)`` is one
+    device's step, its inputs meta tensors; ``comm`` records the step's
+    collectives (train cells over a mesh)."""
+    arch: ArchConfig
+    shape: ShapeConfig
+    opts: ModelOptions
+    step_fn: Callable
+    abstract_args: Tuple
+    kind: str                    # train | prefill | decode
+    comm: Optional[RecordingComm] = None
+    notes: str = ""
+
+
+META = torch.device("meta")
+
+
+def _batch_axes(mesh: Mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _replicas(mesh: Mesh) -> int:
+    others = {a: n for a, n in mesh.shape.items()
+              if a not in ("pod", "data") and n != 1}
+    if others:
+        raise ValueError(f"mesh axes {others} would need tensor "
+                         f"parallelism, which the port does not run")
+    return math.prod(mesh.shape[a] for a in _batch_axes(mesh))
+
+
+def model_options(arch: ArchConfig, shape: ShapeConfig) -> ModelOptions:
+    return ModelOptions(
+        dtype=torch.bfloat16,
+        remat=shape.kind == "train",
+        max_abs_pos=max(4096, shape.seq_len + shape.cache_len + 1),
+        readonly_cache=shape.kind == "decode",
+    )
+
+
+def abstract_params(arch: ArchConfig, opts: ModelOptions):
+    """The model's parameters as meta tensors (``init_params``' shapes
+    and dtypes; nothing drawn)."""
+    return abstract(init_params, arch, torch.Generator().manual_seed(0),
+                    opts, device="cpu")
+
+
+def _extras(arch: ArchConfig, lead: Tuple[int, ...], seq: int,
+            kind: str) -> Dict[str, torch.Tensor]:
+    """Whisper's encoder input (its frames; at decode the encoder's
+    output, as the port serves it), qwen2-vl's vision embeddings (not at
+    decode) and M-RoPE positions (not in train, where the model's own
+    positions serve), for rows ``lead``."""
+    out: Dict[str, torch.Tensor] = {}
+    bf16 = torch.bfloat16
+    if arch.n_enc_layers:
+        out["enc_out" if kind == "decode" else "enc_frames"] = torch.empty(
+            lead + (arch.enc_len, arch.d_model), dtype=bf16, device=META)
+    if arch.rope == "mrope":
+        if kind != "train":
+            out["positions"] = torch.empty((3,) + lead + (seq,),
+                                           dtype=torch.int32, device=META)
+        if kind != "decode":
+            out["vision_embeds"] = torch.empty(
+                lead + (arch.n_vision_embeds, arch.d_model), dtype=bf16,
+                device=META)
+    return out
+
+
+def build_train_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh, *,
+                     rows: int = 1) -> Cell:
+    """One rank's train step (module docstring); ``rows`` sequences a
+    data replica a microbatch (the JAX package's 1)."""
+    opts = model_options(arch, shape)
+    nb = _replicas(mesh)
+    mb_global = nb * rows
+    accum = max(1, shape.global_batch // mb_global)
+    big = arch.param_count() > _ADAFACTOR_ABOVE
+    tcfg = TrainConfig(
+        opt=OptConfig(name="adafactor" if big else "adamw"), accum=accum,
+        accum_dtype=torch.bfloat16 if big else torch.float32)
+    comm = None
+    params = abstract_params(arch, opts)
+    lead = (accum,) if accum > 1 else ()
+    local_rows = {k: torch.empty(lead + (rows, shape.seq_len),
+                                 dtype=torch.int32, device=META)
+                  for k in ("tokens", "labels")}
+    local_rows.update(_extras(arch, lead + (rows,), shape.seq_len, "train"))
+    if mesh.size == 1:
+        opt_init, step = make_train_step(arch, tcfg, opts)
+        args = (params, opt_init(params), local_rows)
+        layout = "one device"
+    else:
+        from ..train.fsdp import FSDPTrainer
+        if rows != 1:
+            raise ValueError("the sharded step takes one sequence a "
+                             "replica a microbatch")
+        comm = RecordingComm(mesh.size, META,
+                             spans_nodes=mesh.size > NODE_CARDS)
+        trainer = FSDPTrainer(arch, tcfg, opts, mesh, comm,
+                              fsdp_over_pod=big)
+        local, states = trainer.init(params)
+        del params
+        ax = 1 if accum > 1 else 0
+
+        def step(lp, st, batch):
+            new, st, metrics = trainer.step([lp], [st], {
+                k: _global_view(v, mesh.size, ax)
+                for k, v in batch.items()})
+            return new[0], st[0], metrics
+
+        args = (local[0], states[0], local_rows)
+        layout = (f"FSDP over {'+'.join(_batch_axes(mesh))} "
+                  f"({mesh.size} ranks, rank 0)")
+    notes = (f"accum={accum} mb={mb_global} opt={tcfg.opt.name} "
+             f"{layout}")
+    return Cell(arch, shape, opts, step, args, "train", comm, notes)
+
+
+def _global_view(x: torch.Tensor, n: int, ax: int) -> torch.Tensor:
+    """The rank's one row ``x`` (along ``ax``) seen as the global batch of
+    ``n`` replicas: every row is the rank's (stride 0), so no byte is
+    added."""
+    size, stride = list(x.shape), list(x.stride())
+    size[ax], stride[ax] = n, 0
+    return x.as_strided(size, stride, x.storage_offset())
+
+
+def _serve_batch(shape: ShapeConfig, mesh: Mesh) -> Tuple[int, str]:
+    """Rows a replica serves: the batch split over the data axes where it
+    divides them, else every row (replicated)."""
+    nb = _replicas(mesh)
+    b = shape.global_batch
+    if b % nb == 0 and b >= nb:
+        return b // nb, f"B={b} split over {nb} replicas"
+    return b, f"B={b} replicated on {nb} replicas"
+
+
+def build_prefill_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh
+                       ) -> Cell:
+    opts = model_options(arch, shape)
+    b, layout = _serve_batch(shape, mesh)
+    params = abstract_params(arch, opts)
+    tokens = torch.empty((b, shape.seq_len), dtype=torch.int32, device=META)
+    extras = _extras(arch, (b,), shape.seq_len, "prefill")
+
+    def step(params, tokens, extras):
+        with torch.no_grad():
+            logits, _ = forward(params, arch, tokens, opts=opts,
+                                mode="prefill", **extras)
+            return logits[:, -1]       # serving returns last-position logits
+
+    return Cell(arch, shape, opts, step, (params, tokens, extras), "prefill",
+                None, f"{layout} T={shape.seq_len} whole weights")
+
+
+def build_decode_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh
+                      ) -> Cell:
+    opts = model_options(arch, shape)
+    b, layout = _serve_batch(shape, mesh)
+    params = abstract_params(arch, opts)
+    cache = abstract(init_cache, arch, b, shape.cache_len, opts, device="cpu")
+    cache["pos"] = shape.cache_len - 1
+    token = torch.empty((b, 1), dtype=torch.int32, device=META)
+    extras = _extras(arch, (b,), 1, "decode")
+
+    def step(params, token, cache, extras):
+        with torch.no_grad():
+            logits, fresh = forward(params, arch, token, cache=cache,
+                                    opts=opts, mode="decode", **extras)
+            return logits[:, -1], fresh
+
+    return Cell(arch, shape, opts, step, (params, token, cache, extras),
+                "decode", None,
+                f"{layout} C={shape.cache_len} readonly whole weights")
+
+
+def build_cell(arch: ArchConfig, shape_name: str, mesh: Mesh) -> Cell:
+    shape = SHAPES[shape_name]
+    if shape.kind == "train":
+        return build_train_cell(arch, shape, mesh)
+    if shape.kind == "prefill":
+        return build_prefill_cell(arch, shape, mesh)
+    return build_decode_cell(arch, shape, mesh)

@@ -1,0 +1,338 @@
+"""The port's dry run (``repro_torch.launch``: ``mesh``, ``cost``,
+``specs``, ``dryrun``) and K-F / K-B as ``torch.library`` operators, on
+the CPU.
+
+* (a) Parity with the JAX dry run on the reduced llama and a tiny train
+  shape over a ``("data", "model")`` mesh of shape (4, 1) — the JAX
+  layout with no tensor parallelism (a mesh with a model axis avoids
+  ROADMAP C21): the per-device argument bytes (parameters, AdamW state
+  and batch) equal to the byte to JAX's
+  ``memory_analysis().argument_size_in_bytes``, leaf by leaf (a JAX leaf
+  stacked over a group's layers against the sum of the port's per-layer
+  leaves); the port's flops outside attention (every operator but K-F's
+  and K-B's) within 2 % of ``hlo_analysis.analyze``'s flops less the
+  dots of JAX's ``_sdpa`` (``models/layers.py:130``), computed here as
+  ``_sdpa`` makes them: every (query, key) pair, masked ones too, in the
+  forward, its remat recompute and the backward's four products. The
+  JAX side runs in one subprocess with 4 forced host devices, started
+  with the module's first test (~15 s beside the others).
+* (b) The recording comm's bytes by kind equal a sum over
+  ``param_pspecs``' placements computed here.
+* (c) Each operator's fake output has the plain version's shapes and
+  dtypes; a real CPU call through each operator gives the plain
+  version's bits (K-F with and without lse, with appended keys, capped;
+  K-B); ``visible_pairs`` equals the count of the visibility mask; the
+  dry run's flop count equals ``FlopCounterMode``'s over the same step.
+* (d) One full-size cell, llama3.2-3b × decode_32k on the 256-card mesh,
+  traces in seconds, and its ``fits_hbm`` follows from its bytes.
+
+The module adds ~25 s to the run (the full-size cell ~3 s, the JAX
+subprocess overlapping the rest).
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_arch, get_reduced  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.distributed.sharding import (local_slices,  # noqa: E402
+                                              param_pspecs)
+from repro_torch.kernels import flash_attention as kf  # noqa: E402
+from repro_torch.launch import cost, dryrun, specs  # noqa: E402
+from repro_torch.launch.mesh import AbstractMesh  # noqa: E402
+from repro_torch.train.optimizer import layer_stacks  # noqa: E402
+from repro_torch.tree import get_path, leaves_with_path, path_str  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+ARCH = "llama3.2-3b"
+TINY = ("tiny_train", 64, 8, "train")   # seq, global batch: accum 2 over 4
+
+_JAX_SCRIPT = """
+    import json, os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import jax
+    import numpy as np
+    from repro.configs import get_reduced
+    from repro.configs.base import ShapeConfig
+    from repro.core.jax_compat import make_mesh
+    from repro.launch import hlo_analysis
+    from repro.launch.specs import build_train_cell
+
+    arch = get_reduced(sys.argv[1])
+    shape = ShapeConfig(*json.loads(sys.argv[2]))
+    mesh = make_mesh((4, 1), ("data", "model"))
+    cell = build_train_cell(arch, shape, mesh)
+    with mesh:
+        compiled = jax.jit(cell.step_fn, in_shardings=cell.in_shardings,
+                           donate_argnums=(0, 1)).lower(
+                               *cell.abstract_args).compile()
+    leaves = {}
+    flat = jax.tree_util.tree_flatten_with_path(cell.abstract_args)[0]
+    for (path, av), sh in zip(flat,
+                              jax.tree_util.tree_leaves(cell.in_shardings)):
+        name = "/".join(str(getattr(e, "key", getattr(e, "idx", e)))
+                        for e in path)
+        leaves[name] = int(np.prod(sh.shard_shape(av.shape))) \\
+            * np.dtype(av.dtype).itemsize
+    print(json.dumps({
+        "argument_bytes": int(compiled.memory_analysis()
+                              .argument_size_in_bytes),
+        "leaves": leaves, "notes": cell.notes,
+        "flops": hlo_analysis.analyze(compiled.as_text()).flops,
+        "devices": len(jax.devices())}))
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_dry_run(tmp_path_factory):
+    """The JAX train cell's compile (``_JAX_SCRIPT``), started with the
+    module's first test so that it overlaps the others."""
+    d = tmp_path_factory.mktemp("jax_dryrun")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu")
+    with open(d / "out.txt", "w") as out, open(d / "err.txt", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", textwrap.dedent(_JAX_SCRIPT), ARCH,
+             json.dumps(TINY)], env=env, stdout=out, stderr=err, text=True)
+    run = dict(proc=proc, dir=d)
+    yield run
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def _parity_mesh():
+    return AbstractMesh((4, 1), ("data", "model"))
+
+
+def _tiny_cell():
+    return specs.build_train_cell(get_reduced(ARCH), ShapeConfig(*TINY),
+                                  _parity_mesh())
+
+
+def _jax_name(port_name: str, stacks) -> str:
+    """The JAX argument leaf a port argument leaf belongs to: a layer's
+    leaf ``…/layers/<i>/<sub>`` is part of its group's stacked leaf
+    ``…/groups/<g>/l<j>_<kind>/<sub>``."""
+    parts = port_name.split("/")
+    if "layers" in parts:
+        at = parts.index("layers")
+        i = int(parts[at + 1])
+        group = next(name for name, _, idx in stacks if i in idx)
+        parts = parts[:at] + group.split("/") + parts[at + 2:]
+    return "/".join(parts)
+
+
+def _attention_dots(arch, shape, accum: int) -> float:
+    """The flops of JAX ``_sdpa``'s dots in one device's train step:
+    q·kᵀ and p·v over every (query, key) pair (masked ones too), each
+    2·b·h·T²·dh, in the forward and in its remat recompute, and the
+    backward's four products (dq, dk, dP, dv) — 16·b·h·T²·dh a layer a
+    microbatch, b = 1 sequence a replica."""
+    t = shape[1]
+    return 16.0 * arch.n_heads * t * t * arch.dh * arch.n_layers * accum
+
+
+def test_jax_dry_run_parity(jax_dry_run):
+    """(a) module docstring."""
+    cell = _tiny_cell()
+    _, got = cost.trace_step(cell.step_fn, cell.abstract_args,
+                             comm=cell.comm)
+    rc = jax_dry_run["proc"].wait(timeout=600)
+    assert rc == 0, (jax_dry_run["dir"] / "err.txt").read_text()[-3000:]
+    ref = json.loads((jax_dry_run["dir"] / "out.txt").read_text().strip()
+                     .splitlines()[-1])
+    assert ref["devices"] == 4
+    arch = get_reduced(ARCH)
+    stacks = layer_stacks(arch)
+    ours = {}
+    for path, x in leaves_with_path(list(cell.abstract_args)):
+        name = _jax_name(path_str(path), stacks)
+        ours[name] = ours.get(name, 0) + x.numel() * x.element_size()
+    differ = sorted(k for k in set(ours) | set(ref["leaves"])
+                    if ours.get(k) != ref["leaves"].get(k))
+    assert not differ, [(k, ours.get(k), ref["leaves"].get(k))
+                        for k in differ]
+    assert got.argument_bytes == ref["argument_bytes"], (
+        got.argument_bytes, ref["argument_bytes"])
+    accum = int(cell.notes.split("accum=")[1].split()[0])
+    assert f"accum={accum} " in ref["notes"]
+    attn = {op: n for op, n in got.flops_by_op.items()
+            if op.startswith("repro_torch.flash_attn")}
+    ours_rest = got.flops - sum(attn.values())
+    jax_attn = _attention_dots(arch, TINY, accum)
+    jax_rest = ref["flops"] - jax_attn
+    print(f"port flops {got.flops:.6e}: outside attention {ours_rest:.6e}, "
+          f"by operator {got.flops_by_op}; JAX flops {ref['flops']:.6e}: "
+          f"_sdpa's dots {jax_attn:.6e}, outside attention {jax_rest:.6e}; "
+          f"ratio {ours_rest / jax_rest:.6f}")
+    assert set(attn) == {"repro_torch.flash_attn_lse",
+                         "repro_torch.flash_attn_bwd"}
+    assert abs(ours_rest / jax_rest - 1) < 0.02
+
+
+def _leaf_parts(params, mesh):
+    """(leaf, its placement, the element count of rank 0's part) of every
+    parameter, placed as ``FSDPTrainer`` places it."""
+    placed = param_pspecs(params, mesh, mode="train", cfg=get_reduced(ARCH))
+    for path, x in leaves_with_path(params):
+        spec = get_path(placed, path)
+        part = math.prod(len(range(*sl.indices(n))) for sl, n in
+                         zip(local_slices(x.shape, spec, mesh, 0), x.shape))
+        yield x, spec, part
+
+
+@pytest.mark.parametrize("shape", [(4,), (4, 1)])
+def test_recording_comm_bytes(shape):
+    """(b) The FSDP step's collectives, from the placements: every leaf's
+    parts gathered (bf16, n parts each, replicated leaves too); the split
+    leaves' float32 gradient parts reduce-scattered; the whole leaves'
+    float32 gradients all-reduced, with one float32 scalar a microbatch
+    (the label count), the loss and the clip's sum of squares."""
+    names = ("data",) if len(shape) == 1 else ("data", "model")
+    mesh = AbstractMesh(shape, names)
+    cell = specs.build_train_cell(get_reduced(ARCH), ShapeConfig(*TINY),
+                                  mesh)
+    cost.trace_step(cell.step_fn, cell.abstract_args, comm=cell.comm)
+    params = specs.abstract_params(get_reduced(ARCH), cell.opts)
+    n, accum = mesh.size, 2
+    gather = scatter = reduce = 0
+    for x, spec, part in _leaf_parts(params, mesh):
+        gather += n * part * x.element_size()
+        if all(a is None for a in spec):
+            reduce += x.numel() * 4
+        else:
+            scatter += part * 4
+    reduce += 4 * accum + 4 + 4
+    assert cell.comm.bytes == {"all-gather": gather, "all-reduce": reduce,
+                               "reduce-scatter": scatter, "all-to-all": 0,
+                               "collective-permute": 0}
+
+
+def _attn_inputs(dtype=torch.float32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g).to(dtype)
+    return (rand(2, 24, 4, 16), rand(2, 30, 2, 16), rand(2, 30, 2, 16),
+            rand(2, 3, 2, 16), rand(2, 3, 2, 16), rand(2, 24, 4, 16))
+
+
+CASES = [dict(), dict(window=9), dict(causal=False), dict(softcap=2.5),
+         dict(window=5, softcap=1.5)]
+
+
+def _same(a, b) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a, b))
+
+
+@pytest.mark.parametrize("kw", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_operators_match_plain_versions(kw, dtype):
+    """(c) Through each operator on the CPU: the plain version's bits;
+    on meta tensors (the fake kernel): its shapes and dtypes."""
+    q, k, v, kn, vn, do = _attn_inputs(dtype)
+    full = {**dict(causal=True, window=None, scale=None, softcap=0.0), **kw}
+    args = (full["causal"], full["window"], full["scale"],
+            float(full["softcap"]))
+    ops = torch.ops.repro_torch
+    want = kf.flash_attention_plain(q, k, v, **kw)
+    got = ops.flash_attn(q, k, v, *args)
+    assert _same(got, want)
+    assert _same(kf.flash_attention(q, k, v, **kw), want)
+    o2, lse = ops.flash_attn_lse(q, k, v, *args)
+    w2, wlse = kf.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert _same(o2, w2) and _same(lse, wlse) and _same(o2, want)
+    app = ops.flash_attn_appended(q, k, v, kn, vn, *args)
+    assert _same(app, kf.flash_attention_plain(q, k, v, k_new=kn,
+                                               v_new=vn, **kw))
+    grads = ops.flash_attn_bwd(q, k, v, o2, do, lse, *args)
+    wants = kf.flash_attention_bwd_plain(q, k, v, o2, do, lse, **kw)
+    assert all(_same(a, b) for a, b in zip(grads, wants))
+    meta = [t.to("meta") for t in (q, k, v, kn, vn, do, o2, lse)]
+    mq, mk, mv, mkn, mvn, mdo, mo, mlse = meta
+    shapes = [ops.flash_attn(mq, mk, mv, *args),
+              *ops.flash_attn_lse(mq, mk, mv, *args),
+              ops.flash_attn_appended(mq, mk, mv, mkn, mvn, *args),
+              *ops.flash_attn_bwd(mq, mk, mv, mo, mdo, mlse, *args)]
+    for fake, real in zip(shapes, [want, o2, lse, app, *grads]):
+        assert fake.device.type == "meta"
+        assert (fake.shape, fake.dtype) == (real.shape, real.dtype)
+
+
+def test_flash_attention_fn_gradients_through_operators():
+    """``FlashAttentionFn`` (what training runs) reaches K-F with lse and
+    K-B through their operators: the plain versions' forward bits and
+    gradient bits on the CPU."""
+    q, k, v, _, _, do = _attn_inputs(seed=1)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = kf.FlashAttentionFn.apply(*leaves, True, 7, None, 0.0)
+    grads = torch.autograd.grad(out, leaves, do)
+    o, lse = kf.flash_attention_plain(q, k, v, window=7, return_lse=True)
+    want = kf.flash_attention_bwd_plain(q, k, v, o, do, lse, window=7)
+    assert _same(out.detach(), o)
+    assert all(_same(a, b) for a, b in zip(grads, want))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [None, 0, 1, 6, 40])
+def test_visible_pairs_counts_the_mask(causal, window):
+    for nq, nk in ((1, 1), (5, 5), (7, 19), (19, 7), (32, 32)):
+        mask = kf._tile_mask(nq, nk, 0, nq, 0, nk, causal=causal,
+                             window=window, dev="cpu").expand(nq, nk)
+        assert kf.visible_pairs(nq, nk, causal, window) == int(mask.sum())
+
+
+@pytest.mark.parametrize("mesh_shape", [(1,), (4,)])
+def test_trace_flops_equal_flop_counter_mode(mesh_shape):
+    """The dry run counts with ``FlopCounterMode``'s formulas in its own
+    dispatch mode: the same count as ``FlopCounterMode`` over the same
+    step (one device: ``make_train_step``; 4 ranks: ``FSDPTrainer``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    mesh = AbstractMesh(mesh_shape, ("data",))
+    arch = get_reduced(ARCH)
+    cell = specs.build_train_cell(arch, ShapeConfig(*TINY), mesh)
+    _, got = cost.trace_step(cell.step_fn, cell.abstract_args,
+                             comm=cell.comm)
+    cell = specs.build_train_cell(arch, ShapeConfig(*TINY), mesh)
+    with FlopCounterMode(display=False) as counter:
+        cell.step_fn(*cell.abstract_args)
+    assert got.flops == counter.get_total_flops() > 0
+    assert got.peak_bytes >= got.argument_bytes + got.output_bytes \
+        - got.alias_bytes
+    assert got.temp_bytes > 0
+
+
+def test_full_size_decode_cell():
+    """(d) llama3.2-3b × decode_32k on the production mesh: 128 rows
+    replicated on each of 256 cards, whole bf16 weights, a 32,768-token
+    read-only cache; the record's fit follows from its bytes."""
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(ARCH, "decode_32k", multi_pod=False,
+                          verbose=False)
+    took = time.perf_counter() - t0
+    print(f"llama3.2-3b x decode_32k @ 256: {took:.2f} s, {rec}")
+    assert took < 30
+    m = rec["memory"]
+    assert rec["chips"] == 256 and rec["mesh"] == "256"
+    assert m["fits_hbm"] == (m["peak_bytes"] <= m["hbm_bytes"])
+    assert m["peak_bytes"] == (m["argument_bytes"] + m["output_bytes"]
+                               + m["temp_bytes"] - m["alias_bytes"])
+    # whole weights (3.21e9 bf16) plus 28 layers' k and v cache at 128 x
+    # 32,768 x 8 heads x 128 (bf16), and the step's 128 tokens
+    cfg = get_arch(ARCH)
+    cache = 2 * cfg.n_layers * 128 * 32768 * cfg.n_kv_heads * cfg.dh * 2
+    assert m["argument_bytes"] > cache
+    assert rec["collectives"]["total"] == 0
+    assert rec["roofline"]["bottleneck"] in ("memory_s", "compute_s")
+    assert rec["cost"]["flops_by_op"]["repro_torch.flash_attn_appended"] > 0

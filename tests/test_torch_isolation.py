@@ -103,6 +103,45 @@ def test_example_main_needs_a_card(monkeypatch, name):
         main([])
 
 
+def test_dry_run_needs_no_card(monkeypatch):
+    """The dry run (``launch.dryrun``) is the one entry point that asks
+    for no card: with no CUDA device, reduced cells of each kind and one
+    full-size cell trace,
+    its tensors meta tensors (and the CPU's fake ones its parameters are
+    shaped from), and no operator makes a CUDA tensor."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import cost, dryrun, specs
+    from repro_torch.launch.mesh import AbstractMesh
+
+    seen = set()
+
+    class Devices(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (list, tuple)) else [out]):
+                if isinstance(t, torch.Tensor):
+                    seen.add(t.device.type)
+            return out
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arch = configs.get_reduced("llama3.2-3b")
+    mesh = AbstractMesh((4,), ("data",))
+    with Devices():
+        for cell in (specs.build_cell(arch, "prefill_32k", mesh),
+                     specs.build_cell(arch, "decode_32k", mesh),
+                     specs.build_train_cell(arch, ShapeConfig(
+                         "tiny_train", 32, 8, "train"), mesh)):
+            got = cost.trace_step(cell.step_fn, cell.abstract_args,
+                                  comm=cell.comm)[1]
+            assert got.flops > 0 and got.peak_bytes > 0
+        rec = dryrun.run_cell("llama3.2-3b", "decode_32k", multi_pod=False,
+                              verbose=False)
+        assert rec["memory"]["peak_bytes"] > 0
+    assert "meta" in seen and "cuda" not in seen, seen
+
+
 def _small():
     rng = np.random.default_rng(0)
     return (rng.normal(size=(300, 4)).astype(np.float32),

@@ -4,7 +4,8 @@ checkout at the shapes of the port's paths, beside SDPA, on one NVIDIA
 GPU.
 
     python3 tools/bench_attention.py [--src DIR] [--iters N] [--only TEXT]
-                                     [--softcap CAP] [--out FILE]
+                                     [--softcap CAP] [--entry kernel|model]
+                                     [--out FILE]
 
 ``--src`` is the ``src`` directory of the checkout whose ``repro_torch``
 is timed (default: this repository's); its kernels are built there, at
@@ -20,7 +21,12 @@ graph kept), and a SHA-256 of the outputs' bytes, which is equal across
 two versions exactly when their outputs are bit for bit equal. Inputs
 are bf16, seeded per shape. ``--softcap`` passes a logit cap to K-F and
 K-B (a checkout that has one; SDPA has none and is then timed
-uncapped). Shapes: K-F at llama3.2-3b's prefill (b 8, 2,048, GQA 24 / 8,
+uncapped). ``--entry model`` times and checks K-F and K-B through the
+entries the model calls (``kernels.ops.flash_attention``; K-B through
+``kernels.flash_attention.flash_attention_bwd`` where the checkout has
+it: the ``torch.library`` operators since they exist, the ``ctypes``
+wrappers before) instead of the ``ctypes`` wrappers themselves
+(``kernel``, the default). Shapes: K-F at llama3.2-3b's prefill (b 8, 2,048, GQA 24 / 8,
 d 128; also with a 256-key window and at d = 192) and decode (2,080
 keys of a cache), deepseek's MLA (absorbed decode and prefill at d =
 576, MQA, v = k; expanded prefill at d = 192, v padded from 128), and
@@ -90,6 +96,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="time only the shapes whose name holds this")
     ap.add_argument("--softcap", type=float, default=0.0)
+    ap.add_argument("--entry", choices=("kernel", "model"), default="kernel")
     ap.add_argument("--out", default=None, help="append the lines here too")
     args = ap.parse_args(argv)
     import torch
@@ -98,8 +105,12 @@ def main(argv=None) -> int:
         print("bench_attention: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, args.src)
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as kf
+    fwd, bwd = kf.flash_attention_cuda, kf.flash_attention_bwd_cuda
+    if args.entry == "model":
+        fwd = ops.flash_attention
+        bwd = getattr(kf, "flash_attention_bwd", bwd)
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build()
     card = cs.card_line()
@@ -108,7 +119,8 @@ def main(argv=None) -> int:
     lines = []
 
     def emit(**row):
-        line = json.dumps(dict(card=card, src=args.src, **row))
+        line = json.dumps(dict(card=card, src=args.src, entry=args.entry,
+                               **row))
         print(line, flush=True)
         lines.append(line)
 
@@ -127,7 +139,7 @@ def main(argv=None) -> int:
         if d_v is not None and not v_is_k:
             v[..., d_v:] = 0
         kw = dict(causal=causal, window=window, **cap)
-        out = kf.flash_attention_cuda(q, k, v, **kw)
+        out = fwd(q, k, v, **kw)
         torch.cuda.synchronize()
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         mask = None
@@ -139,10 +151,9 @@ def main(argv=None) -> int:
                    is_causal=causal and mask is None and nq == nk and nq > 1,
                    scale=d ** -0.5)
         emit(kernel="K-F", shape=what, softcap=args.softcap,
-             ms=cs.time_ms(lambda: kf.flash_attention_cuda(q, k, v, **kw),
-                           iters=args.iters),
-             device_ms=cs.device_ms(torch, lambda: kf.flash_attention_cuda(
-                 q, k, v, **kw), iters=args.iters),
+             ms=cs.time_ms(lambda: fwd(q, k, v, **kw), iters=args.iters),
+             device_ms=cs.device_ms(torch, lambda: fwd(q, k, v, **kw),
+                                    iters=args.iters),
              sdpa_device_ms=cs.device_ms(
                  torch, lambda: F.scaled_dot_product_attention(
                      qt, kt, vt, **skw), iters=args.iters),
@@ -167,7 +178,7 @@ def main(argv=None) -> int:
             do[..., d_v:] = 0
         kw = dict(causal=causal, window=window, **cap)
         out, lse = kf.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-        got = kf.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+        got = bwd(q, k, v, out, do, lse, **kw)
         torch.cuda.synchronize()
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
@@ -181,9 +192,9 @@ def main(argv=None) -> int:
             qt, kt, vt, enable_gqa=True, attn_mask=mask,
             is_causal=causal and mask is None and nq == nk)
         emit(kernel="K-B", shape=what, softcap=args.softcap,
-             ms=cs.time_ms(lambda: kf.flash_attention_bwd_cuda(
-                 q, k, v, out, do, lse, **kw), iters=args.iters),
-             device_ms=cs.device_ms(torch, lambda: kf.flash_attention_bwd_cuda(
+             ms=cs.time_ms(lambda: bwd(q, k, v, out, do, lse, **kw),
+                           iters=args.iters),
+             device_ms=cs.device_ms(torch, lambda: bwd(
                  q, k, v, out, do, lse, **kw), iters=args.iters),
              sdpa_device_ms=cs.device_ms(torch, lambda: torch.autograd.grad(
                  ref, (qt, kt, vt), dot, retain_graph=True), iters=args.iters),
