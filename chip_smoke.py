@@ -237,13 +237,26 @@ force and against each other. Phases:
    through their ``torch.library`` operators, 28 × 2 and 28 times), the
    card's ``memory.total`` the dry run's ``HBM_BYTES``; two production
    cells dry-run (llama3.2-3b × train_4k and deepseek-v2-lite-16b ×
-   decode_32k on the 256-card mesh), their records printed.
+   decode_32k on the 256-card mesh), their records printed;
+26. tensor parallelism over ``"model"`` (A10a), every shard simulated on
+   the one card: K-F vs its plain version at the four dense configs'
+   shard shapes over 8 (qwen3 5 / 1, nemotron and granite 6 / 1, llama
+   3 / 1; the prefill on the tensor cores, the written-cache decode the
+   served replicas run and the read-only decode) with SDPA beside each; phase 24's qwen3-14b weights (the same seed) cut
+   into 8 model shards and served through ``BatchedServer(comm=)`` with
+   phase 24's prompts and hook, counted (K-F 8 × 40 × 17), every
+   retrieval exact, its served logits against phase 24's one device
+   within ``TP_LOGIT_REL`` (‖Δ‖/‖one‖, bf16) where the tokens fed agree
+   and over 3 decode steps fed phase 24's tokens; granite-34b at full
+   width cut to 4 layers over 8 shards (its one kv head on each) against
+   one device the same way.
 
-Each of phases 23 to 25 prints its wall time. Every time printed stands
+Each of phases 23 to 26 prints its wall time. Every time printed stands
 beside the card's name and power limit. The line before the last two is one JSON object with each kernel's launches
 (its main paths' plus phase 18's; K-F's main paths are phases 14, 19-22,
-23's serve_retrieval and train_lm and 24, K-B's phases 21, 22 and 23's
-train_lm; K-A's and K-G's include phase 23's examples, and K-G's phase 24),
+23's serve_retrieval and train_lm, 24 and 26, K-B's phases 21, 22 and 23's
+train_lm; K-A's and K-G's include phase 23's examples, and K-G's phases 24
+and 26),
 error, times and bound; the line before the last is the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before those lines, with its message on stdout and stderr
@@ -251,7 +264,7 @@ exits non-zero before those lines, with its message on stdout and stderr
 repository's ``src/``). Long reports (nvcc's ``ptxas``
 output, the profiles by kernel, phases 16–24's numbers as JSON) go
 to ``--out`` (default ``build/chip_smoke/``; phase 25's records in
-``phase_25.json``). Needs one card, no network; imports nothing of
+``phase_25.json``, phase 26's numbers in ``phase_26.json``). Needs one card, no network; imports nothing of
 JAX.
 """
 from __future__ import annotations
@@ -3064,8 +3077,18 @@ def family_kf_cases(card, torch) -> list:
     return cases
 
 
+def recorded(fn, into: list):
+    """``fn`` (a serve step) wrapped to append a float32 host copy of
+    each call's logits to ``into``."""
+    def run(*args, **kw):
+        out = fn(*args, **kw)
+        into.append(out[0].float().cpu())
+        return out
+    return run
+
+
 def serve_family(card, torch, arch, store, keys, kcfg, launches, *,
-                 cfg=None, path=None, prompts=None) -> dict:
+                 cfg=None, path=None, prompts=None, record=None) -> dict:
     """One family at full width and depth, bf16, seeded weights, through
     ``BatchedServer`` + ``make_knn_hook`` over ``store``: phase 19's
     traffic (8 requests of 512-2,048 tokens, the longest exactly 2,048,
@@ -3073,7 +3096,9 @@ def serve_family(card, torch, arch, store, keys, kcfg, launches, *,
     check. qwen2-vl also runs one prefill and one decode step with 64
     seeded vision embeddings over (t, h, w) positions, counted. ``cfg``
     replaces the arch's config (phase 22: a logit softcap), ``path``
-    names the counted path and ``prompts`` replace the traffic's."""
+    names the counted path and ``prompts`` replace the traffic's. A
+    ``record`` dict gets the prompts, each step's logits (a host copy,
+    outside the timed call) and the generated tokens."""
     import numpy as np
     from repro_torch import configs
     from repro_torch.kernels import ops
@@ -3102,6 +3127,10 @@ def serve_family(card, torch, arch, store, keys, kcfg, launches, *,
                         logits_hook=make_knn_hook(store, kcfg, cfg.vocab))
     srv.prefill_step = timed(srv.prefill_step, prefill_ms)
     srv.decode_step = timed(srv.decode_step, decode_ms)
+    if record is not None:
+        record.update(prompts=prompts, logits=[])
+        srv.prefill_step = recorded(srv.prefill_step, record["logits"])
+        srv.decode_step = recorded(srv.decode_step, record["logits"])
     name = path or "fam_" + arch.split("-")[0]
     retrieved = []
     retrieve = record_retrievals(store, retrieved)
@@ -3114,6 +3143,8 @@ def serve_family(card, torch, arch, store, keys, kcfg, launches, *,
     finally:
         store.retrieve = retrieve
     counts = launches[name] = end_path(ops)
+    if record is not None:
+        record["tokens"] = outs
     peak = torch.cuda.max_memory_allocated()
     waves = -(-FAM_REQUESTS // FAM_BATCH)
     want_fa = attention_calls(cfg) * waves * (FAM_NEW + 1)
@@ -4776,7 +4807,9 @@ def phase_dense_configs(card, torch, rt, launches) -> tuple:
     keys on phase 19's traffic (``serve_family``: K-F layers × 17 times,
     every retrieval exact, the layer check); (c) each reduced config on
     the card and the CPU with the same weights (``reduced_family``).
-    Returns (K-F's cases, the phase's numbers)."""
+    Returns (K-F's cases, the phase's numbers, what phase 26 serves
+    again: the datastore, its keys and config, and qwen3-14b's
+    ``record``)."""
     import dataclasses as dc
     import numpy as np
     from repro_torch import configs
@@ -4793,14 +4826,15 @@ def phase_dense_configs(card, torch, rt, launches) -> tuple:
                             device=DEV)
     kcfg = KnnLMConfig(lam=0.2, tau=50.0, k=8)
     out = {}
+    carry = dict(store=store, keys=keys, kcfg=kcfg, record={})
     for arch in DENSE_ARCHS:
         cfg = configs.get_arch(arch)
         if arch in DENSE_LAYERS:
             cfg = dc.replace(cfg, n_layers=DENSE_LAYERS[arch])
-        out[arch] = serve_family(card, torch, arch, store, keys, kcfg,
-                                 launches, cfg=cfg,
-                                 path="dense_" + arch.split("-")[0])
-    del store
+        out[arch] = serve_family(
+            card, torch, arch, store, keys, kcfg, launches, cfg=cfg,
+            path="dense_" + arch.split("-")[0],
+            record=carry["record"] if arch == TP_ARCH else None)
     torch.cuda.empty_cache()
     rng = np.random.default_rng(24)
     for arch in DENSE_ARCHS:
@@ -4808,7 +4842,7 @@ def phase_dense_configs(card, torch, rt, launches) -> tuple:
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[{card}] phase 24 (qwen3, nemotron, granite) "
           f"{out['phase_s']:.3f} s", flush=True)
-    return cases, out
+    return cases, out, carry
 
 
 DRYRUN_CELLS = (("llama3.2-3b", "train_4k"),           # phase 25: dry-run
@@ -4933,6 +4967,327 @@ def phase_dryrun(card, torch, launches, train_run: dict) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[{card}] phase 25 (dry run) {out['phase_s']:.3f} s", flush=True)
     return out
+
+
+TP_ARCH = "qwen3-14b"          # phase 26: phase 24's qwen3 over 8 model shards
+TP_SHARDS = 8                  # a node's cards: tp_degree(cfg, 8) of each
+TP_GRANITE_LAYERS = 4          # granite-34b at full width, cut to 4 layers
+TP_DECODE = 3                  # decode steps fed fixed tokens (qwen3, granite)
+# the TP replica's served logits against one device's, bf16: ‖Δ‖ / ‖one‖
+# over a step's (B, V) logits. Each layer rounds 8 partial outputs of o
+# and down and 7 sums where one device rounds once; on qwen3's geometry
+# at 40 layers and 1,280 wide the two differ by about what one device's
+# bf16 logits differ from float32's (tools/tp_bf16_gap.py, PERF.md §6)
+TP_LOGIT_REL = 2.0 ** -4
+
+
+def tp_replica(torch, cfg, params):
+    """``params`` cut into ``TP_SHARDS`` model shards, every one on the
+    card (the simulated replica: ``devices=[DEV] * TP_SHARDS``), and
+    their model comm."""
+    from repro_torch.distributed import LocalComm, make_mesh
+    from repro_torch.distributed.tensor_parallel import shard_params_tp
+    mesh = make_mesh((1, TP_SHARDS), ("data", "model"),
+                     devices=[DEV] * TP_SHARDS)
+    shards = shard_params_tp(params, cfg, mesh)
+    torch.cuda.synchronize()
+    return shards, LocalComm(mesh).axis("model")
+
+
+def tp_kf_cases(card, torch) -> list:
+    """K-F vs its plain version at a model shard's shapes of the four
+    dense configs over ``TP_SHARDS`` (qwen3 5 / 1, nemotron and granite
+    6 / 1, llama 3 / 1, d 128): the prefill on the tensor cores (b 8, T
+    2,048, causal), the written-cache decode that ``serve_tp`` and
+    ``granite_tp`` serve (one query over the first 2,064 slots of a
+    longer cache, the strided view ``attn_apply`` passes) and the
+    read-only decode (the cache's 2,064 live keys in place and one
+    appended), SDPA beside each by ``device_ms``."""
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.distributed.tensor_parallel import shard_config
+    gen = torch.Generator(device=DEV).manual_seed(26)
+    shapes = {}
+    for arch in ("qwen3-14b", "nemotron-4-15b", "granite-34b",
+                 "llama3.2-3b"):
+        v = shard_config(configs.get_arch(arch), TP_SHARDS)
+        shapes.setdefault((v.n_heads, v.n_kv_heads, v.dh), []).append(arch)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(
+            torch.bfloat16)
+
+    b, n = FAM_BATCH, LM_PROMPT[1]
+    nk = n + FAM_NEW
+    cases = []
+    for (h, kvh, d), archs in shapes.items():
+        who = " / ".join(archs) + f" shard of {TP_SHARDS}"
+        q, k, v = rand(b, n, h, d), rand(b, n, kvh, d), rand(b, n, kvh, d)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        cases.append(attention_case(
+            card, torch, f"{who}: prefill b={b} nq=nk={n} h={h} kvh={kvh} "
+            f"d={d}", q, k, v, library=lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)))
+        del q, k, v, qt, kt, vt
+        kc, vc = rand(b, nk + 1, kvh, d), rand(b, nk + 1, kvh, d)
+        q1 = rand(b, 1, h, d)
+        kw, vw = kc[:, :nk], vc[:, :nk]
+        q1t, kwt, vwt = (x.transpose(1, 2) for x in (q1, kw, vw))
+        cases.append(attention_case(
+            card, torch, f"{who}: written-cache decode b={b} nq=1 nk={nk} "
+            f"h={h} kvh={kvh} d={d}", q1, kw, vw, library=lambda: (
+                F.scaled_dot_product_attention(q1t, kwt, vwt,
+                                               enable_gqa=True))))
+        del kc, vc, kw, vw, q1t, kwt, vwt
+        kc, vc = rand(b, nk, kvh, d), rand(b, nk, kvh, d)
+        k1, v1 = rand(b, 1, kvh, d), rand(b, 1, kvh, d)
+        kcat = torch.cat([kc, k1], 1).transpose(1, 2)
+        vcat = torch.cat([vc, v1], 1).transpose(1, 2)
+        q1t = q1.transpose(1, 2)
+        cases.append(attention_case(
+            card, torch, f"{who}: read-only decode b={b} nq=1 nk={nk}+1 "
+            f"h={h} kvh={kvh} d={d}", q1, kc, vc, causal=False, k_new=k1,
+            v_new=v1, library=lambda: F.scaled_dot_product_attention(
+                q1t, kcat, vcat, enable_gqa=True)))
+        del kc, vc, q1, k1, v1, kcat, vcat, q1t
+    torch.cuda.empty_cache()
+    return cases
+
+
+def logits_gap(torch, got, want) -> tuple:
+    """(‖got − want‖ / ‖want‖, max |got − want|) of two steps' logits."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return (float((got - want).norm() / want.norm()),
+            float((got - want).abs().max()))
+
+
+def serve_tp(card, torch, carry, launches) -> dict:
+    """Phase 24's qwen3-14b weights (the same seed) cut into
+    ``TP_SHARDS`` model shards on the card, served on phase 24's prompts
+    with its hook through ``BatchedServer(comm=)``, counted (K-F
+    ``TP_SHARDS`` × 40 × 17 times, K-G a decode step at least), every
+    retrieval exact; each step's served logits against phase 24's one
+    device within ``TP_LOGIT_REL`` while the tokens fed so far are the
+    same, and the prefill and ``TP_DECODE`` steps fed phase 24's tokens
+    (``forced_steps``) within it too."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import ModelOptions, count_params, init_params
+    from repro_torch.serve import BatchedServer, ServeConfig, make_knn_hook
+    one = carry["record"]
+    store, keys, kcfg = carry["store"], carry["keys"], carry["kcfg"]
+    cfg = configs.get_arch(TP_ARCH)
+    opts = ModelOptions(dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         opts, device=DEV)
+    n_params = count_params(params)
+    shards, comm = tp_replica(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    t_cut = time.perf_counter() - t0
+    prefill_ms, decode_ms, logits = [], [], []
+    srv = BatchedServer(cfg, ServeConfig(batch=FAM_BATCH), shards, opts,
+                        logits_hook=make_knn_hook(store, kcfg, cfg.vocab),
+                        comm=comm)
+    srv.prefill_step = recorded(timed(srv.prefill_step, prefill_ms), logits)
+    srv.decode_step = recorded(timed(srv.decode_step, decode_ms), logits)
+    retrieved = []
+    retrieve = record_retrievals(store, retrieved)
+    path = "tp_" + TP_ARCH.split("-")[0]
+    begin_path(ops, path)
+    try:
+        t0 = time.perf_counter()
+        outs = srv.generate(one["prompts"], max_new_tokens=FAM_NEW)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+    finally:
+        store.retrieve = retrieve
+    counts = launches[path] = end_path(ops)
+    peak = torch.cuda.max_memory_allocated()
+    waves = -(-len(one["prompts"]) // FAM_BATCH)
+    want_fa = TP_SHARDS * attention_calls(cfg) * waves * (FAM_NEW + 1)
+    check(counts["flash_attention"] == want_fa,
+          f"{TP_ARCH} over {TP_SHARDS} shards: K-F launched "
+          f"{counts['flash_attention']} times, expected {TP_SHARDS} shards "
+          f"x {attention_calls(cfg)} layers x {waves} waves x "
+          f"{FAM_NEW + 1} forwards = {want_fa}")
+    check(counts["distance_topk_gather"] >= waves * FAM_NEW
+          and len(retrieved) == waves * FAM_NEW,
+          f"{TP_ARCH} over {TP_SHARDS} shards: {len(retrieved)} retrievals, "
+          f"launches {counts}")
+    check(all(o.shape == (FAM_NEW,) and ((o >= 0) & (o < cfg.vocab)).all()
+              for o in outs), f"{TP_ARCH} over {TP_SHARDS} shards: "
+          f"malformed generations")
+    keys64 = torch.as_tensor(keys, device=DEV).double()
+    kn64 = (keys64 * keys64).sum(1)
+    for i, (qr, d, ids) in enumerate(retrieved):
+        check_retrieval(card, torch, f"{TP_ARCH} TP decode step {i} "
+                        f"retrieval", qr, keys64, kn64, d, ids, kcfg.k)
+    del keys64, kn64
+    # step s (0 the prefill) reads the tokens of steps < s: compared while
+    # both runs fed the same ones
+    same = [bool(np.array_equal(np.stack([o[:s] for o in outs]),
+                                np.stack([o[:s] for o in one["tokens"]])))
+            for s in range(FAM_NEW + 1)]
+    steps = same.index(False) if False in same else FAM_NEW + 1
+    gaps = [logits_gap(torch, a, b)
+            for a, b in zip(logits[:steps], one["logits"][:steps])]
+    worst = max(g[0] for g in gaps)
+    agree = float(np.mean([np.mean(a == b)
+                           for a, b in zip(outs, one["tokens"])]))
+    print(f"[{card}] {TP_ARCH} tensor parallel over {TP_SHARDS} model shards "
+          f"simulated on the one card (bf16, {n_params} parameters, init + "
+          f"cut {t_cut:.3f} s): {len(outs)} requests, batch {FAM_BATCH}, "
+          f"{FAM_NEW} greedy tokens in {t_gen:.3f} s = "
+          f"{len(outs) * FAM_NEW / t_gen:.1f} tokens/s with the kNN-LM hook "
+          f"(the shards run one after another: not a speed result); prefill "
+          f"{prefill_ms[0]:.3f} ms; decode ms median "
+          f"{float(np.median(decode_ms)):.3f}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; launches {counts}; every retrieval "
+          f"exact; served logits vs phase 24's one device over the {steps} "
+          f"steps fed the same tokens: rel ||d|| max {worst:.4e} (limit "
+          f"{TP_LOGIT_REL:.4e}), by step "
+          f"{[round(g[0], 6) for g in gaps]}, max |d| "
+          f"{max(g[1] for g in gaps):.4e}; tokens equal {agree:.4f}",
+          flush=True)
+    check(worst <= TP_LOGIT_REL,
+          f"{TP_ARCH} over {TP_SHARDS} shards: served logits {worst:.4e} "
+          f"(rel norm) off one device's, past {TP_LOGIT_REL:.4e}")
+    # phase 24's first wave again, fed phase 24's tokens: its steps'
+    # inputs whatever the served tokens did
+    feed = np.stack(one["tokens"][:FAM_BATCH])[:, :TP_DECODE].T
+    forced, _ = forced_steps(torch, cfg, opts, shards,
+                             first_wave(one["prompts"], cfg.vocab),
+                             comm=comm, feed=feed)
+    forced_gaps = [logits_gap(torch, a, b) for a, b in
+                   zip(forced, one["logits"][:TP_DECODE + 1])]
+    forced_worst = max(g[0] for g in forced_gaps)
+    print(f"[{card}] {TP_ARCH} over {TP_SHARDS} shards fed phase 24's "
+          f"tokens (prefill + {TP_DECODE} decode steps): rel ||d|| by step "
+          f"{[round(g[0], 6) for g in forced_gaps]} (limit "
+          f"{TP_LOGIT_REL:.4e}), max |d| "
+          f"{max(g[1] for g in forced_gaps):.4e}", flush=True)
+    check(forced_worst <= TP_LOGIT_REL,
+          f"{TP_ARCH} over {TP_SHARDS} shards fed phase 24's tokens: logits "
+          f"{forced_worst:.4e} (rel norm) off one device's, past "
+          f"{TP_LOGIT_REL:.4e}")
+    del srv, shards
+    torch.cuda.empty_cache()
+    return dict(arch=TP_ARCH, shards=TP_SHARDS, params=n_params,
+                init_cut_s=t_cut, tokens_per_s=len(outs) * FAM_NEW / t_gen,
+                prefill_ms=prefill_ms, decode_ms=decode_ms,
+                decode_ms_median=float(np.median(decode_ms)),
+                peak_bytes=peak, launches=counts, steps_compared=steps,
+                logits_rel=[g[0] for g in gaps],
+                logits_max_abs=[g[1] for g in gaps], tokens_equal=agree,
+                forced_logits_rel=[g[0] for g in forced_gaps],
+                forced_logits_max_abs=[g[1] for g in forced_gaps])
+
+
+def first_wave(prompts, vocab: int):
+    """The first wave of ``prompts`` (ids modulo ``vocab``) left-padded
+    with 0 as ``BatchedServer`` pads it."""
+    import numpy as np
+    wave = [p % vocab for p in prompts[:FAM_BATCH]]
+    tmax = max(map(len, wave))
+    pad = np.zeros((len(wave), tmax), np.int32)
+    for r, p in enumerate(wave):
+        pad[r, tmax - len(p):] = p
+    return pad
+
+
+def forced_steps(torch, cfg, opts, params, pad, *, comm=None, feed=None):
+    """A prefill of ``pad`` and ``TP_DECODE`` decode steps through
+    ``make_serve_step`` (over a model ``comm``, if given), each fed
+    ``feed[s]`` (greedy tokens without it): (each step's served logits,
+    a host float32 copy; the tokens fed)."""
+    from repro_torch.models import init_cache
+    from repro_torch.serve import ServeConfig, make_serve_step
+    prefill, decode = make_serve_step(cfg, ServeConfig(), opts, comm=comm)
+    cache = init_cache(cfg, pad.shape[0], pad.shape[1] + TP_DECODE, opts,
+                       device=DEV, comm=comm)
+    lg, cache = prefill(params, torch.as_tensor(pad, device=DEV), cache)
+    out, toks = [lg.float().cpu()], []
+    for s in range(TP_DECODE):
+        tok = (torch.argmax(lg, -1).to(torch.int32) if feed is None
+               else torch.as_tensor(feed[s], device=DEV))
+        toks.append(tok)
+        lg, cache = decode(params, tok[:, None], cache)
+        out.append(lg.float().cpu())
+    return out, toks
+
+
+def granite_tp(card, torch, prompts, launches) -> dict:
+    """granite-34b at full width cut to ``TP_GRANITE_LAYERS`` layers (its
+    one kv head on every shard), bf16, seeded: a prefill of the first
+    wave of ``prompts`` (ids modulo granite's smaller vocabulary) and
+    ``TP_DECODE`` greedy decode steps on one device, then the same
+    tokens over ``TP_SHARDS`` shards (``forced_steps``), counted (K-F
+    ``TP_SHARDS`` × layers × steps): each step's logits within
+    ``TP_LOGIT_REL``."""
+    import dataclasses as dc
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import ModelOptions, init_params
+    cfg = dc.replace(configs.get_arch("granite-34b"),
+                     n_layers=TP_GRANITE_LAYERS)
+    opts = ModelOptions(dtype=torch.bfloat16)
+    pad = first_wave(prompts, cfg.vocab)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         opts, device=DEV)
+    want, feed = forced_steps(torch, cfg, opts, params, pad)
+    shards, comm = tp_replica(torch, cfg, params)
+    del params
+    begin_path(ops, "tp_granite")
+    got, _ = forced_steps(torch, cfg, opts, shards, pad, comm=comm,
+                          feed=feed)
+    torch.cuda.synchronize()
+    counts = launches["tp_granite"] = end_path(ops)
+    del shards
+    torch.cuda.empty_cache()
+    want_fa = TP_SHARDS * cfg.n_layers * (TP_DECODE + 1)
+    check(counts["flash_attention"] == want_fa,
+          f"granite-34b over {TP_SHARDS} shards: K-F launched "
+          f"{counts['flash_attention']} times, expected {want_fa}")
+    gaps = [logits_gap(torch, a, b) for a, b in zip(got, want)]
+    worst = max(g[0] for g in gaps)
+    print(f"[{card}] granite-34b ({TP_GRANITE_LAYERS} layers, MQA 48 / 1: "
+          f"its kv head on each of {TP_SHARDS} shards) prefill of "
+          f"{pad.shape[0]} x {pad.shape[1]} tokens + {TP_DECODE} decode "
+          f"steps over the one device's tokens: logits vs one device rel "
+          f"||d|| by step {[round(g[0], 6) for g in gaps]} (limit "
+          f"{TP_LOGIT_REL:.4e}), max |d| {max(g[1] for g in gaps):.4e}; "
+          f"launches {counts}", flush=True)
+    check(worst <= TP_LOGIT_REL,
+          f"granite-34b over {TP_SHARDS} shards: logits {worst:.4e} (rel "
+          f"norm) off one device's, past {TP_LOGIT_REL:.4e}")
+    return dict(layers=TP_GRANITE_LAYERS, logits_rel=[g[0] for g in gaps],
+                logits_max_abs=[g[1] for g in gaps], launches=counts)
+
+
+def phase_tensor_parallel(card, torch, launches, carry) -> tuple:
+    """26. Tensor parallelism over ``"model"`` (A10a), every shard
+    simulated on the one card: (a) K-F at the dense configs' shard
+    shapes (``tp_kf_cases``); (b) qwen3-14b at full width and depth over
+    ``TP_SHARDS`` shards through ``BatchedServer`` with phase 24's
+    prompts and hook (``serve_tp``); (c) granite-34b cut to
+    ``TP_GRANITE_LAYERS`` layers over ``TP_SHARDS`` shards
+    (``granite_tp``). Returns (K-F's cases, the phase's numbers)."""
+    t_phase = time.perf_counter()
+    cases = tp_kf_cases(card, torch)
+    out = dict(qwen3=serve_tp(card, torch, carry, launches))
+    prompts = carry["record"]["prompts"]
+    del carry["store"], carry["record"]
+    torch.cuda.empty_cache()
+    out["granite"] = granite_tp(card, torch, prompts, launches)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 26 (tensor parallel) {out['phase_s']:.3f} s",
+          flush=True)
+    return cases, out
 
 
 def main(argv=None) -> int:
@@ -5227,13 +5582,19 @@ def main(argv=None) -> int:
     (out_dir / "phase_23.json").write_text(json.dumps(ex_run,
                                                       default=_json_item))
     # ---- 24. qwen3-14b, nemotron-4-15b and granite-34b at full width
-    dense_cases, dense_run = phase_dense_configs(card, torch, rt, launches)
+    dense_cases, dense_run, dense_carry = phase_dense_configs(
+        card, torch, rt, launches)
     (out_dir / "phase_24.json").write_text(json.dumps(
         dict(dense_run, kf_cases=dense_cases)))
     # ---- 25. the dry run against phase 21's run and a real step
     torch.cuda.empty_cache()
     (out_dir / "phase_25.json").write_text(json.dumps(
         phase_dryrun(card, torch, launches, train_run)))
+    # ---- 26. tensor parallelism over "model": qwen3 and granite sharded
+    tp_cases, tp_run = phase_tensor_parallel(card, torch, launches,
+                                             dense_carry)
+    (out_dir / "phase_26.json").write_text(json.dumps(
+        dict(tp_run, kf_cases=tp_cases)))
     kb_row = dict(name="flash_attention_bwd", route="cuda",
                   source="src/repro_torch/csrc/flash_attn_bwd.cu",
                   replaces="src/repro/models/layers.py:130 (jax.grad of "
@@ -5247,7 +5608,8 @@ def main(argv=None) -> int:
                         "ex_forest_selfjoin", "ex_distributed_join",
                         "ex_serve_retrieval"),
              "distance_topk_gather": ("megastep", "ex_distributed_join",
-                                      "ex_serve_retrieval") + dense,
+                                      "ex_serve_retrieval", "tp_qwen3")
+             + dense,
              "quant_coarse_gather": ("quantized",),
              "distance_topk": ("retrieval",),
              "flash_attention": ("lm_serve", "moe_serve", "moe_arctic",
@@ -5257,7 +5619,8 @@ def main(argv=None) -> int:
                                  "a6e_capped_serve", "a6e_readonly",
                                  "a6e_capped_train", "a6e_sharded_2",
                                  "a6e_sharded_4", "ex_serve_retrieval",
-                                 "ex_train_lm", "ex_train_lm_restart")
+                                 "ex_train_lm", "ex_train_lm_restart",
+                                 "tp_qwen3", "tp_granite")
              + dense,
              "flash_attention_bwd": ("train", "a6e_capped_train",
                                      "a6e_sharded_2", "a6e_sharded_4",
@@ -5269,7 +5632,7 @@ def main(argv=None) -> int:
             row["path_shapes"] = assign_paths
         if row["name"] == "flash_attention":
             row["other_shapes"] += (mla_cases + fam_cases + a6e_kf
-                                    + [ex_kf] + dense_cases)
+                                    + [ex_kf] + dense_cases + tp_cases)
         # the main paths' launches, plus the mesh paths' (phase 18)
         row["launches"] = sum(launches[p][row["name"]]
                               for p in owner[row["name"]] + tuple(mesh_paths))

@@ -18,6 +18,9 @@ The port keeps that shape with plain functions on tensors:
 * :class:`GroupComm` — the same collectives over a ``torch.distributed``
   process group, one shard a process (gloo on the CPU; NCCL across
   cards is the same calls, untested on a one-card host).
+* ``comm.axis(name)`` — the comm along one mesh axis: over the shards
+  that share every other coordinate (the model shards of one data
+  replica, for tensor parallelism), in their order along the axis.
 
 A body written against a comm loops over ``comm.shards`` — every shard
 in one process, or this process's rank — and hands the comm lists of
@@ -74,6 +77,20 @@ class Mesh:
             j, out[name] = divmod(j, self.shape[name])
         return {name: out[name] for name in self.axis_names}
 
+    def axis_groups(self, name: str) -> List[List[int]]:
+        """The shards along axis ``name``: one list for each setting of
+        the other coordinates (in row-major order of those), each list in
+        the order of ``name``'s coordinate."""
+        if name not in self.shape:
+            raise ValueError(f"no axis {name!r} in mesh axes "
+                             f"{self.axis_names}")
+        groups: dict = {}
+        for j in range(self.size):
+            at = self.coords(j)
+            key = tuple(at[a] for a in self.axis_names if a != name)
+            groups.setdefault(key, []).append(j)
+        return list(groups.values())
+
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, devices="
                 f"{[str(d) for d in self.devices]})")
@@ -125,6 +142,19 @@ class LocalComm:
     def device(self, j: int) -> torch.device:
         return self.mesh.devices[j]
 
+    def axis(self, name: str) -> "LocalComm":
+        """The comm along ``name``: a :class:`LocalComm` over the mesh's
+        shards in their order along ``name``. The other axes must have
+        extent 1 (one group: a process that holds several groups drives
+        each over its own mesh)."""
+        groups = self.mesh.axis_groups(name)
+        if len(groups) != 1:
+            raise ValueError(
+                f"LocalComm.axis({name!r}) on a mesh of shape "
+                f"{self.mesh.shape}: {len(groups)} groups along {name!r}, "
+                f"one comm needs the other axes at extent 1")
+        return LocalComm(Mesh(self.mesh.devices, (self.n,), (name,)))
+
     def _check(self, xs):
         if len(xs) != self.n:
             raise ValueError(f"{len(xs)} values for {self.n} shards")
@@ -170,9 +200,12 @@ class GroupComm:
     """The same collectives over a ``torch.distributed`` process group:
     this process is shard ``rank`` and passes one-entry lists. Its shard
     lives on ``device`` — the current card by default, raising without
-    one; a gloo group on the CPU passes ``device="cpu"``."""
+    one; a gloo group on the CPU passes ``device="cpu"``. ``mesh`` (the
+    group's ranks as a mesh's shards, rank j as shard j) lets
+    :meth:`axis` cut the group along an axis."""
 
-    def __init__(self, group=None, device: Optional[Device] = None):
+    def __init__(self, group=None, device: Optional[Device] = None, *,
+                 mesh: Optional[Mesh] = None):
         import torch.distributed as dist
         self._device = resolve_device(
             torch.device("cuda", torch.cuda.current_device())
@@ -184,11 +217,34 @@ class GroupComm:
         self.group = group
         self.rank = dist.get_rank(group)
         self.n = dist.get_world_size(group)
+        if mesh is not None and mesh.size != self.n:
+            raise ValueError(f"a mesh of {mesh.size} shards for a group of "
+                             f"{self.n} ranks")
+        self.mesh = mesh
         self.shards = [self.rank]
         self.devices = [self._device]
 
     def device(self, j: int) -> torch.device:
         return self._device
+
+    def axis(self, name: str) -> "GroupComm":
+        """The comm along ``name`` through this rank: a :class:`GroupComm`
+        over a new process group of the ranks that share this rank's
+        other coordinates, ranked in their order along ``name``. Every
+        rank of the group must call it (``new_group`` is collective: each
+        rank makes every group along the axis, in the same order)."""
+        if self.mesh is None:
+            raise ValueError("GroupComm.axis needs the group's mesh "
+                             "(GroupComm(..., mesh=...))")
+        mine = None
+        for ranks in self.mesh.axis_groups(name):
+            world = [r if self.group is None
+                     else self._dist.get_global_rank(self.group, r)
+                     for r in ranks]
+            group = self._dist.new_group(world)
+            if self.rank in ranks:
+                mine = group
+        return GroupComm(mine, self._device)
 
     def _one(self, xs) -> torch.Tensor:
         if len(xs) != 1:

@@ -1,0 +1,182 @@
+"""Tensor parallelism over the mesh's ``"model"`` axis for serving the
+dense decoders — where GSPMD's work stands in the JAX package, which
+places heads, the FFN width and the vocabulary on ``"model"``
+(``param_pspecs(mode="serve")``) and lets XLA insert the collectives.
+The port has no compiler to propagate a layout, so it cuts the weights
+itself and calls the two collectives the block needs.
+
+A serving replica is ``t`` model shards. Model shard ``m`` holds
+
+* its heads ``[m·h/t, (m+1)·h/t)``: their q columns and o rows, whole
+  heads (``t`` divides ``h``), and the kv heads they read: kv heads
+  ``[m·kvh/t, (m+1)·kvh/t)`` where ``t`` divides ``kvh``, else (``t`` a
+  multiple of ``kvh``) the one kv head ``m // (t / kvh)``, held by
+  ``t / kvh`` shards — granite's single kv head on every shard, the JAX
+  rule ``"kv"`` → ``None`` (its k / v projections replicated);
+* its ``d_ff / t`` columns of gate and up and its rows of down;
+* its ``V / t`` rows of the embedding and columns of the head, where
+  ``t`` divides ``V``; else both whole (``param_pspecs``: a mesh axis
+  that does not divide its dimension is dropped);
+* the norms (and qwen3's q / k norms) whole, and its kv heads' cache.
+
+So a shard's q head ``i`` reads its local kv head ``i // (h/kvh)`` in
+both cases, and every shard runs the model's own ``attn_apply`` and
+``mlp_apply`` on its tree with :func:`shard_config`'s view of the config.
+The outputs of o and down are partial sums over the shard's heads or FFN
+columns: each comes out of its matrix product rounded to the model's
+dtype, and the psum over the model comm (``comm.psum``) adds them in
+shard order (each add rounded to the dtype) before the residual add
+(``models.blocks.block_apply_tp``). The replica computes one device's
+function up to that order: in float32 ~1e-7 of a logit's scale, in bf16
+``t`` roundings of the partials and ``t − 1`` of the sums where one
+device rounds the whole product once. The embedding's sum adds one
+shard's rows to zeros, which is exact.
+
+The entries follow ``distributed.sharding.param_pspecs(mode="serve")``'s
+``"model"`` placements (its ``"data"`` entries do not apply: a data
+replica holds its model shards whole), except that q / k / v / o are cut
+at head boundaries. Full trees stay the interchange: ``shard_params_tp``
+cuts a whole tree (``init_params``, ``models.params_from_jax``,
+a checkpoint).
+
+Not yet split (ROADMAP A10c, :func:`unsplit_blocks`): MoE experts, MLA's
+latent heads, the recurrent and local kinds, cross-attention and the
+vision merge; training over ``"model"`` is A10b.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, List, Optional, Sequence
+
+import torch
+
+from ..configs.base import ATTN, ArchConfig
+from ..tree import get_path, path_str, tree_map_with_path
+from .mesh import Mesh
+from .sharding import param_pspecs
+
+__all__ = ["unsplit_blocks", "tp_degree", "shard_config", "shard_params_tp",
+           "gather_vocab", "embed_lookup"]
+
+
+def unsplit_blocks(cfg: ArchConfig) -> List[str]:
+    """What of ``cfg``'s model has no split over ``"model"`` yet (empty
+    for a dense decoder)."""
+    out = []
+    if cfg.moe is not None:
+        out.append("MoE experts")
+    if cfg.mla is not None:
+        out.append("MLA latent heads")
+    other = sorted({kind for unit, _ in cfg.layout() for kind in unit}
+                   - {ATTN})
+    if other:
+        out.append(f"layer kinds {other}")
+    if cfg.n_enc_layers:
+        out.append("cross-attention over an encoder")
+    if cfg.n_vision_embeds or cfg.rope == "mrope":
+        out.append("the vision merge (M-RoPE)")
+    if cfg.rope == "none" and cfg.abs_pos:
+        out.append("absolute position embeddings")
+    return out
+
+
+def _fits(cfg: ArchConfig, t: int) -> bool:
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    return (h % t == 0 and (kvh % t == 0 or t % kvh == 0)
+            and cfg.d_ff % t == 0)
+
+
+def tp_degree(cfg: ArchConfig, t: int) -> int:
+    """The largest extent ``u ≤ t`` that splits ``cfg`` at head
+    boundaries: ``u`` divides the heads and the FFN width, and divides
+    or is a multiple of the kv heads. Raises for an arch whose blocks are
+    not yet split (:func:`unsplit_blocks`)."""
+    rest = unsplit_blocks(cfg)
+    if rest:
+        raise ValueError(f"{cfg.name}: tensor parallelism over 'model' "
+                         f"splits the dense decoder block only; "
+                         f"{', '.join(rest)} are not split yet (ROADMAP "
+                         f"A10c)")
+    if t < 1:
+        raise ValueError(f"a model axis of {t}")
+    return next(u for u in range(t, 0, -1) if _fits(cfg, u))
+
+
+def shard_config(cfg: ArchConfig, t: int) -> ArchConfig:
+    """A model shard's view of ``cfg`` at extent ``t``: its heads, kv
+    heads and FFN width, ``head_dim`` pinned to the whole model's (an
+    unset ``head_dim`` is ``d_model // n_heads``, which a shard's fewer
+    heads would change). Raises unless ``tp_degree(cfg, t) == t``."""
+    if tp_degree(cfg, t) != t:
+        raise ValueError(
+            f"{cfg.name} does not split {t} ways at head boundaries "
+            f"(heads {cfg.n_heads}, kv heads {cfg.n_kv_heads}, d_ff "
+            f"{cfg.d_ff}); the largest extent up to {t} is "
+            f"{tp_degree(cfg, t)}")
+    return dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // t,
+        n_kv_heads=max(cfg.n_kv_heads // t, 1), d_ff=cfg.d_ff // t,
+        head_dim=cfg.dh)
+
+
+_KV = re.compile(r"(^|/)(k|v)/w$")
+
+
+def shard_params_tp(params: Any, cfg: ArchConfig, mesh: Mesh, *,
+                    shards: Optional[Sequence[int]] = None,
+                    device=None) -> List[Any]:
+    """``params`` (a whole tree of ``cfg``) cut for the mesh's shards
+    ``shards`` (every shard by default) along its ``"model"`` axis (module
+    docstring): one tree a shard, each leaf a contiguous copy on the
+    shard's device (``device``, if given, for every shard)."""
+    t = mesh.shape.get("model", 1)
+    shard_config(cfg, t)               # raises unless t splits cfg
+    kvh, dh = cfg.n_kv_heads, cfg.dh
+    specs = param_pspecs(params, mesh, mode="serve",
+                         kv_heads_divide=kvh % t == 0, cfg=cfg)
+    shards = range(mesh.size) if shards is None else shards
+
+    def part(path, x, m: int) -> torch.Tensor:
+        sl = [slice(None)] * x.dim()
+        for d, entry in enumerate(get_path(specs, path)):
+            if entry == "model":
+                size = x.shape[d] // t
+                sl[d] = slice(m * size, (m + 1) * size)
+        if t > kvh and _KV.search(path_str(path)):
+            g = m // (t // kvh)           # the kv head of m's q heads
+            sl[-1] = slice(g * dh, (g + 1) * dh)
+        return x[tuple(sl)]
+
+    out = []
+    for j in shards:
+        m = mesh.coords(j).get("model", 0)
+        dev = mesh.devices[j] if device is None else device
+        out.append(tree_map_with_path(
+            lambda p, x: part(p, x, m).to(dev, copy=True).contiguous(),
+            params))
+    return out
+
+
+def gather_vocab(comm, xs: Sequence[torch.Tensor],
+                 vocab: int) -> List[torch.Tensor]:
+    """Every shard's ``(..., V / t)`` logits gathered into ``(..., V)``,
+    shard m's columns at ``[m·V/t, (m+1)·V/t)`` (an all-gather); logits
+    that are already ``vocab`` wide (a head kept whole) come back as
+    they are."""
+    if xs[0].shape[-1] == vocab:
+        return list(xs)
+    return [y.movedim(0, -2).reshape(*y.shape[1:-1], -1)
+            for y in comm.all_gather(list(xs))]
+
+
+def embed_lookup(embed: torch.Tensor, ids: torch.Tensor,
+                 m: int) -> torch.Tensor:
+    """Model shard ``m``'s part of the embedding lookup: the rows of the
+    ids in its range ``[m·n, (m+1)·n)`` (``n`` its rows), zeros for the
+    others, which no index reads out of bounds."""
+    n = embed.shape[0]
+    local = ids - m * n
+    hit = (local >= 0) & (local < n)
+    rows = embed[local.clamp(0, n - 1)]
+    return torch.where(hit[..., None], rows, rows.new_zeros(()))

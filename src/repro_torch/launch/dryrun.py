@@ -7,9 +7,10 @@ and what bounds its step: per-device memory against the card's, flops
 and HBM bytes, collective bytes by kind, the three roofline terms and
 the useful-flop ratio. The cells are ``SHAPES × runnable_cells``; each
 step is what the port runs (``launch.specs``: FSDP over the data axes
-for train, a data-parallel replica with whole weights for prefill and
-decode — the port runs no tensor parallelism), counted by
-``launch.cost``. A cell that does not fit is a record with ``fits_hbm``
+for train; for prefill and decode rank 0 of a tensor-parallel replica
+over ``"model"`` for the dense decoders, a data-parallel replica with
+whole weights for the others — ``launch.mesh.model_extent`` says which,
+and the record says why), counted by ``launch.cost``. A cell that does not fit is a record with ``fits_hbm``
 false, not a failure; a cell that raises is a failure. Allocates
 nothing and asks for no card.
 
@@ -33,7 +34,7 @@ import traceback
 
 from ..configs import ARCH_IDS, SHAPES, get_arch, runnable_cells
 from .cost import trace_step
-from .mesh import make_production_mesh
+from .mesh import make_production_mesh, model_extent
 from .specs import build_cell
 
 # H100 SXM data sheet, per card
@@ -55,6 +56,22 @@ def roofline(cost, *, cross_node: bool) -> dict:
     return r
 
 
+def no_fit_reason(cost, notes: str) -> str:
+    """Why a cell's peak passes the card: its largest part of the peak,
+    and a batch every replica serves whole where the cell replicates
+    it."""
+    parts = {"arguments (weights, cache, inputs)": cost.argument_bytes,
+             "temporaries": cost.temp_bytes, "outputs": cost.output_bytes}
+    big = max(parts, key=parts.get)
+    why = (f"peak {cost.peak_bytes / 2 ** 30:.1f} GiB over "
+           f"{HBM_BYTES / 2 ** 30:.1f} GiB, {parts[big] / 2 ** 30:.1f} GiB "
+           f"of it {big}")
+    if " replicated on " in notes:
+        why += ("; the batch does not split over the data replicas, so "
+                "every replica serves every row")
+    return why
+
+
 def model_flops(arch, shape, kind: str) -> float:
     """The step's model flops over every device: 6·N_active·tokens for
     train, 2·N_active·tokens for prefill, 2·N_active a decoded token (the
@@ -70,15 +87,17 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
              verbose: bool = True) -> dict:
     """One cell's record (the JAX dry run's field names where the meaning
     is the same)."""
-    mesh = make_production_mesh(multi_pod=multi_pod)
     arch = get_arch(arch_name)
+    t, layout = model_extent(arch, SHAPES[shape_name].kind)
+    mesh = make_production_mesh(multi_pod=multi_pod, model=t)
     t0 = time.time()
     cell = build_cell(arch, shape_name, mesh)
     rec = {
         "arch": arch_name, "shape": shape_name,
         "mesh": "x".join(str(mesh.shape[a]) for a in mesh.axis_names),
+        "mesh_axes": list(mesh.axis_names),
         "chips": mesh.size, "kind": cell.kind, "notes": cell.notes,
-        "tensor_parallel": False,
+        "tensor_parallel": t > 1, "layout": layout,
     }
     rec["build_s"] = round(time.time() - t0, 1)
     t1 = time.time()
@@ -88,6 +107,8 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
     rec["memory"] = cost.memory()
     rec["memory"]["hbm_bytes"] = HBM_BYTES
     rec["memory"]["fits_hbm"] = cost.peak_bytes <= HBM_BYTES
+    if not rec["memory"]["fits_hbm"]:
+        rec["no_fit_reason"] = no_fit_reason(cost, cell.notes)
     rec["cost"] = {"flops": cost.flops, "bytes": cost.bytes,
                    "flops_by_op": cost.flops_by_op}
     rec["collectives"] = dict(cost.collectives)
@@ -109,7 +130,9 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
               f"bottleneck={r['bottleneck']} "
               f"useful={rec['useful_flop_ratio']:.2f} "
               f"build={rec['build_s']}s trace={rec['trace_s']}s "
-              f"({rec['notes']})", flush=True)
+              f"({rec['notes']})"
+              + (f" [does not fit: {rec['no_fit_reason']}]"
+                 if "no_fit_reason" in rec else ""), flush=True)
     return rec
 
 

@@ -3,24 +3,39 @@
 no device.
 
 The JAX package's production mesh is a 16 × 16 v5e pod ``("data",
-"model")``, or two of them ``("pod", "data", "model")``. The port runs no
-tensor parallelism (``train.fsdp`` refuses a ``"model"`` axis wider than
-1), so its production mesh has the same device counts with no
-``"model"`` axis: 256 H100s along ``"data"``, or 2 × 256 along ``("pod",
-"data")``. The devices are abstract (the dry run allocates nothing, and
-no card is asked for): nodes of ``NODE_CARDS`` cards joined by NVLink,
-the nodes by the network.
+"model")``, or two of them ``("pod", "data", "model")``. The port's mesh
+has the same device counts: 256 H100s, or 2 × 256. Its model axis
+(:func:`model_extent`):
+
+* the dense decoders' serving cells (prefill, decode) are tensor
+  parallel over ``t = tensor_parallel.tp_degree(cfg, NODE_CARDS)`` cards
+  of one node: ``(256 / t, t)`` over ``("data", "model")``, or ``(2,
+  256 / t, t)`` over ``("pod", "data", "model")``. 8 rather than the JAX
+  package's 16: past a node every layer's all-reduce would cross the
+  network, and the port splits whole heads (24 and 40 do not split 16
+  ways);
+* every train cell (``train.fsdp`` refuses a ``"model"`` axis wider
+  than 1: ROADMAP A10b) and the other archs' serving cells (their blocks
+  are not split yet: A10c) have none: 256 along ``"data"``, or 2 × 256
+  along ``("pod", "data")``.
+
+The devices are abstract (the dry run allocates nothing, and no card is
+asked for): nodes of ``NODE_CARDS`` cards joined by NVLink, the nodes by
+the network.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
+from ..configs.base import ArchConfig
 from ..distributed.mesh import Mesh
+from ..distributed.tensor_parallel import tp_degree, unsplit_blocks
 
-__all__ = ["NODE_CARDS", "POD_CARDS", "AbstractMesh", "make_production_mesh"]
+__all__ = ["NODE_CARDS", "POD_CARDS", "AbstractMesh", "model_extent",
+           "make_production_mesh"]
 
 NODE_CARDS = 8      # H100s a node (an HGX H100 board: NVLink all to all)
 POD_CARDS = 256     # the JAX package's pod: 16 × 16 chips
@@ -46,10 +61,35 @@ class AbstractMesh(Mesh):
         self.shape = dict(zip(names, shape))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+def model_extent(arch: ArchConfig, kind: str) -> Tuple[int, str]:
+    """(the cell's model axis, why): ``tp_degree(arch, NODE_CARDS)`` for
+    a dense decoder's prefill or decode cell, else 1 (module
+    docstring)."""
+    if kind == "train":
+        return 1, ("train: FSDP over the data axes, no model axis "
+                   "(ROADMAP A10b)")
+    rest = unsplit_blocks(arch)
+    if rest:
+        return 1, (f"{kind}: whole weights a replica; {', '.join(rest)} "
+                   f"not split over 'model' yet (ROADMAP A10c)")
+    t = tp_degree(arch, NODE_CARDS)
+    return t, (f"{kind}: tensor parallel over 'model' = {t} cards of a "
+               f"node (heads {arch.n_heads // t}, kv heads "
+               f"{max(arch.n_kv_heads // t, 1)} a shard)")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         model: int = 1) -> AbstractMesh:
     """256 H100s along ``"data"``; with ``multi_pod`` 2 × 256 along
     ``("pod", "data")`` — the device counts of the JAX package's 16 × 16
-    and 2 × 16 × 16 v5e meshes (data parallelism across pods)."""
-    if multi_pod:
-        return AbstractMesh((2, POD_CARDS), ("pod", "data"))
-    return AbstractMesh((POD_CARDS,), ("data",))
+    and 2 × 16 × 16 v5e meshes (data parallelism across pods). With
+    ``model`` > 1 the last axis is ``"model"`` of that extent: ``(256 /
+    model, model)``, or ``(2, 256 / model, model)``."""
+    lead = ((2,), ("pod",)) if multi_pod else ((), ())
+    if model == 1:
+        return AbstractMesh(lead[0] + (POD_CARDS,), lead[1] + ("data",))
+    if POD_CARDS % model:
+        raise ValueError(f"a model axis of {model} does not divide a pod "
+                         f"of {POD_CARDS}")
+    return AbstractMesh(lead[0] + (POD_CARDS // model, model),
+                        lead[1] + ("data", "model"))

@@ -11,6 +11,15 @@ PyTorch port of the JAX package's ``launch.serve``.
 
 Runs on the card (bf16 at full width, float32 with ``--reduced``);
 ``--device cpu`` runs the plain PyTorch versions of the kernels.
+
+``--tp N`` serves one tensor-parallel replica of a dense decoder over N
+model shards (``distributed.tensor_parallel``): on N cards, or on the
+devices ``--devices`` lists (N entries; ``cuda:0,cuda:0`` puts two
+shards on one card, ``cpu,cpu`` two on the CPU) — nothing falls back to
+one device:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+      --reduced --tp 2 --devices cpu,cpu --retrieval
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ import torch
 
 from ..configs import ARCH_IDS, get_arch, get_reduced
 from ..device import resolve_device
+from ..distributed import LocalComm, make_mesh
+from ..distributed.tensor_parallel import shard_params_tp
 from ..models import ModelOptions, init_params
 from ..serve import (BatchedServer, Datastore, KnnLMConfig, ServeConfig,
                      interpolate, knn_logits)
@@ -37,6 +48,11 @@ def main(argv=None):
     ap.add_argument("--retrieval", action="store_true")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="model shards of the tensor-parallel replica")
+    ap.add_argument("--devices", default=None,
+                    help="with --tp: the shards' devices, comma-separated "
+                         "(default: --tp cards)")
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
@@ -44,11 +60,23 @@ def main(argv=None):
         ap.error(f"{args.arch} is an encoder-decoder arch: BatchedServer "
                  f"passes no encoder output; serve it through "
                  f"serve.make_serve_step with enc_out=models.encode(...)")
-    dev = resolve_device(args.device)
+    comm = mesh = None
+    if args.tp > 1:
+        mesh = make_mesh((1, args.tp), ("data", "model"), devices=None
+                         if args.devices is None
+                         else args.devices.split(","))
+        comm = LocalComm(mesh).axis("model")
+        dev = mesh.devices[0]
+    elif args.devices is not None:
+        ap.error("--devices places the shards of --tp N > 1")
+    else:
+        dev = resolve_device(args.device)
     opts = ModelOptions(dtype=torch.float32 if args.reduced
                         else torch.bfloat16)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          opts, device=dev)
+    if mesh is not None:
+        params = shard_params_tp(params, cfg, mesh)
     rng = np.random.default_rng(0)
 
     hook = None
@@ -66,7 +94,7 @@ def main(argv=None):
 
     srv = BatchedServer(
         cfg, ServeConfig(batch=args.batch, temperature=args.temperature),
-        params, opts, logits_hook=hook)
+        params, opts, logits_hook=hook, comm=comm)
     prompts = [rng.integers(0, cfg.vocab, int(rng.integers(4, 16)))
                for _ in range(args.requests)]
     t0 = time.time()
@@ -77,6 +105,7 @@ def main(argv=None):
              else "cpu")
     print(f"{args.requests} requests × {args.new_tokens} tokens in {dt:.2f}s"
           f" ({total/dt:.1f} tok/s) on {where}"
+          f"{f' over {args.tp} model shards' if comm else ''}"
           f"{' with kNN-LM retrieval' if hook else ''}")
     for i, o in enumerate(outs[:4]):
         print(f"  req {i}: {list(o)[:10]}{'…' if len(o) > 10 else ''}")

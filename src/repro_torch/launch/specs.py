@@ -15,10 +15,15 @@ the programs the port runs, not what XLA would make of the JAX package:
   one device, ``train.make_train_step``'s step (``launch/train.py``
   without ``--shards``);
 - **prefill** and **decode** (:func:`build_prefill_cell`,
-  :func:`build_decode_cell`): ``models.forward`` as one data-parallel
-  replica with whole weights, as ``launch/serve.py`` runs on each card.
-  The port has no tensor parallelism, so no weight is split over the
-  devices; a mesh's ``"model"`` axis must have extent 1.
+  :func:`build_decode_cell`): on a mesh whose ``"model"`` axis is wider
+  than 1 (the dense decoders, ``launch.mesh.model_extent``), rank 0's
+  shard of a tensor-parallel replica (``launch/serve.py --tp t`` on each
+  card): ``models.forward`` over rank 0's cut of the weights
+  (``tensor_parallel.shard_params_tp``) and its kv heads' cache, its
+  all-reduces and the served position's logit gather recorded by a
+  :class:`launch.cost.RecordingComm` of ``t`` ranks; else one
+  data-parallel replica with whole weights, as ``launch/serve.py``
+  runs on each card.
 
 As in the JAX package: bf16 weights, remat for train, the read-only
 cache for decode (``model_options``; its ``chunk_q`` has no counterpart:
@@ -46,6 +51,8 @@ import torch
 
 from ..configs.base import SHAPES, ArchConfig, ShapeConfig
 from ..distributed.mesh import Mesh
+from ..distributed.tensor_parallel import (gather_vocab, shard_config,
+                                           shard_params_tp)
 from ..models import ModelOptions, forward, init_cache, init_params
 from ..train import OptConfig, TrainConfig, make_train_step
 from .cost import RecordingComm, abstract
@@ -82,12 +89,17 @@ def _batch_axes(mesh: Mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
-def _replicas(mesh: Mesh) -> int:
+def _replicas(mesh: Mesh, *, serve: bool = False) -> int:
+    """The data replicas (the batch axes' product); a ``"model"`` axis
+    wider than 1 only in serving (``serve``), where it is tensor
+    parallelism."""
+    allowed = ("pod", "data") + (("model",) if serve else ())
     others = {a: n for a, n in mesh.shape.items()
-              if a not in ("pod", "data") and n != 1}
+              if a not in allowed and n != 1}
     if others:
         raise ValueError(f"mesh axes {others} would need tensor "
-                         f"parallelism, which the port does not run")
+                         f"parallelism, which the port runs for serving "
+                         f"only (training over 'model' is ROADMAP A10b)")
     return math.prod(mesh.shape[a] for a in _batch_axes(mesh))
 
 
@@ -191,50 +203,87 @@ def _global_view(x: torch.Tensor, n: int, ax: int) -> torch.Tensor:
 def _serve_batch(shape: ShapeConfig, mesh: Mesh) -> Tuple[int, str]:
     """Rows a replica serves: the batch split over the data axes where it
     divides them, else every row (replicated)."""
-    nb = _replicas(mesh)
+    nb = _replicas(mesh, serve=True)
     b = shape.global_batch
     if b % nb == 0 and b >= nb:
         return b // nb, f"B={b} split over {nb} replicas"
     return b, f"B={b} replicated on {nb} replicas"
 
 
+class _Serving:
+    """A serving cell's weights and forward on ``mesh``: whole weights,
+    or rank 0's shard of a tensor-parallel replica when the mesh has a
+    ``"model"`` axis wider than 1 (module docstring)."""
+
+    def __init__(self, arch: ArchConfig, opts: ModelOptions, mesh: Mesh):
+        self.arch, self.opts = arch, opts
+        self.t = mesh.shape.get("model", 1)
+        params = abstract_params(arch, opts)
+        if self.t == 1:
+            self.params, self.comm, self.cache_cfg = params, None, arch
+            self.weights = "whole weights"
+            return
+        self.comm = RecordingComm(self.t, META,
+                                  spans_nodes=self.t > NODE_CARDS)
+        self.params = shard_params_tp(params, arch, mesh, shards=[0],
+                                      device=META)[0]
+        self.cache_cfg = shard_config(arch, self.t)
+        self.weights = (f"TP over model={self.t} (rank 0's shard: "
+                        f"{self.cache_cfg.n_heads} heads, "
+                        f"{self.cache_cfg.n_kv_heads} kv heads)")
+
+    def last_logits(self, params, tokens, *, cache=None, **kw):
+        """``forward``'s served position: ``(logits (B, V), cache)``."""
+        if self.comm is None:
+            logits, cache = forward(params, self.arch, tokens, cache=cache,
+                                    opts=self.opts, **kw)
+            return logits[:, -1], cache
+        logits, caches = forward([params], self.arch, tokens,
+                                 cache=None if cache is None else [cache],
+                                 opts=self.opts, comm=self.comm, **kw)
+        return (gather_vocab(self.comm, [logits[0][:, -1]],
+                             self.arch.vocab)[0],
+                None if caches is None else caches[0])
+
+
 def build_prefill_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh
                        ) -> Cell:
     opts = model_options(arch, shape)
     b, layout = _serve_batch(shape, mesh)
-    params = abstract_params(arch, opts)
+    serving = _Serving(arch, opts, mesh)
     tokens = torch.empty((b, shape.seq_len), dtype=torch.int32, device=META)
     extras = _extras(arch, (b,), shape.seq_len, "prefill")
 
     def step(params, tokens, extras):
-        with torch.no_grad():
-            logits, _ = forward(params, arch, tokens, opts=opts,
-                                mode="prefill", **extras)
-            return logits[:, -1]       # serving returns last-position logits
+        with torch.no_grad():      # serving returns last-position logits
+            return serving.last_logits(params, tokens, mode="prefill",
+                                       **extras)[0]
 
-    return Cell(arch, shape, opts, step, (params, tokens, extras), "prefill",
-                None, f"{layout} T={shape.seq_len} whole weights")
+    return Cell(arch, shape, opts, step, (serving.params, tokens, extras),
+                "prefill", serving.comm,
+                f"{layout} T={shape.seq_len} {serving.weights}")
 
 
 def build_decode_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh
                       ) -> Cell:
     opts = model_options(arch, shape)
     b, layout = _serve_batch(shape, mesh)
-    params = abstract_params(arch, opts)
-    cache = abstract(init_cache, arch, b, shape.cache_len, opts, device="cpu")
+    serving = _Serving(arch, opts, mesh)
+    cache = abstract(init_cache, serving.cache_cfg, b, shape.cache_len, opts,
+                     device="cpu")
     cache["pos"] = shape.cache_len - 1
     token = torch.empty((b, 1), dtype=torch.int32, device=META)
     extras = _extras(arch, (b,), 1, "decode")
 
     def step(params, token, cache, extras):
         with torch.no_grad():
-            logits, fresh = forward(params, arch, token, cache=cache,
-                                    opts=opts, mode="decode", **extras)
-            return logits[:, -1], fresh
+            return serving.last_logits(params, token, cache=cache,
+                                       mode="decode", **extras)
 
-    return Cell(arch, shape, opts, step, (params, token, cache, extras),
-                "decode", None,
-                f"{layout} C={shape.cache_len} readonly whole weights")
+    return Cell(arch, shape, opts, step,
+                (serving.params, token, cache, extras), "decode",
+                serving.comm, f"{layout} C={shape.cache_len} readonly "
+                f"{serving.weights}")
 
 
 def build_cell(arch: ArchConfig, shape_name: str, mesh: Mesh) -> Cell:

@@ -16,10 +16,17 @@ place and returned, a recurrent state is a new dict. With ``readonly``
 (the read-only serving cache's decode) an attention cache is not written
 and the attention's fresh pieces come back in its place
 (``layers.attn_apply``).
+
+``block_apply_tp`` runs one dense layer (``ATTN``) over a model comm
+(tensor parallelism, ``distributed.tensor_parallel``): each shard's
+``attn_apply`` and ``mlp_apply`` on its own tree and the shards' view of
+the config; the two partial outputs (o's, down's, each rounded to the
+model's dtype by its product) are summed over the comm in shard order
+before each residual add.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -30,7 +37,8 @@ from .layers import (attn_apply, attn_init, apply_norm, dense, mla_apply,
                      mla_cache, mla_init, mlp_apply, mlp_init, norm_init)
 from .moe import moe_apply, moe_init
 
-__all__ = ["block_init", "block_apply", "init_block_cache"]
+__all__ = ["block_init", "block_apply", "block_apply_tp",
+           "init_block_cache"]
 
 Params = Dict[str, Any]
 _ATTN_KINDS = (ATTN, ATTN_BIDIR, LOCAL)
@@ -128,6 +136,31 @@ def block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     x = x + a
     x = x + _ffn_apply(p, apply_norm(p["norm2"], x, cfg.norm), cfg)
     return x, cache
+
+
+def block_apply_tp(kind: str, ps: List[Params], xs: List[torch.Tensor],
+                   cfg: ArchConfig, comm, *, positions: List[torch.Tensor],
+                   caches: Optional[List[Params]] = None, pos: int = 0,
+                   readonly: bool = False
+                   ) -> Tuple[List[torch.Tensor], List[Optional[Params]]]:
+    """One ``ATTN`` layer over a model comm: ``ps``, ``xs``,
+    ``positions`` and ``caches`` hold one entry a shard of
+    ``comm.shards``; ``cfg`` is the shards' view
+    (``tensor_parallel.shard_config``). Returns the shards' outputs and
+    caches (module docstring)."""
+    if kind != ATTN or cfg.mla is not None or "mlp" not in ps[0]:
+        raise ValueError(f"tensor parallelism splits the dense decoder "
+                         f"block, not {kind!r} (ROADMAP A10c)")
+    caches = [None] * len(ps) if caches is None else caches
+    outs = [attn_apply(p["attn"], apply_norm(p["norm1"], x, cfg.norm), cfg,
+                       positions=at, cache=c, pos=pos, readonly=readonly)
+            for p, x, at, c in zip(ps, xs, positions, caches)]
+    a = comm.psum([o for o, _ in outs])
+    xs = [x + y for x, y in zip(xs, a)]
+    f = comm.psum([
+        mlp_apply(p["mlp"], apply_norm(p["norm2"], x, cfg.norm), cfg.act)
+        for p, x in zip(ps, xs)])
+    return [x + y for x, y in zip(xs, f)], [c for _, c in outs]
 
 
 def init_block_cache(kind: str, cfg: ArchConfig, batch: int, cache_len: int,

@@ -25,6 +25,18 @@ the step's fresh pieces (``{"k_new", "v_new", "pos"}``; MLA
 "xv"}``) and whose ring and recurrent layers hold their new state, and
 :func:`append_readonly` writes those pieces into the cache out of band.
 
+Tensor parallelism over a model comm (``comm=``; serving the dense
+decoders, ``distributed.tensor_parallel``): ``forward`` takes one tree a
+shard of ``comm.shards`` (``shard_params_tp``'s cut) and one cache a
+shard (``init_cache(comm=)``, sized by the shard's kv heads), and returns
+each shard's logits over its vocabulary columns, ``(B, T, V / t)``, or
+whole where ``t`` does not divide the vocabulary. Each shard looks up the
+ids in its vocabulary range, zeros the rest, and the shards' rows are
+summed; each layer sums the shards' attention and FFN outputs
+(``blocks.block_apply_tp``); the serve steps gather the served
+position's logits (``tensor_parallel.gather_vocab``). On one device
+(no comm) nothing of this runs.
+
 Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
 fills the cache from position 0 on), ``decode`` (positions continue from
 the cache's). In ``train`` mode with ``ModelOptions.remat`` and grad
@@ -43,7 +55,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ATTN_BIDIR, ArchConfig
 from ..device import resolve_device
-from .blocks import block_apply, block_init, init_block_cache
+from ..distributed.tensor_parallel import embed_lookup, shard_config
+from .blocks import block_apply, block_apply_tp, block_init, init_block_cache
 from .layers import apply_norm, norm_init, normal_init
 
 __all__ = ["ModelOptions", "init_params", "init_cache", "encode", "forward",
@@ -106,8 +119,14 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                opts: ModelOptions = ModelOptions(), *,
-               device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
-    """An empty decode cache at position 0."""
+               device: Union[str, torch.device] = "cuda", comm=None):
+    """An empty decode cache at position 0. With a model ``comm`` (tensor
+    parallelism), one a shard of ``comm.shards``, on the shard's device,
+    holding the shard's kv heads (``device`` is not used)."""
+    if comm is not None:
+        lcfg = shard_config(cfg, comm.n)
+        return [init_cache(lcfg, batch, cache_len, opts,
+                           device=comm.device(j)) for j in comm.shards]
     dev = resolve_device(device)
     return {"pos": 0,
             "layers": [init_block_cache(kind, cfg, batch, cache_len,
@@ -143,6 +162,7 @@ def forward(
     vision_embeds: Optional[torch.Tensor] = None,
     opts: ModelOptions = ModelOptions(),
     mode: str = "train",
+    comm=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns ``(logits (B, T, V) float32, cache)``; with a cache, its
     position advances by T. An encoder-decoder arch needs ``enc_out``
@@ -150,17 +170,21 @@ def forward(
     ``vision_embeds`` (B, n_vision_embeds, D) replace the first
     positions' embeddings outside decode. With
     ``opts.readonly_cache`` a decode step leaves ``cache`` untouched and
-    returns a new one (module docstring)."""
-    b, t = tokens.shape
+    returns a new one (module docstring). With a model ``comm``,
+    ``params`` and ``cache`` are lists with one entry a shard and so are
+    the logits and caches returned (module docstring)."""
+    if comm is not None:
+        if enc_frames is not None or enc_out is not None \
+                or vision_embeds is not None:
+            raise ValueError("tensor parallelism serves the dense "
+                             "decoders: no encoder or vision input")
+        return _forward_tp(params, cfg, tokens, positions=positions,
+                           cache=cache, opts=opts, mode=mode, comm=comm)
+    t = tokens.shape[1]
     dev = params["embed"].device
     pos = 0 if cache is None else int(cache["pos"])
-    if positions is None:
-        base = torch.arange(t, dtype=torch.int32, device=dev)[None]
-        if cache is not None and mode == "decode":
-            base = base + pos
-        positions = base.expand(b, t)
-        if cfg.rope == "mrope":
-            positions = positions[None].expand(3, b, t)
+    positions, readonly = _step(cfg, tokens, positions, cache, pos, opts,
+                                mode, dev)
     x = params["embed"][tokens.to(device=dev, dtype=torch.int64)] \
         .to(opts.dtype)
     if cfg.rope == "none" and cfg.abs_pos:
@@ -178,21 +202,86 @@ def forward(
         enc_out = encode(params, cfg, enc_frames, opts)
     kinds = layer_kinds(cfg)
     remat = opts.remat and mode == "train" and torch.is_grad_enabled()
-    readonly = opts.readonly_cache and mode == "decode" and cache is not None
-    out_cache = {"pos": pos, "layers": [None] * len(kinds)} if readonly \
-        else cache
+    out_cache = _out_cache(cache, pos, len(kinds), readonly)
     for i, (kind, lp) in enumerate(zip(kinds, params["layers"])):
         x, new = _apply(remat, kind, lp, x, cfg, positions=positions,
                         cache=None if cache is None else cache["layers"][i],
                         pos=pos, enc_out=enc_out, readonly=readonly)
         if out_cache is not None:
             out_cache["layers"][i] = new
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(x, head).to(torch.float32)
+    logits = _head(params, x, cfg)
     if out_cache is not None:
         out_cache["pos"] = pos + t
     return logits, out_cache
+
+
+def _step(cfg: ArchConfig, tokens, positions, cache, pos: int,
+          opts: ModelOptions, mode: str, device):
+    """A step's positions (given, or an iota from the cache's position
+    in decode and from 0 otherwise, on ``device``) and whether it is the
+    read-only decode."""
+    b, t = tokens.shape
+    if positions is None:
+        start = pos if cache is not None and mode == "decode" else 0
+        positions = torch.arange(start, start + t, dtype=torch.int32,
+                                 device=device)[None].expand(b, t)
+        if cfg.rope == "mrope":
+            positions = positions[None].expand(3, b, t)
+    return positions, (opts.readonly_cache and mode == "decode"
+                       and cache is not None)
+
+
+def _out_cache(cache, pos: int, n_layers: int, readonly: bool):
+    """The cache a step returns: ``cache``, written in place, or for the
+    read-only decode a new one that takes the layers' fresh pieces."""
+    return {"pos": pos, "layers": [None] * n_layers} if readonly else cache
+
+
+def _head(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The final norm and the head (the embedding's transpose where it is
+    tied): float32 logits."""
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return torch.matmul(x, head).to(torch.float32)
+
+
+def _forward_tp(params: List[Params], cfg: ArchConfig, tokens, *,
+                positions, cache, opts: ModelOptions, mode: str, comm):
+    """:func:`forward` over a model comm (module docstring)."""
+    if len(params) != len(comm.shards):
+        raise ValueError(f"{len(params)} shard trees for the comm's "
+                         f"{len(comm.shards)} shards")
+    if mode == "train" and torch.is_grad_enabled():
+        raise ValueError("tensor parallelism serves (ROADMAP A10b trains "
+                         "over 'model'): run train mode under no_grad")
+    lcfg = shard_config(cfg, comm.n)
+    devs = [comm.device(j) for j in comm.shards]
+    t = tokens.shape[1]
+    pos = 0 if cache is None else int(cache[0]["pos"])
+    positions, readonly = _step(cfg, tokens, positions, cache, pos, opts,
+                                mode, "cpu")
+    at = [positions.to(d) for d in devs]
+    ids = [tokens.to(device=d, dtype=torch.int64) for d in devs]
+    if params[0]["embed"].shape[0] != cfg.vocab:     # cut by vocabulary
+        x = comm.psum([embed_lookup(p["embed"], i, m)
+                       for p, i, m in zip(params, ids, comm.shards)])
+    else:
+        x = [p["embed"][i] for p, i in zip(params, ids)]
+    x = [xs.to(opts.dtype) for xs in x]
+    out = None if cache is None else [
+        _out_cache(c, pos, cfg.n_layers, readonly) for c in cache]
+    for i, kind in enumerate(layer_kinds(cfg)):
+        x, new = block_apply_tp(
+            kind, [p["layers"][i] for p in params], x, lcfg, comm,
+            positions=at, pos=pos, readonly=readonly,
+            caches=None if cache is None else [c["layers"][i]
+                                               for c in cache])
+        if out is not None:
+            for c, n in zip(out, new):
+                c["layers"][i] = n
+    for c in out or ():
+        c["pos"] = pos + t
+    return [_head(p, xs, cfg) for p, xs in zip(params, x)], out
 
 
 def append_readonly(cache: Dict[str, Any], fresh: Dict[str, Any]

@@ -16,6 +16,13 @@ the JAX package token for token. The cache position is a host int. It
 passes no ``extra``, so it serves every family but whisper (which needs
 the encoder's output: drive ``make_serve_step`` with ``enc_out=``) and
 qwen2-vl as text only, as the JAX loop does.
+
+A tensor-parallel replica (``comm=``, a model comm; the dense decoders,
+``distributed.tensor_parallel``): the steps take the shards' trees and
+caches (one a shard of ``comm.shards``) and return the served position's
+logits gathered across the shards (``gather_vocab``: only that position
+crosses, never ``(B, T, V)``), on the first shard's device; the server
+samples and runs its hook once, on those logits.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed.tensor_parallel import gather_vocab
 from ..models import ModelOptions, forward, init_cache
 
 __all__ = ["ServeConfig", "make_serve_step", "make_knn_hook", "sample",
@@ -41,20 +49,28 @@ class ServeConfig:
 
 
 def make_serve_step(cfg: ArchConfig, scfg: ServeConfig,
-                    opts: ModelOptions = ModelOptions()):
+                    opts: ModelOptions = ModelOptions(), *, comm=None):
+    """The two stages; with a model ``comm`` over a tensor-parallel
+    replica's shards (module docstring)."""
+    def last(logits):
+        if comm is None:
+            return logits[:, -1]
+        return gather_vocab(comm, [x[:, -1] for x in logits], cfg.vocab)[0]
+
     def prefill_step(params, tokens, cache, **extra):
         """tokens (B, T_prompt); fills the cache, returns the last
         position's logits. ``extra`` goes to ``forward`` (``enc_frames``,
         ``enc_out``, ``vision_embeds``)."""
         logits, cache = forward(params, cfg, tokens, cache=cache,
-                                opts=opts, mode="prefill", **extra)
-        return logits[:, -1], cache
+                                opts=opts, mode="prefill", comm=comm,
+                                **extra)
+        return last(logits), cache
 
     def decode_step(params, token, cache, **extra):
         """token (B, 1); one step against the cache."""
         logits, cache = forward(params, cfg, token, cache=cache,
-                                opts=opts, mode="decode", **extra)
-        return logits[:, -1], cache
+                                opts=opts, mode="decode", comm=comm, **extra)
+        return last(logits), cache
 
     return prefill_step, decode_step
 
@@ -101,16 +117,21 @@ def sample(logits: torch.Tensor, temperature: float,
 
 class BatchedServer:
     """Host-side batching over fixed lanes, a wave of ``scfg.batch``
-    requests at a time, on the device the parameters live on."""
+    requests at a time, on the device the parameters live on. A
+    tensor-parallel replica passes its shards' trees as ``params`` and
+    their model ``comm``; sampling and the hook run on the first shard's
+    device."""
 
     def __init__(self, cfg: ArchConfig, scfg: ServeConfig, params,
                  opts: ModelOptions = ModelOptions(),
                  logits_hook: Optional[Callable] = None, *,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, comm=None):
         self.cfg, self.scfg, self.opts = cfg, scfg, opts
-        self.params = params
-        self.device = params["embed"].device
-        self.prefill_step, self.decode_step = make_serve_step(cfg, scfg, opts)
+        self.params, self.comm = params, comm
+        self.device = (params["embed"].device if comm is None
+                       else comm.device(comm.shards[0]))
+        self.prefill_step, self.decode_step = make_serve_step(
+            cfg, scfg, opts, comm=comm)
         self.logits_hook = logits_hook   # e.g. kNN-LM interpolation
         self.generator = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(0)
@@ -131,7 +152,7 @@ class BatchedServer:
             for r, t in enumerate(toks):
                 pad[r, tmax - len(t):] = t   # left-pad → aligned last pos
             cache = init_cache(self.cfg, b, tmax + max_new_tokens, self.opts,
-                               device=self.device)
+                               device=self.device, comm=self.comm)
             logits, cache = self.prefill_step(
                 self.params, torch.as_tensor(pad, device=self.device), cache)
             gen = np.zeros((b, max_new_tokens), np.int32)

@@ -25,6 +25,13 @@ the CPU.
   dry run's flop count equals ``FlopCounterMode``'s over the same step.
 * (d) One full-size cell, llama3.2-3b × decode_32k on the 256-card mesh,
   traces in seconds, and its ``fits_hbm`` follows from its bytes.
+* (e) A dense decoder's serving cells on an ``AbstractMesh((4, 2),
+  ("data", "model"))`` run rank 0's shard of the tensor-parallel forward:
+  the recording comm's all-reduce bytes are two psums of ``(b, T,
+  d_model)`` a layer plus the embedding's, its all-gather bytes the
+  served position's logits, and the arguments rank 0's cut of the
+  weights (and cache); a non-dense arch's serving cell and every train
+  cell keep the data-parallel layout, and the record says why.
 
 The module adds ~25 s to the run (the full-size cell ~3 s, the JAX
 subprocess overlapping the rest).
@@ -48,6 +55,7 @@ from repro_torch.distributed.sharding import (local_slices,  # noqa: E402
                                               param_pspecs)
 from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.launch import cost, dryrun, specs  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch.mesh import AbstractMesh  # noqa: E402
 from repro_torch.train.optimizer import layer_stacks  # noqa: E402
 from repro_torch.tree import get_path, leaves_with_path, path_str  # noqa: E402
@@ -314,9 +322,11 @@ def test_trace_flops_equal_flop_counter_mode(mesh_shape):
 
 
 def test_full_size_decode_cell():
-    """(d) llama3.2-3b × decode_32k on the production mesh: 128 rows
-    replicated on each of 256 cards, whole bf16 weights, a 32,768-token
-    read-only cache; the record's fit follows from its bytes."""
+    """(d) llama3.2-3b × decode_32k on the production mesh: a dense
+    decoder's serving cell, so 32 data replicas of 8 model shards; rank
+    0 serves its replica's 4 of the 128 rows with 3 of the 24 heads and 1
+    of the 8 kv heads, a 32,768-token read-only cache; the record's fit
+    follows from its bytes."""
     t0 = time.perf_counter()
     rec = dryrun.run_cell(ARCH, "decode_32k", multi_pod=False,
                           verbose=False)
@@ -324,15 +334,84 @@ def test_full_size_decode_cell():
     print(f"llama3.2-3b x decode_32k @ 256: {took:.2f} s, {rec}")
     assert took < 30
     m = rec["memory"]
-    assert rec["chips"] == 256 and rec["mesh"] == "256"
+    assert rec["chips"] == 256 and rec["mesh"] == "32x8"
+    assert rec["tensor_parallel"] and "tensor parallel" in rec["layout"]
     assert m["fits_hbm"] == (m["peak_bytes"] <= m["hbm_bytes"])
     assert m["peak_bytes"] == (m["argument_bytes"] + m["output_bytes"]
                                + m["temp_bytes"] - m["alias_bytes"])
-    # whole weights (3.21e9 bf16) plus 28 layers' k and v cache at 128 x
-    # 32,768 x 8 heads x 128 (bf16), and the step's 128 tokens
+    # rank 0's weights (an eighth of the 3.21e9 bf16 parameters but the
+    # norms) plus 28 layers' k and v cache at 4 x 32,768 x 1 head x 128
     cfg = get_arch(ARCH)
-    cache = 2 * cfg.n_layers * 128 * 32768 * cfg.n_kv_heads * cfg.dh * 2
-    assert m["argument_bytes"] > cache
-    assert rec["collectives"]["total"] == 0
+    cache = 2 * cfg.n_layers * 4 * 32768 * 1 * cfg.dh * 2
+    weights = cfg.param_count() * 2 / 8
+    assert cache + weights < m["argument_bytes"] < cache + 1.01 * weights
+    coll = rec["collectives"]
+    assert coll["all-reduce"] == (2 * cfg.n_layers + 1) * 4 * cfg.d_model * 2
+    assert coll["all-gather"] == 4 * cfg.vocab * 4
+    assert rec["roofline"]["collective_link"] == "nvlink"
     assert rec["roofline"]["bottleneck"] in ("memory_s", "compute_s")
     assert rec["cost"]["flops_by_op"]["repro_torch.flash_attn_appended"] > 0
+
+
+TP_MESH = ((4, 2), ("data", "model"))
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_tensor_parallel_serving_cell(kind):
+    """(e) module docstring: the reduced llama (2 layers, d_model 64,
+    vocab 512) over model = 2, 8 rows a replica."""
+    arch = get_reduced(ARCH)
+    seq, cache_len = (64, 0) if kind == "prefill" else (1, 48)
+    shape = ShapeConfig(f"tiny_{kind}", seq, 32, kind, cache_len=cache_len)
+    mesh = AbstractMesh(*TP_MESH)
+    build = (specs.build_prefill_cell if kind == "prefill"
+             else specs.build_decode_cell)
+    cell = build(arch, shape, mesh)
+    _, got = cost.trace_step(cell.step_fn, cell.abstract_args,
+                             comm=cell.comm)
+    b, t = 8, 2
+    assert cell.comm.n == t and not cell.comm.spans_nodes
+    assert "TP over model=2" in cell.notes
+    act = b * seq * arch.d_model * 2                  # bf16 (b, T, d)
+    assert got.collectives == {
+        "all-reduce": (2 * arch.n_layers + 1) * act,
+        "all-gather": t * b * (arch.vocab // t) * 4,  # float32 logits
+        "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}
+    whole = specs.abstract_params(arch, cell.opts)
+    placed = param_pspecs(whole, mesh, mode="serve", cfg=arch)
+    want = 0
+    for path, x in leaves_with_path(whole):
+        split = "model" in get_path(placed, path) or \
+            path_str(path).endswith(("k/w", "v/w"))
+        want += x.numel() * x.element_size() // (t if split else 1)
+    params = cell.abstract_args[0]
+    assert sum(x.numel() * x.element_size()
+               for _, x in leaves_with_path(params)) == want
+    assert params["layers"][0]["attn"]["q"]["w"].shape == (64, 2 * arch.dh)
+    assert params["layers"][0]["attn"]["k"]["w"].shape == (64, arch.dh)
+    if kind == "decode":
+        assert cell.abstract_args[2]["layers"][0]["k"].shape == \
+            (b, cache_len, 1, arch.dh)
+
+
+def test_other_cells_keep_the_data_parallel_layout():
+    """A non-dense arch's serving cell and a dense arch's train cell have
+    no model axis on the production mesh, and their records say why."""
+    t, why = mesh_mod.model_extent(get_reduced("deepseek-v2-lite-16b"),
+                                   "decode")
+    assert t == 1 and "A10c" in why and "MoE" in why
+    t, why = mesh_mod.model_extent(get_reduced(ARCH), "train")
+    assert t == 1 and "A10b" in why
+    assert mesh_mod.model_extent(get_arch("granite-34b"), "prefill")[0] == 8
+    assert mesh_mod.make_production_mesh(multi_pod=True, model=8).shape \
+        == {"pod": 2, "data": 32, "model": 8}
+    rec = dryrun.run_cell("xlstm-350m", "decode_32k", multi_pod=False,
+                          verbose=False)
+    assert rec["mesh"] == "256" and not rec["tensor_parallel"]
+    assert "A10c" in rec["layout"] and rec["collectives"]["total"] == 0
+    assert "no_fit_reason" not in rec
+    big = cost.StepCost(argument_bytes=2 ** 30, output_bytes=2 ** 20,
+                        peak_bytes=100 * 2 ** 30)
+    why = dryrun.no_fit_reason(big, "B=32 replicated on 64 replicas T=8")
+    assert why.startswith("peak 100.0 GiB over 79.6 GiB, 99.0 GiB of it "
+                          "temporaries") and "every replica serves" in why

@@ -42,6 +42,7 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch.models.recurrent\n"
         "import repro_torch.train, repro_torch.train.checkpoint\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.distributed.tensor_parallel\n"
         "import runpy\n"
         "runpy.run_path(sys.argv[1], run_name='tune_quant')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -63,7 +64,7 @@ def test_sources_import_no_jax_or_repro():
     for name in ("models/moe.py", "core/certify.py", "models/recurrent.py",
                  "train/optimizer.py", "train/train_step.py",
                  "train/checkpoint.py", "tree.py", "launch/train.py",
-                 "data.py"):
+                 "data.py", "distributed/tensor_parallel.py"):
         assert PKG / name in files
     assert ROOT / "tools" / "tune_quant.py" in files
     offenders = [str(p.relative_to(ROOT)) for p in files
@@ -158,7 +159,8 @@ def _small():
     "ShardedMegastepEngine", "ShardedQuantMegastepEngine",
     "sharded Datastore", "launch.join --distributed", "tools/tune_quant.py",
     "init_params moe", "init_cache moe", "init_params hybrid",
-    "init_cache ssm", "launch.train", "opt_state_from_jax"])
+    "init_cache ssm", "launch.train", "opt_state_from_jax",
+    "launch.serve --tp"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises;
     it never carries on silently on the CPU."""
@@ -243,6 +245,10 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         "opt_state_from_jax": lambda: models.opt_state_from_jax(
             {"step": np.int32(0), "mu": np_params, "nu": np_params,
              "master": np_params}, lm),
+        # a tensor-parallel replica takes the present cards unless given
+        # its shards' devices
+        "launch.serve --tp": lambda: launch_serve.main(
+            ["--arch", "llama3.2-3b", "--reduced", "--tp", "2"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -1,0 +1,86 @@
+"""The tensor-parallel drive shared by ``tests/test_torch_tensor_parallel.py``
+and the gloo process group's workers it spawns. It imports no JAX, so
+that a spawned worker starts in the time ``torch`` and the port take to
+import."""
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.distributed import GroupComm, make_mesh
+from repro_torch.distributed.tensor_parallel import (gather_vocab,
+                                                     shard_params_tp)
+from repro_torch.models import (ModelOptions, append_readonly, forward,
+                                init_cache, init_params)
+
+OPTS = ModelOptions(dtype=torch.float32)
+PROMPT, STEPS, CACHE = 8, 3, 16
+
+
+def tokens(cfg, seed=1):
+    """Two rows of ``PROMPT + STEPS`` seeded ids."""
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (2, PROMPT + STEPS)))
+
+
+def weights(cfg, seed=0):
+    return init_params(cfg, torch.Generator().manual_seed(seed), OPTS,
+                       device="cpu")
+
+
+def run(params, cfg, toks, *, comm=None, readonly=False):
+    """The prefill's logits at every position, then three decode steps'
+    (each ``(B, T, V)`` float32 on the CPU), on one device or, with a
+    model ``comm``, over the shards' trees ``params`` (the logits
+    gathered). With ``readonly`` the decode steps take the read-only
+    cache and ``append_readonly`` writes their pieces, a shard each."""
+    opts = dataclasses.replace(OPTS, readonly_cache=readonly)
+    cache = init_cache(cfg, toks.shape[0], CACHE, opts, device="cpu",
+                       comm=comm)
+
+    def whole(logits):
+        return logits if comm is None else gather_vocab(comm, logits,
+                                                        cfg.vocab)[0]
+
+    with torch.no_grad():
+        logits, cache = forward(params, cfg, toks[:, :PROMPT], cache=cache,
+                                opts=opts, mode="prefill", comm=comm)
+        outs = [whole(logits)]
+        for s in range(PROMPT, PROMPT + STEPS):
+            logits, new = forward(params, cfg, toks[:, s:s + 1], cache=cache,
+                                  opts=opts, mode="decode", comm=comm)
+            outs.append(whole(logits))
+            if not readonly:
+                cache = new
+            elif comm is None:
+                append_readonly(cache, new)
+            else:
+                for c, fresh in zip(cache, new):
+                    append_readonly(c, fresh)
+    return [x.cpu() for x in outs]
+
+
+def pg_worker(rank, world, store_path, out_path):
+    """One model shard of a gloo group (a ``(1, world)`` mesh cut along
+    ``"model"`` with ``GroupComm.axis``): the reduced llama's run with
+    each cache; the gathered logits to an npz."""
+    import torch.distributed as dist
+    torch.set_num_threads(1)            # as the test module's process
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        cfg = configs.get_reduced("llama3.2-3b")
+        mesh = make_mesh((1, world), ("data", "model"),
+                         devices=["cpu"] * world)
+        comm = GroupComm(device="cpu", mesh=mesh).axis("model")
+        shard = shard_params_tp(weights(cfg), cfg, mesh, shards=[rank])
+        out = {}
+        for readonly in (False, True):
+            for i, x in enumerate(run(shard, cfg, tokens(cfg), comm=comm,
+                                      readonly=readonly)):
+                out[f"{readonly}/{i}"] = x.numpy()
+        np.savez(f"{out_path}.{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
