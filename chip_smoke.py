@@ -105,8 +105,8 @@ force and against each other. Phases:
    launches per path), timed, with its selectivity, shuffle and α, and
    held bitwise against the float64 oracle (ids: near-ties); one L1 and
    one L∞ ``knn_join`` of the Forest rows against the L1 / L∞ oracle;
-   ``python -m repro_torch.launch.join --n 581012 --expand 2 --verify``
-   (Forest×2, 1,162,024 rows) in a subprocess;
+   ``python -m repro_torch.launch.join --n 145253 --expand 2 --verify``
+   (Forest×2 of a quarter of Forest, 290,506 rows) in a subprocess;
 17. serving under load: ``ServeScheduler`` in front of a quantized
    ``StreamJoinEngine`` over phase 8's index — ``dispatch`` (fp32 and
    quantized) under the sync debug mode; ``join_now`` bitwise
@@ -249,14 +249,30 @@ force and against each other. Phases:
    within ``TP_LOGIT_REL`` (‖Δ‖/‖one‖, bf16) where the tokens fed agree
    and over 3 decode steps fed phase 24's tokens; granite-34b at full
    width cut to 4 layers over 8 shards (its one kv head on each) against
-   one device the same way.
+   one device the same way;
+27. training the dense decoders over ``("data", "model")`` (A10b), every
+   shard simulated on the one card: K-F with lse and K-B against their
+   plain versions at the train step's shard shapes (b 1, T 4,096, q / kv
+   heads 3 / 1, 5 / 1, 6 / 1, and phase 21's b 4, T 1,024 at 3 / 1; d
+   128, causal; ‖Δ‖/‖ref‖ ≤ 2⁻⁸), their plans, ``device_ms`` and SDPA's
+   forward and backward beside each; llama3.2-3b at full width cut to
+   phase 22's 8 layers (its seeded weights and batches, bf16, AdamW,
+   remat) trained 2 steps through ``FSDPTrainer`` over ``(2, 4)`` and
+   ``(1, 8)`` against one device (loss, grad norm, the float32 master
+   weights after step 2 within ``TP_TRAIN_LIMITS``), counted (K-F 8 × 8
+   × 2 × 2, K-B 8 × 8 × 2); granite-34b at full width cut to 2 layers
+   over ``(1, 8)`` (its one kv head on every shard), one step the same
+   way; the dry run's granite-34b × train_4k cell on ``(32, 8)``, traced
+   on the host in a subprocess beside the kernels' build (and waited for
+   before phase 2, so no phase that measures runs beside it), its record
+   printed and its fit checked.
 
-Each of phases 23 to 26 prints its wall time. Every time printed stands
+Each of phases 23 to 27 prints its wall time. Every time printed stands
 beside the card's name and power limit. The line before the last two is one JSON object with each kernel's launches
 (its main paths' plus phase 18's; K-F's main paths are phases 14, 19-22,
-23's serve_retrieval and train_lm, 24 and 26, K-B's phases 21, 22 and 23's
-train_lm; K-A's and K-G's include phase 23's examples, and K-G's phases 24
-and 26),
+23's serve_retrieval and train_lm, 24, 26 and 27, K-B's phases 21, 22,
+23's train_lm and 27; K-A's and K-G's include phase 23's examples, and
+K-G's phases 24 and 26),
 error, times and bound; the line before the last is the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before those lines, with its message on stdout and stderr
@@ -264,8 +280,9 @@ exits non-zero before those lines, with its message on stdout and stderr
 repository's ``src/``). Long reports (nvcc's ``ptxas``
 output, the profiles by kernel, phases 16–24's numbers as JSON) go
 to ``--out`` (default ``build/chip_smoke/``; phase 25's records in
-``phase_25.json``, phase 26's numbers in ``phase_26.json``). Needs one card, no network; imports nothing of
-JAX.
+``phase_25.json``, phase 26's numbers in ``phase_26.json``, phase 27's
+in ``phase_27.json`` and its dry-run record in ``phase_27_dryrun.json``).
+Needs one card, no network; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -290,7 +307,11 @@ CAP_ROWS = 65_536           # phase 13: Gaussian rows of the wide shapes
 PAPER_ROWS = 32_768         # phase 16: rows of each §6 self-join (cut
                             # from 65,536 to keep the phase near 90 s)
 PAPER_K, PAPER_REDUCERS, PAPER_PIVOTS = 10, 9, 128   # _three_way's settings
-EXPAND_ROWS = N_ROWS        # phase 16's Forest×2: Forest expanded twice
+# phase 16's Forest×2: a quarter of Forest expanded twice (290,506 rows).
+# Cut from all of Forest (1,162,024 rows, 120-145 s of the subprocess)
+# when phase 27 took the run past 1,100 s of its 1,200 (half of Forest
+# took 89 s there)
+EXPAND_ROWS = N_ROWS // 4
 SERVE_ROWS, SERVE_REQUESTS = 16, 2000   # phase 17: rows a request, requests
 SCHED_NEW = 8               # phase 14: tokens of the scheduler's wave
 LM_ARCH = "llama3.2-3b"     # phase 14: the LM serving path at full width
@@ -299,8 +320,15 @@ LM_PROMPT = (512, 2048)     # prompt lengths, seeded
 LM_STORE_KEYS, LM_STORE_DIM = 1_048_576, 32   # the kNN-LM datastore
 BUCKET = 4096
 C15_SAMPLE = 4096         # phase 18: OSM-like queries held to the oracle
-HOST_ROWS = 65_536        # R sample of the host-planned gather path
-PRUNED_ROWS = 512         # R samples of the pruned and dense reducers
+# R sample of the host-planned gather path and of phase 11's host and
+# int8 routes (~50 s of phase 11 at 65,536 on a slow host), cut from
+# 65,536 to keep the run inside its limit beside phase 27
+HOST_ROWS = 32_768
+# R samples of the pruned and dense reducers. The pruned reducer's host
+# loop (ROADMAP B13) runs over the home partitions its queries fall in:
+# 45-75 s at 512 queries (~221 of 256 partitions), 37 s at 128 (~100),
+# so 32 (~30) keeps the run inside its limit beside phase 27
+PRUNED_ROWS = 32
 DENSE_ROWS = 2048
 DEV = "cuda"
 H100_HBM_BYTES_S = 3.35e12    # H100 SXM data sheet
@@ -4394,14 +4422,12 @@ def sharded_training(card, torch, launches) -> dict:
             local, states, m = tr.step(local, states, b)
             got.append((float(m["loss"]), float(m["grad_norm"])))
             if i == 0:
-                masters = tr.gather([x["master"] for x in states],
-                                    first=True)[0]
+                masters = tr.whole([x["master"] for x in states])
                 up, length, rel = update_gap(masters)
                 del masters
             if n == 2 and i == 0:
-                keep = (tr.gather(local, first=True)[0],
-                        tr.gather(states, tr.state_specs(states),
-                                  first=True)[0])
+                keep = (tr.whole(local),
+                        tr.whole(states, tr.state_specs(states)))
         torch.cuda.synchronize()
         t_n = time.perf_counter() - t0
         counts = launches[path] = end_path(ops)
@@ -4457,11 +4483,10 @@ def sharded_training(card, torch, launches) -> dict:
     tr = FSDPTrainer(cfg, tcfg, opts, make_mesh((4,), ("data",),
                                                 devices=[DEV] * 4))
     local, states = tr.place(full_p, full_o)
-    same = all(torch.equal(a, b) for a, b in zip(leaves(tr.gather(
-        local, first=True)[0]), leaves(full_p))) and all(
-        torch.equal(a, b) for a, b in zip(leaves(tr.gather(
-            states, tr.state_specs(states[0]), first=True)[0]),
-            leaves(full_o)))
+    same = all(torch.equal(a, b) for a, b in zip(
+        leaves(tr.whole(local)), leaves(full_p))) and all(
+        torch.equal(a, b) for a, b in zip(leaves(tr.whole(
+            states, tr.state_specs(states[0]))), leaves(full_o)))
     check(same, "restart onto 4 shards: the parts do not rebuild the "
           "2-shard state")
     del full_p, full_o
@@ -5290,6 +5315,323 @@ def phase_tensor_parallel(card, torch, launches, carry) -> tuple:
     return cases, out
 
 
+# phase 27: training the dense decoders over ("data", "model") (A10b)
+TP_TRAIN_LAYERS = 8          # phase 22's cut of llama3.2-3b (28 layers)
+TP_TRAIN_MESHES = ((2, 4), (1, 8))
+TP_TRAIN_STEPS = 2
+TP_GRANITE_TRAIN_LAYERS = 2  # granite-34b: its state and its reference's fit
+# K-F with lse and K-B at the train step's shard shapes over 8 model
+# shards: (what, b, T, q heads, kv heads), d 128, causal
+TP_TRAIN_KERNEL_SHAPES = (
+    ("llama3.2-3b shard of 8, train_4k", 1, 4096, 3, 1),
+    ("qwen3-14b shard of 8, train_4k", 1, 4096, 5, 1),
+    ("nemotron-4-15b / granite-34b shard of 8, train_4k", 1, 4096, 6, 1),
+    ("llama3.2-3b shard of 8, phase 21's batch", 4, 1024, 3, 1),
+)
+# the 2-D step against one device, bf16: (loss rel, grad norm rel, worst
+# leaf ||M - M_1|| / ||M_1 - M_0|| of the float32 masters after the last
+# step, | ||M - M_0|| / ||M_1 - M_0|| - 1 |). Set from
+# tools/tp_train_bf16_gap.py on a CPU before any card run (llama's
+# geometry at d_model 768, 8 layers, 4 x 256 tokens, 2 steps; PERF.md
+# §6): over (2, 4) and (1, 8) it gave at most 9.6e-6 / 3.9e-4 / 0.115
+# / 5.9e-3, one device's bf16 against its float32 2.8e-5 / 2.9e-4 / 0.120
+# / 5.0e-3. The limits leave room for full width (8x the partial sums'
+# length) and for the card's kernels, whose plans cut a shard's fewer
+# heads otherwise than one device's; a skipped update reads 1.0 / 1.0
+TP_TRAIN_LIMITS = (3e-4, 2e-3, 0.4, 0.02)
+DRYRUN_TP_CELL = ("granite-34b", "train_4k")   # phase 27 (d), on (32, 8)
+
+
+def start_tp_dryrun(out_dir: Path):
+    """The dry run of ``DRYRUN_TP_CELL`` in a subprocess (CPU only, over
+    meta tensors: ~50 s of tracing), started before the kernels' build
+    so that it runs beside the build's ``nvcc`` processes;
+    ``wait_tp_dryrun`` waits for it after the build, and ``phase_tp_training``
+    (d) reads its record. Killed at exit if still running."""
+    import atexit
+    arch, shape = DRYRUN_TP_CELL
+    out = out_dir / "phase_27_dryrun.json"
+    log = open(out_dir / "phase_27_dryrun.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(out)], cwd=str(ROOT),
+        env=dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=log, stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+    atexit.register(stop)
+    return dict(proc=proc, out=out, log=out_dir / "phase_27_dryrun.log",
+                t0=time.perf_counter(), stop=stop)
+
+
+def wait_tp_dryrun(card, dry) -> None:
+    """Waits for the dry-run subprocess after the build, before any phase
+    that measures, and prints how long it ran past the build."""
+    t0 = time.perf_counter()
+    dry["rc"] = dry["proc"].wait(timeout=600)
+    dry["waited_s"] = time.perf_counter() - t0
+    dry["ran_s"] = time.perf_counter() - dry["t0"]
+    print(f"[{card}] phase 27's dry-run cell {DRYRUN_TP_CELL}: traced in a "
+          f"subprocess beside the build, {dry['ran_s']:.1f} s, waited for "
+          f"{dry['waited_s']:.1f} s after the build", flush=True)
+
+
+def tp_train_kernel_cases(card, torch) -> tuple:
+    """K-F with lse and K-B against their plain versions at
+    ``TP_TRAIN_KERNEL_SHAPES`` on the same bf16 inputs: K-F's output the
+    same bits with and without lse, ‖Δ‖/‖ref‖ ≤ 2⁻⁸ against the plain
+    version and lse within 1e-4 (phase 21's limits), its plan, its time
+    by ``device_ms`` beside SDPA's forward; K-B by ``kb_case`` (its route,
+    tiles and row splits, SDPA's backward and forward). Returns (K-F's
+    cases, K-B's cases)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kf
+    gen = torch.Generator(device=DEV).manual_seed(27)
+    kf_cases, kb_cases = [], []
+    for what, b, n, h, kvh in TP_TRAIN_KERNEL_SHAPES:
+        d = 128
+        q, k, v = (torch.randn(s, generator=gen, device=DEV).to(
+            torch.bfloat16) for s in ((b, n, h, d), (b, n, kvh, d),
+                                      (b, n, kvh, d)))
+        out, lse = kf.flash_attention_cuda(q, k, v, return_lse=True)
+        plan = kf.last_plan
+        bare = kf.flash_attention_cuda(q, k, v)
+        ref, ref_lse = kf.flash_attention_plain(q, k, v, return_lse=True)
+        torch.cuda.synchronize()
+        check(torch.equal(out, bare), f"K-F ({what}): the output differs "
+              f"with lse")
+        rel = rel_norm(out, ref)
+        lse_err = float((lse - ref_lse).abs().max())
+        check(bool(torch.isfinite(out.float()).all()) and rel <= 2.0 ** -8
+              and lse_err <= 1e-4,
+              f"K-F with lse ({what}): ‖Δ‖/‖ref‖ {rel:.3e} (limit 2^-8), "
+              f"lse max |err| {lse_err:.3e} (limit 1e-4)")
+        max_err = float((out.float() - ref.float()).abs().max())
+        del bare, ref, ref_lse
+        ms = device_ms(torch, lambda: kf.flash_attention_cuda(
+            q, k, v, return_lse=True))
+        plain_ms = time_ms(lambda: kf.flash_attention_plain(
+            q, k, v, return_lse=True), warmup=1, iters=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        with torch.no_grad():
+            lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        pairs = float(b * h * n * (n + 1) // 2)
+        n_bytes = 2.0 * (2 * q.numel() + 2 * k.numel()) + 4.0 * lse.numel()
+        t_b = n_bytes / H100_HBM_BYTES_S * 1e3
+        t_f = 2.0 * (2 * d) * pairs / H100_BF16_FLOPS_S * 1e3
+        b_ms, b_by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+        print(f"[{card}] K-F with lse ({what}) q {tuple(q.shape)} kv "
+              f"{tuple(k.shape)} bf16 causal: route {plan.route} (width "
+              f"{plan.width}, {plan.splits} key splits of "
+              f"{plan.split_keys}); output the same bits without lse; "
+              f"‖Δ‖/‖ref‖ {rel:.3e} (limit 2^-8), max |err| {max_err:.3e},"
+              f" lse max |err| {lse_err:.3e}; kernel {ms:.4f} ms "
+              f"(device_ms), plain {plain_ms:.4f} ms, SDPA forward "
+              f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: {pairs:.4e} "
+              f"visible pairs x 2(d + d_v) bf16 operations, "
+              f"{n_bytes:.4e} bytes)", flush=True)
+        kf_cases.append(dict(shape=f"{what} (with lse)", max_abs_err=max_err,
+                             rel_err=rel, lse_max_abs_err=lse_err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms,
+                             form=plan.route, splits=plan.splits))
+        del q, k, v, out, lse, qt, kt, vt
+        kb_cases.append(kb_case(card, torch, what, b, n, n, h, kvh, d, True,
+                                None, None))
+        torch.cuda.empty_cache()
+    return kf_cases, kb_cases
+
+
+def _masters_gap(masters, m1, m0) -> tuple:
+    """Of float32 master weights M against one device's M_1 and the
+    initial M_0: the worst leaf's ‖M − M_1‖ / ‖M_1 − M_0‖ and
+    | ‖M − M_0‖ / ‖M_1 − M_0‖ − 1 |."""
+    up = length = 0.0
+    for a, w, w0 in zip(masters, m1, m0):
+        u = max(float((w - w0.float()).norm()), 1e-30)
+        up = max(up, float((a - w).norm()) / u)
+        length = max(length, abs(float((a - w0.float()).norm()) / u - 1.0))
+    return up, length
+
+
+def tp_train_run(card, torch, launches, arch: str, layers: int, meshes,
+                 steps: int) -> dict:
+    """``arch`` at full width cut to ``layers`` layers (bf16, AdamW,
+    remat, phase 22's seeded weights and batches of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ``): ``steps`` steps on one device, then through
+    ``FSDPTrainer`` over each ``(data, model)`` shape of ``meshes``,
+    every shard on the card, counted (K-F shards × layers × 2 × steps,
+    K-B shards × layers × steps); each step's loss and grad norm and the
+    float32 masters after the last step against one device's within
+    ``TP_TRAIN_LIMITS``."""
+    import dataclasses as dc
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, synthetic_lm_batch
+    from repro_torch.distributed import make_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models import ModelOptions, count_params, init_params
+    from repro_torch.train import OptConfig, TrainConfig, make_train_step
+    from repro_torch.train.fsdp import FSDPTrainer
+    from repro_torch.tree import leaves
+    cfg = dc.replace(configs.get_arch(arch), n_layers=layers)
+    opts = ModelOptions(dtype=torch.bfloat16, remat=True,
+                        max_abs_pos=max(4096, TRAIN_SEQ))
+    tcfg = TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup_steps=10,
+                                     decay_steps=steps))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batches = [{k: torch.as_tensor(v, device=DEV) for k, v in
+                synthetic_lm_batch(dcfg, i).items()} for i in range(steps)]
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                           opts, device=DEV)
+
+    init, step = make_train_step(cfg, tcfg, opts)
+    params = fresh()
+    n_params = count_params(params)
+    m0 = [x.clone() for x in leaves(params)]
+    state = init(params)
+    ref, t0 = [], time.perf_counter()
+    for b in batches:
+        params, state, m = step(params, state, b)
+        ref.append((float(m["loss"]), float(m["grad_norm"])))
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    m1 = [x.clone() for x in leaves(state["master"])]
+    del params, state
+    torch.cuda.empty_cache()
+    out = dict(arch=arch, layers=layers, params=n_params, one_device=ref,
+               one_device_s=t_one)
+    lim = TP_TRAIN_LIMITS
+    for d, t in meshes:
+        n = d * t
+        mesh = make_mesh((d, t), ("data", "model"), devices=[DEV] * n)
+        tr = FSDPTrainer(cfg, tcfg, opts, mesh)
+        local, states = tr.init(fresh())
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = tr.resident_bytes(local, states)
+        path = f"tp_train_{arch.split('-')[0]}_{d}x{t}"
+        begin_path(ops, path)
+        got, t0 = [], time.perf_counter()
+        for b in batches:
+            local, states, m = tr.step(local, states, b)
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        t_n = time.perf_counter() - t0
+        counts = launches[path] = end_path(ops)
+        peak = torch.cuda.max_memory_allocated()
+        masters = leaves(tr.whole([s["master"] for s in states]))
+        up, length = _masters_gap(masters, m1, m0)
+        del masters, local, states, tr
+        torch.cuda.empty_cache()
+        want_f = n * layers * 2 * steps
+        check(counts["flash_attention"] == want_f
+              and counts["flash_attention_bwd"] == n * layers * steps,
+              f"{arch} over ({d}, {t}): launches {counts}, expected K-F "
+              f"{want_f} / K-B {n * layers * steps}")
+        gaps = [(abs(lg - lw) / abs(lw), abs(ng - nw) / abs(nw))
+                for (lg, ng), (lw, nw) in zip(got, ref)]
+        print(f"[{card}] {arch} at full width ({layers} layers, {n_params} "
+              f"parameters, bf16, AdamW, remat, batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}) trained over ({d}, {t}) data x model shards "
+              f"simulated on the card: loss / grad norm "
+              + "; ".join(f"{a:.5f} / {b:.4f}" for a, b in got)
+              + " (one device: " + "; ".join(f"{a:.5f} / {b:.4f}"
+                                             for a, b in ref)
+              + f"), relative gaps " + "; ".join(
+                  f"{a:.3e} / {b:.3e}" for a, b in gaps)
+              + f" (limits {lim[0]} / {lim[1]}); float32 masters after "
+              f"step {steps}: worst leaf ||dM|| / ||update|| {up:.4e} "
+              f"(limit {lim[2]}), | ||update_n|| / ||update|| - 1 | "
+              f"{length:.4e} (limit {lim[3]}); {t_n:.3f} s for {steps} "
+              f"step(s) (one device {t_one:.3f} s, the shards in turn); "
+              f"resident bytes a shard (parameters / optimizer state) "
+              f"{res[0][0]} / {res[0][1]}; peak allocated over the steps "
+              f"{peak / 2 ** 30:.2f} GiB (one device's reference masters "
+              f"held beside them); launches {counts}", flush=True)
+        check(all(a <= lim[0] and b <= lim[1] for a, b in gaps),
+              f"{arch} over ({d}, {t}): loss / grad norm gaps {gaps} past "
+              f"{lim[0]} / {lim[1]}")
+        check(up <= lim[2] and length <= lim[3],
+              f"{arch} over ({d}, {t}): master weights {up:.4f} of one "
+              f"device's update off, their update's length {length:.4f} "
+              f"off its")
+        out[f"mesh_{d}x{t}"] = dict(steps=got, rel_gaps=gaps, s=t_n,
+                                    master_gap_update=up,
+                                    master_update_length=length,
+                                    resident_bytes=res, launches=counts,
+                                    peak_bytes=peak)
+    del m0, m1
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_dryrun_record(card, dry) -> dict:
+    """(d): the dry-run subprocess's record of ``DRYRUN_TP_CELL`` on
+    ``(32, 8)``: printed (data-sheet estimates, not measurements), the
+    cell rank 0 of a TP replica over NVLink and the network, and it
+    fits the card."""
+    rc = dry["rc"]
+    dry["stop"]()
+    check(rc == 0, f"dry run of {DRYRUN_TP_CELL} exited {rc}: "
+          + dry["log"].read_text()[-2000:])
+    rec = json.loads(dry["out"].read_text())["results"][0]
+    r, m, c = rec["roofline"], rec["memory"], rec["collectives"]
+    print(f"[{card}] dry run (H100 data-sheet estimates, not measurements) "
+          f"[{rec['arch']} x {rec['shape']} @ {rec['mesh']}]: peak "
+          f"{m['peak_bytes'] / 2 ** 30:.3f} GiB of "
+          f"{m['hbm_bytes'] / 2 ** 30:.3f}, fits {m['fits_hbm']} (arguments "
+          f"{m['argument_bytes'] / 2 ** 30:.3f}, temporaries "
+          f"{m['temp_bytes'] / 2 ** 30:.3f}); compute "
+          f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f}"
+          f" ms, collective {r['collective_s'] * 1e3:.3f} ms "
+          f"({r['collective_link']}: NVLink {c['by_link']['nvlink']:.4e} B, "
+          f"network {c['by_link']['network']:.4e} B), bottleneck "
+          f"{r['bottleneck']}, useful {rec['useful_flop_ratio']:.4f}; "
+          f"build {rec['build_s']} s, trace {rec['trace_s']} s "
+          f"({rec['ops_traced']} ops) in a subprocess beside the build "
+          f"({dry['ran_s']:.1f} s, waited for {dry['waited_s']:.1f} s after "
+          f"it) ({rec['notes']})", flush=True)
+    check(rec["mesh"] == "32x8" and rec["tensor_parallel"]
+          and c["by_link"]["nvlink"] > 0 and c["by_link"]["network"] > 0,
+          f"dry run of {DRYRUN_TP_CELL}: not rank 0 of a TP replica over "
+          f"(32, 8): {rec['mesh']}, {rec['notes']}")
+    check(m["fits_hbm"], f"dry run of {DRYRUN_TP_CELL} on (32, 8): peak "
+          f"{m['peak_bytes'] / 2 ** 30:.3f} GiB does not fit")
+    return dict(rec, ran_s=dry["ran_s"], waited_s=dry["waited_s"])
+
+
+def phase_tp_training(card, torch, launches, dry) -> tuple:
+    """27. Training over ``("data", "model")`` (A10b), every shard
+    simulated on the one card: (a) K-F with lse and K-B at the shard
+    shapes (``tp_train_kernel_cases``); (b) llama3.2-3b cut to
+    ``TP_TRAIN_LAYERS`` layers over ``TP_TRAIN_MESHES`` and (c)
+    granite-34b cut to ``TP_GRANITE_TRAIN_LAYERS`` over ``(1, 8)``
+    against one device (``tp_train_run``); (d) the dry run's
+    ``DRYRUN_TP_CELL`` (``tp_dryrun_record``). Returns (K-F's cases,
+    K-B's cases, the phase's numbers)."""
+    t_phase = time.perf_counter()
+    kf_cases, kb_cases = tp_train_kernel_cases(card, torch)
+    out = dict(llama=tp_train_run(card, torch, launches, "llama3.2-3b",
+                                  TP_TRAIN_LAYERS, TP_TRAIN_MESHES,
+                                  TP_TRAIN_STEPS))
+    out["granite"] = tp_train_run(card, torch, launches, "granite-34b",
+                                  TP_GRANITE_TRAIN_LAYERS, ((1, 8),), 1)
+    out["dryrun"] = tp_dryrun_record(card, dry)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 27 (training over data x model) "
+          f"{out['phase_s']:.3f} s (budget 40 s)", flush=True)
+    return kf_cases, kb_cases, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
@@ -5317,16 +5659,20 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"[{card}] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # phase 27's dry-run cell traces on the host beside the build, and is
+    # waited for before any phase that measures
+    dry = start_tp_dryrun(out_dir)
     t0 = time.perf_counter()
     reports = build.build()
     build_s = time.perf_counter() - t0
-    out_dir = Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "ptxas.txt").write_text(
         "".join(f"== {n}\n{r}\n" for n, r in reports.items()))
     print(f"[{card}] built {sorted(reports) or 'nothing (cached)'} in "
           f"{build_s:.2f} s (ptxas report: {out_dir / 'ptxas.txt'})",
           flush=True)
+    wait_tp_dryrun(card, dry)
     ASSIGN_PTXAS.update(ptxas_usage(reports.get("assign", "")))
     print(f"[{card}] K-A kernels (registers, spill bytes): "
           + (", ".join(f"{k} {v[0]}, {v[1]}" for k, v in ASSIGN_PTXAS.items())
@@ -5595,15 +5941,22 @@ def main(argv=None) -> int:
                                              dense_carry)
     (out_dir / "phase_26.json").write_text(json.dumps(
         dict(tp_run, kf_cases=tp_cases)))
+    # ---- 27. training over ("data", "model"): llama and granite sharded
+    tpt_kf, tpt_kb, tpt_run = phase_tp_training(card, torch, launches, dry)
+    (out_dir / "phase_27.json").write_text(json.dumps(
+        dict(tpt_run, kf_cases=tpt_kf, kb_cases=tpt_kb)))
     kb_row = dict(name="flash_attention_bwd", route="cuda",
                   source="src/repro_torch/csrc/flash_attn_bwd.cu",
                   replaces="src/repro/models/layers.py:130 (jax.grad of "
                            "_sdpa; the JAX package has no Pallas backward)")
     kb_row.update({key: kb_cases[0][key] for key in _ROW_KEYS})
-    kb_row["other_shapes"] = kb_cases[1:] + a6e_kb + [ex_kb]
+    kb_row["other_shapes"] = kb_cases[1:] + a6e_kb + [ex_kb] + tpt_kb
     rows.append(kb_row)
 
     dense = ("dense_qwen3", "dense_nemotron", "dense_granite")
+    TP_TRAIN_PATHS = tuple(p for p in launches if p.startswith("tp_train_"))
+    check(len(TP_TRAIN_PATHS) == len(TP_TRAIN_MESHES) + 1,
+          f"phase 27's paths {TP_TRAIN_PATHS}")
     owner = {"assign": ("megastep", "ex_quickstart", "ex_outlier_detection",
                         "ex_forest_selfjoin", "ex_distributed_join",
                         "ex_serve_retrieval"),
@@ -5620,11 +5973,12 @@ def main(argv=None) -> int:
                                  "a6e_capped_train", "a6e_sharded_2",
                                  "a6e_sharded_4", "ex_serve_retrieval",
                                  "ex_train_lm", "ex_train_lm_restart",
-                                 "tp_qwen3", "tp_granite")
-             + dense,
+                                 "tp_qwen3", "tp_granite") + dense
+             + TP_TRAIN_PATHS,
              "flash_attention_bwd": ("train", "a6e_capped_train",
                                      "a6e_sharded_2", "a6e_sharded_4",
-                                     "ex_train_lm", "ex_train_lm_restart")}
+                                     "ex_train_lm", "ex_train_lm_restart")
+             + TP_TRAIN_PATHS}
     for row in rows:
         if row["name"] in caps:
             row["cap_shapes"] = caps[row["name"]]
@@ -5632,7 +5986,8 @@ def main(argv=None) -> int:
             row["path_shapes"] = assign_paths
         if row["name"] == "flash_attention":
             row["other_shapes"] += (mla_cases + fam_cases + a6e_kf
-                                    + [ex_kf] + dense_cases + tp_cases)
+                                    + [ex_kf] + dense_cases + tp_cases
+                                    + tpt_kf)
         # the main paths' launches, plus the mesh paths' (phase 18)
         row["launches"] = sum(launches[p][row["name"]]
                               for p in owner[row["name"]] + tuple(mesh_paths))

@@ -20,7 +20,20 @@ The port keeps that shape with plain functions on tensors:
   cards is the same calls, untested on a one-card host).
 * ``comm.axis(name)`` — the comm along one mesh axis: over the shards
   that share every other coordinate (the model shards of one data
-  replica, for tensor parallelism), in their order along the axis.
+  replica, for tensor parallelism), in their order along the axis;
+  ``comm.split(groups)`` — a comm over each group of shards that holds
+  one of this process's (every group in one process, this rank's over a
+  process group): the 2-D train step's data groups (the shards of one
+  model shard across the batch axes) and its replicas.
+* :func:`psum_fwd` and :func:`psum_bwd` — Megatron's conjugate pair for
+  tensor parallelism under autograd: a psum whose backward is the
+  identity (after a shard's partial output: o, down, the loss's sums),
+  and an identity whose backward is a psum (where the replicated
+  activation enters a shard's column-cut projections). Each shard runs
+  backward from its own copy of the loss; in one process the copies'
+  backward passes run together (``torch.autograd.grad`` of every
+  shard's loss) and give each shard the gradients a process of its own
+  would get, to the bit.
 
 A body written against a comm loops over ``comm.shards`` — every shard
 in one process, or this process's rank — and hands the comm lists of
@@ -30,13 +43,14 @@ shard order on every receiver, so both comms give the same bits.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..device import resolve_device
 
-__all__ = ["Mesh", "make_mesh", "LocalComm", "GroupComm", "comm_for"]
+__all__ = ["Mesh", "make_mesh", "LocalComm", "GroupComm", "comm_for",
+           "psum_fwd", "psum_bwd"]
 
 Device = Union[str, torch.device]
 
@@ -81,13 +95,21 @@ class Mesh:
         """The shards along axis ``name``: one list for each setting of
         the other coordinates (in row-major order of those), each list in
         the order of ``name``'s coordinate."""
-        if name not in self.shape:
-            raise ValueError(f"no axis {name!r} in mesh axes "
-                             f"{self.axis_names}")
+        return self.groups((name,))
+
+    def groups(self, over: Sequence[str]) -> List[List[int]]:
+        """The shards that share every coordinate outside the axes
+        ``over``: one list for each setting of the other coordinates (in
+        row-major order of those), each in row-major order over ``over``
+        (ascending shard index)."""
+        for name in over:
+            if name not in self.shape:
+                raise ValueError(f"no axis {name!r} in mesh axes "
+                                 f"{self.axis_names}")
         groups: dict = {}
         for j in range(self.size):
             at = self.coords(j)
-            key = tuple(at[a] for a in self.axis_names if a != name)
+            key = tuple(at[a] for a in self.axis_names if a not in over)
             groups.setdefault(key, []).append(j)
         return list(groups.values())
 
@@ -154,6 +176,15 @@ class LocalComm:
                 f"{self.mesh.shape}: {len(groups)} groups along {name!r}, "
                 f"one comm needs the other axes at extent 1")
         return LocalComm(Mesh(self.mesh.devices, (self.n,), (name,)))
+
+    def split(self, groups: Sequence[Sequence[int]]
+              ) -> List[Tuple[List[int], "LocalComm"]]:
+        """``(members, comm)`` for every group of shards in ``groups``
+        (lists of this comm's shard indices): a :class:`LocalComm` over
+        the members' devices, in the members' order."""
+        return [(list(g), LocalComm(Mesh([self.devices[j] for j in g],
+                                         (len(g),), ("group",))))
+                for g in groups]
 
     def _check(self, xs):
         if len(xs) != self.n:
@@ -236,15 +267,28 @@ class GroupComm:
         if self.mesh is None:
             raise ValueError("GroupComm.axis needs the group's mesh "
                              "(GroupComm(..., mesh=...))")
-        mine = None
-        for ranks in self.mesh.axis_groups(name):
+        return self.split(self.mesh.axis_groups(name))[0][1]
+
+    def split(self, groups: Sequence[Sequence[int]]
+              ) -> List[Tuple[List[int], "GroupComm"]]:
+        """``[(members, comm)]`` for the one group of ``groups`` (lists of
+        this group's ranks, each ascending) that holds this rank: a
+        :class:`GroupComm` over a new process group of its members, ranked
+        in their order. Every rank must call it with the same ``groups``
+        (``new_group`` is collective: each rank makes every group, in the
+        same order)."""
+        out = []
+        for ranks in groups:
             world = [r if self.group is None
                      else self._dist.get_global_rank(self.group, r)
                      for r in ranks]
             group = self._dist.new_group(world)
             if self.rank in ranks:
-                mine = group
-        return GroupComm(mine, self._device)
+                out.append((list(ranks), GroupComm(group, self._device)))
+        if len(out) != 1:
+            raise ValueError(f"rank {self.rank} is in {len(out)} of the "
+                             f"groups {groups}")
+        return out
 
     def _one(self, xs) -> torch.Tensor:
         if len(xs) != 1:
@@ -299,3 +343,49 @@ def comm_for(mesh_or_comm) -> Union[LocalComm, GroupComm]:
         return mesh_or_comm
     raise TypeError(f"expected a Mesh, LocalComm or GroupComm, got "
                     f"{type(mesh_or_comm).__name__}")
+
+
+class _PsumFwd(torch.autograd.Function):
+    """A psum over ``comm`` whose backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, comm, *xs):
+        return tuple(comm.psum(list(xs)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + grads
+
+
+class _PsumBwd(torch.autograd.Function):
+    """The identity whose backward is a psum over ``comm``."""
+
+    @staticmethod
+    def forward(ctx, comm, *xs):
+        ctx.comm = comm
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + tuple(ctx.comm.psum(list(grads)))
+
+
+def _differentiable(xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def psum_fwd(comm, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``comm.psum(xs)``; under autograd the gradient of each shard's
+    input is the gradient of its own output (module docstring)."""
+    if not _differentiable(xs):
+        return comm.psum(list(xs))
+    return list(_PsumFwd.apply(comm, *xs))
+
+
+def psum_bwd(comm, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``xs`` as they are; under autograd the gradient of each shard's
+    input is the psum of every shard's output gradient (module
+    docstring)."""
+    if not _differentiable(xs):
+        return list(xs)
+    return list(_PsumBwd.apply(comm, *xs))

@@ -39,15 +39,33 @@ at head boundaries. Full trees stay the interchange: ``shard_params_tp``
 cuts a whole tree (``init_params``, ``models.params_from_jax``,
 a checkpoint).
 
+Training over ``"model"`` (``train.fsdp`` on a ``("data", "model")``
+mesh) cuts each leaf the same way (:func:`tp_slices`) and then over the
+data axes. A model shard's gradient of its part is whole, but for two
+kinds of leaf (:func:`tp_holders`, :func:`tp_partial`):
+
+* **partial** on each holder, summed over exactly its holders by the
+  trainer: qwen3's per-head ``q_norm`` / ``k_norm`` (every shard applies
+  them to its own heads: summed over all ``t``), and a kv head held by
+  ``t / kvh`` shards (``t`` a multiple of ``kvh``: granite's one kv head
+  on every shard, each reduced config's two kv heads at ``t = 4``), each
+  holder's ``k`` / ``v`` gradient coming from its own q heads;
+* **whole on every shard** by the conjugate pair
+  (``distributed.mesh.psum_bwd`` where a replicated activation enters a
+  column-cut projection sums the shards' input gradients): the norms
+  (``norm1``, ``norm2``, ``final_norm``), and an embedding and head kept
+  whole (``t`` not dividing ``V``), which every shard computes
+  redundantly from its whole loss.
+
 Not yet split (ROADMAP A10c, :func:`unsplit_blocks`): MoE experts, MLA's
 latent heads, the recurrent and local kinds, cross-attention and the
-vision merge; training over ``"model"`` is A10b.
+vision merge.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,6 +75,7 @@ from .mesh import Mesh
 from .sharding import param_pspecs
 
 __all__ = ["unsplit_blocks", "tp_degree", "shard_config", "shard_params_tp",
+           "tp_slices", "tp_holders", "tp_partial",
            "gather_vocab", "embed_lookup"]
 
 
@@ -121,6 +140,54 @@ def shard_config(cfg: ArchConfig, t: int) -> ArchConfig:
 
 
 _KV = re.compile(r"(^|/)(k|v)/w$")
+_QK_NORM = re.compile(r"(^|/)(q_norm|k_norm)/scale$")
+
+
+def _kv_cut(path, cfg: ArchConfig, t: int) -> bool:
+    """Whether the leaf at ``path`` is a k / v projection whose kv heads
+    are fewer than the shards (each shard holds the one its q heads
+    read)."""
+    return t > cfg.n_kv_heads and bool(_KV.search(path_str(path)))
+
+
+def tp_slices(shape: Sequence[int], path, spec, cfg: ArchConfig, t: int,
+              m: int) -> Tuple[slice, ...]:
+    """Model shard ``m``'s index ranges of the leaf at ``path`` (a tree
+    path; an optimizer state's path ends as its parameter's) of
+    ``shape``, placed as ``spec`` by ``param_pspecs`` on a mesh whose
+    ``"model"`` axis has extent ``t`` (module docstring)."""
+    sl = [slice(None)] * len(shape)
+    for d, entry in enumerate(spec):
+        if entry == "model":
+            size = shape[d] // t
+            sl[d] = slice(m * size, (m + 1) * size)
+    if _kv_cut(path, cfg, t):
+        g = m // (t // cfg.n_kv_heads)     # the kv head of m's q heads
+        sl[-1] = slice(g * cfg.dh, (g + 1) * cfg.dh)
+    return tuple(sl)
+
+
+def tp_holders(path, spec, cfg: ArchConfig, t: int) -> List[List[int]]:
+    """The model shards that hold the same part of the leaf at ``path``
+    (placed as ``spec``), in groups: one shard a group for a leaf cut
+    over ``"model"``, the ``t / kvh`` shards of each kv head for a k / v
+    projection with fewer kv heads than shards, else every shard."""
+    if "model" in spec:
+        return [[m] for m in range(t)]
+    if _kv_cut(path, cfg, t):
+        r = t // cfg.n_kv_heads
+        return [list(range(g * r, (g + 1) * r))
+                for g in range(cfg.n_kv_heads)]
+    return [list(range(t))]
+
+
+def tp_partial(path, cfg: ArchConfig, t: int) -> bool:
+    """Whether each holder's gradient of the leaf at ``path`` is a
+    partial sum that the trainer adds up over its holders (qwen3's
+    ``q_norm`` / ``k_norm``, a kv head on several shards), rather than
+    whole (module docstring)."""
+    return t > 1 and (bool(_QK_NORM.search(path_str(path)))
+                      or _kv_cut(path, cfg, t))
 
 
 def shard_params_tp(params: Any, cfg: ArchConfig, mesh: Mesh, *,
@@ -132,21 +199,13 @@ def shard_params_tp(params: Any, cfg: ArchConfig, mesh: Mesh, *,
     shard's device (``device``, if given, for every shard)."""
     t = mesh.shape.get("model", 1)
     shard_config(cfg, t)               # raises unless t splits cfg
-    kvh, dh = cfg.n_kv_heads, cfg.dh
     specs = param_pspecs(params, mesh, mode="serve",
-                         kv_heads_divide=kvh % t == 0, cfg=cfg)
+                         kv_heads_divide=cfg.n_kv_heads % t == 0, cfg=cfg)
     shards = range(mesh.size) if shards is None else shards
 
     def part(path, x, m: int) -> torch.Tensor:
-        sl = [slice(None)] * x.dim()
-        for d, entry in enumerate(get_path(specs, path)):
-            if entry == "model":
-                size = x.shape[d] // t
-                sl[d] = slice(m * size, (m + 1) * size)
-        if t > kvh and _KV.search(path_str(path)):
-            g = m // (t // kvh)           # the kv head of m's q heads
-            sl[-1] = slice(g * dh, (g + 1) * dh)
-        return x[tuple(sl)]
+        return x[tp_slices(x.shape, path, get_path(specs, path), cfg, t,
+                           m)]
 
     out = []
     for j in shards:

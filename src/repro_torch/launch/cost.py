@@ -31,7 +31,11 @@ counts, per device:
   output + temp − alias`` as in the JAX dry run's record;
 - **collective bytes by kind** from :class:`RecordingComm`, one rank's
   stand-in for ``distributed.mesh.GroupComm``: each collective adds its
-  result's bytes (the JAX dry run's convention, ``dryrun.py:51``).
+  result's bytes (the JAX dry run's convention, ``dryrun.py:51``), and
+  **by link**: a group within one node of the abstract mesh moves its
+  bytes over NVLink, a group that spans nodes over the network (the 2-D
+  train step: the model axis's forward and backward all-reduces within a
+  node, the data axis's gather and reduce-scatter across nodes).
 
 Why meta tensors and not ``FakeTensorMode``: a fake tensor is a meta
 tensor with a device attached, and its mode's Python dispatch costs
@@ -116,6 +120,8 @@ class StepCost:
     alias_bytes: int = 0
     peak_bytes: int = 0
     collectives: Dict[str, int] = dataclasses.field(default_factory=dict)
+    collectives_by_link: Dict[str, int] = dataclasses.field(
+        default_factory=dict)      # "nvlink" / "network": result bytes
     n_ops: int = 0                  # the operators traced
 
     @property
@@ -137,24 +143,44 @@ class RecordingComm:
     the shape ``GroupComm``'s would have, on the operand's (meta) device,
     and adds the result's bytes to its kind (``all_gather`` → all-gather,
     ``psum`` / ``pmin`` / ``pmax`` → all-reduce, ``psum_scatter`` →
-    reduce-scatter, ``all_to_all`` → all-to-all). ``GroupComm`` carries
-    out its reductions through an all-gather (or an all-to-all) and folds
-    in rank order, for the same bits as one process; the bytes recorded
-    are the collective's, not that implementation's. ``spans_nodes``:
-    whether the group crosses nodes (which bandwidth ``launch.dryrun``
-    takes)."""
+    reduce-scatter, ``all_to_all`` → all-to-all) and to its link.
+    ``GroupComm`` carries out its reductions through an all-gather (or an
+    all-to-all) and folds in rank order, for the same bits as one
+    process; the bytes recorded are the collective's, not that
+    implementation's. ``spans_nodes``: whether the group crosses nodes
+    (its bytes go over the network, else NVLink). :meth:`split` gives the
+    comm of rank 0's group among groups of the ranks (nodes of
+    ``node_cards`` ranks), which records into this one."""
 
-    def __init__(self, n: int, device, *, spans_nodes: bool = False):
+    def __init__(self, n: int, device, *, spans_nodes: bool = False,
+                 node_cards: Optional[int] = None, _root=None):
         self.n, self.rank = int(n), 0
         self.shards = [self.rank]
         self._device = torch.device(device)
         self.devices = [self._device]
         self.spans_nodes = spans_nodes
-        self.bytes = {kind: 0 for kind in COLL_KINDS}
-        self.hbm_bytes = 0          # each collective's operand + result
+        self.node_cards = node_cards
+        self.link = "network" if spans_nodes else "nvlink"
+        self.root = self if _root is None else _root
+        if _root is None:
+            self.bytes = {kind: 0 for kind in COLL_KINDS}
+            self.link_bytes = {"nvlink": 0, "network": 0}
+            self.hbm_bytes = 0      # each collective's operand + result
 
     def device(self, j: int) -> torch.device:
         return self._device
+
+    def split(self, groups: Sequence[Sequence[int]]) -> list:
+        """``[(members, comm)]`` for the group of ``groups`` (lists of
+        ranks) that holds rank 0: a comm of its size that records into
+        this one, over the network where its ranks sit on several nodes
+        (``node_cards`` ranks a node)."""
+        members = next(list(g) for g in groups if self.rank in g)
+        nodes = ({j // self.node_cards for j in members}
+                 if self.node_cards else {0})
+        return [(members, RecordingComm(
+            len(members), self._device, spans_nodes=len(nodes) > 1,
+            node_cards=self.node_cards, _root=self.root))]
 
     def _one(self, xs) -> torch.Tensor:
         if len(xs) != 1:
@@ -162,8 +188,10 @@ class RecordingComm:
         return xs[0]
 
     def _record(self, kind: str, operand: int, out: torch.Tensor) -> list:
-        self.bytes[kind] += tensor_bytes(out)
-        self.hbm_bytes += operand + tensor_bytes(out)
+        root = self.root
+        root.bytes[kind] += tensor_bytes(out)
+        root.link_bytes[self.link] += tensor_bytes(out)
+        root.hbm_bytes += operand + tensor_bytes(out)
         return [out]
 
     def all_gather(self, xs):
@@ -316,6 +344,7 @@ def trace_step(step: Callable, args: Sequence[Any], *,
     cost.n_ops = tracker.n_ops
     if comm is not None:
         cost.collectives = dict(comm.bytes)
+        cost.collectives_by_link = dict(comm.link_bytes)
     return out, cost
 
 

@@ -6,13 +6,14 @@ card of the production mesh (``launch.mesh``: 256 H100s, or 2 × 256)
 and what bounds its step: per-device memory against the card's, flops
 and HBM bytes, collective bytes by kind, the three roofline terms and
 the useful-flop ratio. The cells are ``SHAPES × runnable_cells``; each
-step is what the port runs (``launch.specs``: FSDP over the data axes
-for train; for prefill and decode rank 0 of a tensor-parallel replica
-over ``"model"`` for the dense decoders, a data-parallel replica with
-whole weights for the others — ``launch.mesh.model_extent`` says which,
-and the record says why), counted by ``launch.cost``. A cell that does not fit is a record with ``fits_hbm``
-false, not a failure; a cell that raises is a failure. Allocates
-nothing and asks for no card.
+step is what the port runs (``launch.specs``): for the dense decoders,
+rank 0 of a tensor-parallel replica over ``"model"`` — FSDP × TP for
+train, the TP forward for prefill and decode; for the other archs, FSDP
+over the data axes for train and a data-parallel replica with whole
+weights for serving (``launch.mesh.model_extent`` says which, and the
+record says why), counted by ``launch.cost``. A cell that does not fit
+is a record with ``fits_hbm`` false, not a failure; a cell that raises
+is a failure. Allocates nothing and asks for no card.
 
 Usage (the JAX launcher's flags):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-34b \\
@@ -21,8 +22,8 @@ Usage (the JAX launcher's flags):
 
 The roofline terms are estimates from the H100 SXM data sheet, not
 measurements: compute at the dense bf16 peak, memory at the HBM rate,
-collectives at NVLink's rate a direction within a node or the network's
-a card across nodes.
+collectives at NVLink's rate a direction for a group within a node and
+the network's a card for a group across nodes, the two added.
 """
 from __future__ import annotations
 
@@ -47,11 +48,15 @@ NETWORK_BW = 50e9            # B/s a card across nodes (400 Gb/s)
 HBM_BYTES = 81559 * 2 ** 20
 
 
-def roofline(cost, *, cross_node: bool) -> dict:
-    coll = sum(cost.collectives.values())
+def roofline(cost) -> dict:
+    """The three terms: flops at the bf16 peak, HBM bytes at its rate,
+    and each link's collective bytes at its rate (NVLink within a node,
+    the network across nodes)."""
+    links = cost.collectives_by_link
     r = {"compute_s": cost.flops / PEAK_FLOPS,
          "memory_s": cost.bytes / HBM_BW,
-         "collective_s": coll / (NETWORK_BW if cross_node else NVLINK_BW)}
+         "collective_s": (links.get("nvlink", 0) / NVLINK_BW
+                          + links.get("network", 0) / NETWORK_BW)}
     r["bottleneck"] = max(r, key=lambda k: r[k])
     return r
 
@@ -113,9 +118,11 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
                    "flops_by_op": cost.flops_by_op}
     rec["collectives"] = dict(cost.collectives)
     rec["collectives"]["total"] = sum(cost.collectives.values())
-    cross = bool(cell.comm is not None and cell.comm.spans_nodes)
-    rec["roofline"] = roofline(cost, cross_node=cross)
-    rec["roofline"]["collective_link"] = ("network" if cross else "nvlink")
+    rec["collectives"]["by_link"] = dict(cost.collectives_by_link)
+    rec["roofline"] = roofline(cost)
+    used = [k for k in ("nvlink", "network")
+            if cost.collectives_by_link.get(k)]
+    rec["roofline"]["collective_link"] = "+".join(used) or "nvlink"
     mf = model_flops(arch, cell.shape, cell.kind) / mesh.size
     rec["model_flops_per_chip"] = mf
     rec["useful_flop_ratio"] = mf / max(cost.flops, 1.0)

@@ -7,17 +7,16 @@ The JAX package's production mesh is a 16 × 16 v5e pod ``("data",
 has the same device counts: 256 H100s, or 2 × 256. Its model axis
 (:func:`model_extent`):
 
-* the dense decoders' serving cells (prefill, decode) are tensor
+* the dense decoders' cells (train, prefill, decode) are tensor
   parallel over ``t = tensor_parallel.tp_degree(cfg, NODE_CARDS)`` cards
   of one node: ``(256 / t, t)`` over ``("data", "model")``, or ``(2,
-  256 / t, t)`` over ``("pod", "data", "model")``. 8 rather than the JAX
-  package's 16: past a node every layer's all-reduce would cross the
-  network, and the port splits whole heads (24 and 40 do not split 16
-  ways);
-* every train cell (``train.fsdp`` refuses a ``"model"`` axis wider
-  than 1: ROADMAP A10b) and the other archs' serving cells (their blocks
-  are not split yet: A10c) have none: 256 along ``"data"``, or 2 × 256
-  along ``("pod", "data")``.
+  256 / t, t)`` over ``("pod", "data", "model")`` (train: FSDP over the
+  data axes × TP, ``train.fsdp``). 8 rather than the JAX package's 16:
+  past a node every layer's all-reduce would cross the network, and the
+  port splits whole heads (24 and 40 do not split 16 ways);
+* the other archs' cells have none (their blocks are not split over
+  ``"model"`` yet: ROADMAP A10c): 256 along ``"data"``, or 2 × 256 along
+  ``("pod", "data")``.
 
 The devices are abstract (the dry run allocates nothing, and no card is
 asked for): nodes of ``NODE_CARDS`` cards joined by NVLink, the nodes by
@@ -63,18 +62,17 @@ class AbstractMesh(Mesh):
 
 def model_extent(arch: ArchConfig, kind: str) -> Tuple[int, str]:
     """(the cell's model axis, why): ``tp_degree(arch, NODE_CARDS)`` for
-    a dense decoder's prefill or decode cell, else 1 (module
-    docstring)."""
-    if kind == "train":
-        return 1, ("train: FSDP over the data axes, no model axis "
-                   "(ROADMAP A10b)")
+    a dense decoder's cells, else 1 (module docstring)."""
     rest = unsplit_blocks(arch)
     if rest:
-        return 1, (f"{kind}: whole weights a replica; {', '.join(rest)} "
-                   f"not split over 'model' yet (ROADMAP A10c)")
+        what = ("FSDP over the data axes, whole layers a replica"
+                if kind == "train" else "whole weights a replica")
+        return 1, (f"{kind}: {what}; {', '.join(rest)} not split over "
+                   f"'model' yet (ROADMAP A10c)")
     t = tp_degree(arch, NODE_CARDS)
-    return t, (f"{kind}: tensor parallel over 'model' = {t} cards of a "
-               f"node (heads {arch.n_heads // t}, kv heads "
+    how = "FSDP over the data axes × " if kind == "train" else ""
+    return t, (f"{kind}: {how}tensor parallel over 'model' = {t} cards of "
+               f"a node (heads {arch.n_heads // t}, kv heads "
                f"{max(arch.n_kv_heads // t, 1)} a shard)")
 
 

@@ -16,7 +16,9 @@ Runs on the card (bf16 at full width, float32 with ``--reduced``);
 model shards (``distributed.tensor_parallel``): on N cards, or on the
 devices ``--devices`` lists (N entries; ``cuda:0,cuda:0`` puts two
 shards on one card, ``cpu,cpu`` two on the CPU) — nothing falls back to
-one device:
+one device. Its whole tree is drawn on the CPU from the same seed (the
+one-device launcher's with ``--device cpu``) and only each shard's part
+reaches its device, so a model larger than one card starts:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
       --reduced --tp 2 --devices cpu,cpu --retrieval
@@ -73,8 +75,11 @@ def main(argv=None):
         dev = resolve_device(args.device)
     opts = ModelOptions(dtype=torch.float32 if args.reduced
                         else torch.bfloat16)
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         opts, device=dev)
+    # over a model axis the whole tree is drawn on the CPU, and only each
+    # shard's part reaches its device
+    home = torch.device("cpu") if mesh is not None else dev
+    params = init_params(cfg, torch.Generator(device=home).manual_seed(0),
+                         opts, device=home)
     if mesh is not None:
         params = shard_params_tp(params, cfg, mesh)
     rng = np.random.default_rng(0)

@@ -10,10 +10,14 @@ the programs the port runs, not what XLA would make of the JAX package:
 - **train** (:func:`build_train_cell`): on a mesh of several devices,
   ``train.fsdp.FSDPTrainer``'s step for one rank (rank 0) over
   :class:`launch.cost.RecordingComm` — what ``launch/train.py --shards
-  N`` runs on each card: the whole-model gather, forward and backward on
-  the rank's rows, the float32 reduce-scatter, the rank's AdamW part; on
-  one device, ``train.make_train_step``'s step (``launch/train.py``
-  without ``--shards``);
+  N [--tp T]`` runs on each card: the gather of its model shard's tree
+  over its data group (the whole model where the mesh has no model
+  axis), forward and backward on its replica's rows (over a model axis,
+  the TP forward's all-reduces and the vocab-parallel loss within the
+  node, recorded over NVLink), the float32 reduce-scatter over the data
+  group (across nodes, the network), the rank's AdamW part; on one
+  device, ``train.make_train_step``'s step (``launch/train.py`` without
+  ``--shards``);
 - **prefill** and **decode** (:func:`build_prefill_cell`,
   :func:`build_decode_cell`): on a mesh whose ``"model"`` axis is wider
   than 1 (the dense decoders, ``launch.mesh.model_extent``), rank 0's
@@ -35,8 +39,9 @@ axes where it divides them, replicated where it does not (decode_32k's
 with a full cache (position ``cache_len − 1``).
 
 The train rank's batch: ``FSDPTrainer.step`` takes the global batch and
-cuts its rank's rows from it. A rank's card holds only its own rows, so
-the global batch is given as a view of the rank's rows with the global
+cuts its data replica's rows from it (the same rows on every model
+shard of a replica). A rank's card holds only its own rows, so the
+global batch is given as a view of the rank's rows with the global
 shape (stride 0 along the rows): the rows the rank cuts are its own, and
 its device's arguments are its rows, as the JAX dry run's per-device
 batch is.
@@ -89,17 +94,15 @@ def _batch_axes(mesh: Mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
-def _replicas(mesh: Mesh, *, serve: bool = False) -> int:
-    """The data replicas (the batch axes' product); a ``"model"`` axis
-    wider than 1 only in serving (``serve``), where it is tensor
-    parallelism."""
-    allowed = ("pod", "data") + (("model",) if serve else ())
+def _replicas(mesh: Mesh) -> int:
+    """The data replicas (the batch axes' product; a ``"model"`` axis is
+    tensor parallelism within a replica)."""
     others = {a: n for a, n in mesh.shape.items()
-              if a not in allowed and n != 1}
+              if a not in ("pod", "data", "model") and n != 1}
     if others:
-        raise ValueError(f"mesh axes {others} would need tensor "
-                         f"parallelism, which the port runs for serving "
-                         f"only (training over 'model' is ROADMAP A10b)")
+        raise ValueError(f"mesh axes {others} have no place in the port's "
+                         f"layouts (batch over 'pod' / 'data', tensor "
+                         f"parallelism over 'model')")
     return math.prod(mesh.shape[a] for a in _batch_axes(mesh))
 
 
@@ -170,7 +173,8 @@ def build_train_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh, *,
             raise ValueError("the sharded step takes one sequence a "
                              "replica a microbatch")
         comm = RecordingComm(mesh.size, META,
-                             spans_nodes=mesh.size > NODE_CARDS)
+                             spans_nodes=mesh.size > NODE_CARDS,
+                             node_cards=NODE_CARDS)
         trainer = FSDPTrainer(arch, tcfg, opts, mesh, comm,
                               fsdp_over_pod=big)
         local, states = trainer.init(params)
@@ -179,13 +183,17 @@ def build_train_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh, *,
 
         def step(lp, st, batch):
             new, st, metrics = trainer.step([lp], [st], {
-                k: _global_view(v, mesh.size, ax)
-                for k, v in batch.items()})
+                k: _global_view(v, nb, ax) for k, v in batch.items()})
             return new[0], st[0], metrics
 
         args = (local[0], states[0], local_rows)
-        layout = (f"FSDP over {'+'.join(_batch_axes(mesh))} "
-                  f"({mesh.size} ranks, rank 0)")
+        t = trainer.t
+        layout = (f"FSDP over {'+'.join(_batch_axes(mesh))}"
+                  + (f" x TP over model={t} (rank 0's model shard: "
+                     f"{arch.n_heads // t} heads, "
+                     f"{max(arch.n_kv_heads // t, 1)} kv heads)"
+                     if t > 1 else "")
+                  + f" ({mesh.size} ranks, rank 0)")
     notes = (f"accum={accum} mb={mb_global} opt={tcfg.opt.name} "
              f"{layout}")
     return Cell(arch, shape, opts, step, args, "train", comm, notes)
@@ -203,7 +211,7 @@ def _global_view(x: torch.Tensor, n: int, ax: int) -> torch.Tensor:
 def _serve_batch(shape: ShapeConfig, mesh: Mesh) -> Tuple[int, str]:
     """Rows a replica serves: the batch split over the data axes where it
     divides them, else every row (replicated)."""
-    nb = _replicas(mesh, serve=True)
+    nb = _replicas(mesh)
     b = shape.global_batch
     if b % nb == 0 and b >= nb:
         return b // nb, f"B={b} split over {nb} replicas"

@@ -17,7 +17,18 @@ latest one. Runs on the card unless ``--device cpu``. ``--shards N``
 trains over a mesh of N shards along ``"data"`` — the JAX launcher's
 host mesh and layout, FSDP (``train.fsdp``) — one a card, or all N on
 ``--device`` with ``--simulate``; a restart restores onto any shard
-count (checkpoints hold whole leaves).
+count (checkpoints hold whole leaves). ``--tp T`` adds a model axis:
+``(N, T)`` shards over ``("data", "model")``, FSDP × tensor parallelism
+for the dense decoders (the JAX launcher builds ``("data",)`` only,
+ROADMAP C21) — N·T cards, all on ``--device`` with ``--simulate``, or
+the devices ``--devices`` lists (N·T entries; ``cpu,cpu,cpu,cpu`` four
+on the CPU). With ``--tp`` the whole tree is drawn on the CPU (from the
+same seed) and each shard's part placed on its device, so a model larger
+than one card starts:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
+      --reduced --steps 4 --seq 32 --batch 4 --shards 2 --tp 2 \
+      --devices cpu,cpu,cpu,cpu
 """
 from __future__ import annotations
 
@@ -34,16 +45,25 @@ from ..train import OptConfig, TrainConfig, checkpoint, make_train_step
 
 
 def _mesh(args, dev):
-    """The ``--shards`` mesh along "data": one shard a card, or every
-    shard on ``dev`` with ``--simulate``."""
+    """The ``--shards`` mesh along "data" (``(N, T)`` over ``("data",
+    "model")`` with ``--tp T``): one shard a card, every shard on ``dev``
+    with ``--simulate``, or the ``--devices`` list."""
     from ..distributed.mesh import make_mesh
+    shape, names = (((args.shards, args.tp), ("data", "model"))
+                    if args.tp > 1 else ((args.shards,), ("data",)))
+    n = args.shards * args.tp
+    if args.devices is not None:
+        devices = args.devices.split(",")
+        if len(devices) != n:
+            raise SystemExit(f"--devices lists {len(devices)} devices for "
+                             f"{n} shards")
+        return make_mesh(shape, names, devices=devices)
     if args.simulate:
-        return make_mesh((args.shards,), ("data",),
-                         devices=[dev] * args.shards)
-    if dev.type == "cpu" and args.shards > 1:
-        raise SystemExit(f"--shards {args.shards} on the CPU needs "
-                         f"--simulate")
-    return make_mesh((args.shards,), ("data",),
+        return make_mesh(shape, names, devices=[dev] * n)
+    if dev.type == "cpu" and n > 1:
+        raise SystemExit(f"{n} shards on the CPU need --simulate or "
+                         f"--devices")
+    return make_mesh(shape, names,
                      devices=None if dev.type == "cuda" else [dev])
 
 
@@ -69,10 +89,22 @@ def main(argv=None) -> dict:
                     help="train over a mesh of N data shards (FSDP)")
     ap.add_argument("--simulate", action="store_true",
                     help="put every shard on --device")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="model shards of each data replica (FSDP x TP)")
+    ap.add_argument("--devices", default=None,
+                    help="the shards' devices, comma-separated (default: "
+                         "a card a shard)")
     args = ap.parse_args(argv)
+    if args.tp > 1:
+        args.shards = max(args.shards, 1)
+    if args.devices is not None and not args.shards:
+        ap.error("--devices places the shards of --shards N")
 
     cfg = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
-    dev = resolve_device(args.device)
+    mesh = _mesh(args, None if args.devices else
+                 resolve_device(args.device)) if args.shards else None
+    dev = (mesh.devices[0] if mesh is not None
+           else resolve_device(args.device))
     opts = ModelOptions(dtype=torch.float32 if args.reduced
                         else torch.bfloat16,
                         remat=not args.reduced,
@@ -82,17 +114,21 @@ def main(argv=None) -> dict:
                        accum=args.accum)
     opt_init, step_fn = make_train_step(cfg, tcfg, opts)
 
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         opts, device=dev)
+    # over a model axis the whole tree is drawn on the CPU, and only each
+    # shard's part reaches its device
+    home = torch.device("cpu") if args.tp > 1 else dev
+    params = init_params(cfg, torch.Generator(device=home).manual_seed(0),
+                         opts, device=home)
     n_params = count_params(params)
     trainer = None
-    if args.shards:
+    if mesh is not None:
         from ..train.fsdp import FSDPTrainer
-        mesh = _mesh(args, dev)
         trainer = FSDPTrainer(cfg, tcfg, opts, mesh)
         params, opt = trainer.init(params)   # each shard's parts
-        where = f"{mesh.size} shards on " + ", ".join(
-            sorted(set(map(str, mesh.devices))))
+        where = (f"{mesh.size} shards "
+                 + (f"({args.shards} x {args.tp} over data x model) "
+                    if args.tp > 1 else "")
+                 + "on " + ", ".join(sorted(set(map(str, mesh.devices)))))
     else:
         opt = opt_init(params)
         where = str(dev)

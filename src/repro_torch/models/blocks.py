@@ -22,7 +22,10 @@ and the attention's fresh pieces come back in its place
 ``attn_apply`` and ``mlp_apply`` on its own tree and the shards' view of
 the config; the two partial outputs (o's, down's, each rounded to the
 model's dtype by its product) are summed over the comm in shard order
-before each residual add.
+before each residual add. Under autograd the sums' backward is the
+identity and each norm's output enters the shard's projections through
+a psum of their input gradients (``distributed.mesh.psum_fwd`` /
+``psum_bwd``); outside it both are the plain psum and nothing.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch
 
 from ..configs.base import (ATTN, ATTN_BIDIR, LOCAL, MLSTM, RGLRU, SLSTM,
                             XATTN, ArchConfig)
+from ..distributed.mesh import psum_bwd, psum_fwd
 from . import recurrent as R
 from .layers import (attn_apply, attn_init, apply_norm, dense, mla_apply,
                      mla_cache, mla_init, mlp_apply, mlp_init, norm_init)
@@ -152,14 +156,17 @@ def block_apply_tp(kind: str, ps: List[Params], xs: List[torch.Tensor],
         raise ValueError(f"tensor parallelism splits the dense decoder "
                          f"block, not {kind!r} (ROADMAP A10c)")
     caches = [None] * len(ps) if caches is None else caches
-    outs = [attn_apply(p["attn"], apply_norm(p["norm1"], x, cfg.norm), cfg,
-                       positions=at, cache=c, pos=pos, readonly=readonly)
-            for p, x, at, c in zip(ps, xs, positions, caches)]
-    a = comm.psum([o for o, _ in outs])
+    hs = psum_bwd(comm, [apply_norm(p["norm1"], x, cfg.norm)
+                         for p, x in zip(ps, xs)])
+    outs = [attn_apply(p["attn"], h, cfg, positions=at, cache=c, pos=pos,
+                       readonly=readonly)
+            for p, h, at, c in zip(ps, hs, positions, caches)]
+    a = psum_fwd(comm, [o for o, _ in outs])
     xs = [x + y for x, y in zip(xs, a)]
-    f = comm.psum([
-        mlp_apply(p["mlp"], apply_norm(p["norm2"], x, cfg.norm), cfg.act)
-        for p, x in zip(ps, xs)])
+    hs = psum_bwd(comm, [apply_norm(p["norm2"], x, cfg.norm)
+                         for p, x in zip(ps, xs)])
+    f = psum_fwd(comm, [mlp_apply(p["mlp"], h, cfg.act)
+                        for p, h in zip(ps, hs)])
     return [x + y for x, y in zip(xs, f)], [c for _, c in outs]
 
 

@@ -25,17 +25,23 @@ the step's fresh pieces (``{"k_new", "v_new", "pos"}``; MLA
 "xv"}``) and whose ring and recurrent layers hold their new state, and
 :func:`append_readonly` writes those pieces into the cache out of band.
 
-Tensor parallelism over a model comm (``comm=``; serving the dense
-decoders, ``distributed.tensor_parallel``): ``forward`` takes one tree a
-shard of ``comm.shards`` (``shard_params_tp``'s cut) and one cache a
-shard (``init_cache(comm=)``, sized by the shard's kv heads), and returns
-each shard's logits over its vocabulary columns, ``(B, T, V / t)``, or
-whole where ``t`` does not divide the vocabulary. Each shard looks up the
-ids in its vocabulary range, zeros the rest, and the shards' rows are
+Tensor parallelism over a model comm (``comm=``; the dense decoders,
+``distributed.tensor_parallel``): ``forward`` takes one tree a shard of
+``comm.shards`` (``shard_params_tp``'s cut) and one cache a shard
+(``init_cache(comm=)``, sized by the shard's kv heads), and returns each
+shard's logits over its vocabulary columns, ``(B, T, V / t)``, or whole
+where ``t`` does not divide the vocabulary. Each shard looks up the ids
+in its vocabulary range, zeros the rest, and the shards' rows are
 summed; each layer sums the shards' attention and FFN outputs
 (``blocks.block_apply_tp``); the serve steps gather the served
-position's logits (``tensor_parallel.gather_vocab``). On one device
-(no comm) nothing of this runs.
+position's logits (``tensor_parallel.gather_vocab``), the train step
+takes a vocab-parallel loss over them (``train.train_step``). Under
+autograd the sums are ``distributed.mesh.psum_fwd`` (identity backward)
+and the final norm's output enters a cut head through ``psum_bwd``
+(psum backward), as each layer's norms enter the shard's projections;
+with ``ModelOptions.remat`` each layer's step over every shard runs
+under one ``torch.utils.checkpoint``. On one device (no comm) nothing of
+this runs.
 
 Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
 fills the cache from position 0 on), ``decode`` (positions continue from
@@ -55,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ATTN_BIDIR, ArchConfig
 from ..device import resolve_device
+from ..distributed.mesh import psum_bwd, psum_fwd
 from ..distributed.tensor_parallel import embed_lookup, shard_config
 from .blocks import block_apply, block_apply_tp, block_init, init_block_cache
 from .layers import apply_norm, norm_init, normal_init
@@ -238,11 +245,17 @@ def _out_cache(cache, pos: int, n_layers: int, readonly: bool):
 
 
 def _head(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The final norm and the head (the embedding's transpose where it is
-    tied): float32 logits."""
-    x = apply_norm(params["final_norm"], x, cfg.norm)
+    """The final norm and the head: float32 logits."""
+    return _project(params, apply_norm(params["final_norm"], x, cfg.norm),
+                    cfg)
+
+
+def _project(params: Params, h: torch.Tensor, cfg: ArchConfig
+             ) -> torch.Tensor:
+    """The head (the embedding's transpose where it is tied) on the final
+    norm's output ``h``: float32 logits."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(x, head).to(torch.float32)
+    return torch.matmul(h, head).to(torch.float32)
 
 
 def _forward_tp(params: List[Params], cfg: ArchConfig, tokens, *,
@@ -251,9 +264,6 @@ def _forward_tp(params: List[Params], cfg: ArchConfig, tokens, *,
     if len(params) != len(comm.shards):
         raise ValueError(f"{len(params)} shard trees for the comm's "
                          f"{len(comm.shards)} shards")
-    if mode == "train" and torch.is_grad_enabled():
-        raise ValueError("tensor parallelism serves (ROADMAP A10b trains "
-                         "over 'model'): run train mode under no_grad")
     lcfg = shard_config(cfg, comm.n)
     devs = [comm.device(j) for j in comm.shards]
     t = tokens.shape[1]
@@ -262,26 +272,37 @@ def _forward_tp(params: List[Params], cfg: ArchConfig, tokens, *,
                                 mode, "cpu")
     at = [positions.to(d) for d in devs]
     ids = [tokens.to(device=d, dtype=torch.int64) for d in devs]
-    if params[0]["embed"].shape[0] != cfg.vocab:     # cut by vocabulary
-        x = comm.psum([embed_lookup(p["embed"], i, m)
-                       for p, i, m in zip(params, ids, comm.shards)])
+    cut = params[0]["embed"].shape[0] != cfg.vocab    # cut by vocabulary
+    if cut:
+        x = psum_fwd(comm, [embed_lookup(p["embed"], i, m)
+                            for p, i, m in zip(params, ids, comm.shards)])
     else:
         x = [p["embed"][i] for p, i in zip(params, ids)]
     x = [xs.to(opts.dtype) for xs in x]
     out = None if cache is None else [
         _out_cache(c, pos, cfg.n_layers, readonly) for c in cache]
+    remat = opts.remat and mode == "train" and torch.is_grad_enabled()
     for i, kind in enumerate(layer_kinds(cfg)):
-        x, new = block_apply_tp(
-            kind, [p["layers"][i] for p in params], x, lcfg, comm,
-            positions=at, pos=pos, readonly=readonly,
-            caches=None if cache is None else [c["layers"][i]
-                                               for c in cache])
+        lps = [p["layers"][i] for p in params]
+        caches = None if cache is None else [c["layers"][i] for c in cache]
+        if remat:
+            x, new = checkpoint(block_apply_tp, kind, lps, x, lcfg, comm,
+                                use_reentrant=False, positions=at, pos=pos,
+                                readonly=readonly, caches=caches)
+        else:
+            x, new = block_apply_tp(kind, lps, x, lcfg, comm, positions=at,
+                                    pos=pos, readonly=readonly,
+                                    caches=caches)
         if out is not None:
             for c, n in zip(out, new):
                 c["layers"][i] = n
     for c in out or ():
         c["pos"] = pos + t
-    return [_head(p, xs, cfg) for p, xs in zip(params, x)], out
+    h = [apply_norm(p["final_norm"], xs, cfg.norm)
+         for p, xs in zip(params, x)]
+    if cut:       # a cut head is column-parallel: its input's gradient sums
+        h = psum_bwd(comm, h)
+    return [_project(p, hs, cfg) for p, hs in zip(params, h)], out
 
 
 def append_readonly(cache: Dict[str, Any], fresh: Dict[str, Any]

@@ -30,11 +30,20 @@ the CPU.
   the recording comm's all-reduce bytes are two psums of ``(b, T,
   d_model)`` a layer plus the embedding's, its all-gather bytes the
   served position's logits, and the arguments rank 0's cut of the
-  weights (and cache); a non-dense arch's serving cell and every train
-  cell keep the data-parallel layout, and the record says why.
+  weights (and cache); a non-dense arch's cells keep the data-parallel
+  layout, and the record says why.
+* (f) A dense decoder's train cell on a ``("data", "model")`` mesh runs
+  rank 0 of FSDP × TP (``train.fsdp``): on the reduced llama over
+  ``(16, 2)`` (32 ranks, four nodes) the model axis's all-reduces are
+  recorded over NVLink and the data axis's gather and reduce-scatter
+  over the network, the arguments rank 0's parts; the four dense
+  decoders' train_4k cells on ``(32, 8)`` and ``(2, 32, 8)`` are built
+  as rank 0 of a TP replica (its model shard's heads, cut again over
+  ``"data"``); granite-34b × train_4k on ``(32, 8)``, traced in full
+  (~50 s), fits 81,559 MiB.
 
-The module adds ~25 s to the run (the full-size cell ~3 s, the JAX
-subprocess overlapping the rest).
+The module adds ~80 s to the run (granite's cell ~55 s, the full-size
+decode cell ~3 s, the JAX subprocess overlapping the rest).
 """
 import json
 import math
@@ -395,13 +404,18 @@ def test_tensor_parallel_serving_cell(kind):
 
 
 def test_other_cells_keep_the_data_parallel_layout():
-    """A non-dense arch's serving cell and a dense arch's train cell have
-    no model axis on the production mesh, and their records say why."""
+    """A non-dense arch's serving and train cells have no model axis on
+    the production mesh, and their records say why; a dense arch's train
+    cell has one."""
     t, why = mesh_mod.model_extent(get_reduced("deepseek-v2-lite-16b"),
                                    "decode")
     assert t == 1 and "A10c" in why and "MoE" in why
+    for arch in ("deepseek-v2-lite-16b", "arctic-480b", "xlstm-350m",
+                 "recurrentgemma-9b", "whisper-small", "qwen2-vl-7b"):
+        t, why = mesh_mod.model_extent(get_arch(arch), "train")
+        assert t == 1 and "A10c" in why and "FSDP" in why, arch
     t, why = mesh_mod.model_extent(get_reduced(ARCH), "train")
-    assert t == 1 and "A10b" in why
+    assert t == 4 and "FSDP over the data axes × tensor parallel" in why
     assert mesh_mod.model_extent(get_arch("granite-34b"), "prefill")[0] == 8
     assert mesh_mod.make_production_mesh(multi_pod=True, model=8).shape \
         == {"pod": 2, "data": 32, "model": 8}
@@ -415,3 +429,82 @@ def test_other_cells_keep_the_data_parallel_layout():
     why = dryrun.no_fit_reason(big, "B=32 replicated on 64 replicas T=8")
     assert why.startswith("peak 100.0 GiB over 79.6 GiB, 99.0 GiB of it "
                           "temporaries") and "every replica serves" in why
+
+
+def test_tensor_parallel_train_cell_links():
+    """(f) module docstring: the reduced llama's train cell over ``(16,
+    2)``, traced: the model axis's bytes over NVLink, the data axis's
+    over the network."""
+    arch = get_reduced(ARCH)
+    mesh = AbstractMesh((16, 2), ("data", "model"))
+    cell = specs.build_train_cell(arch, ShapeConfig(*TINY), mesh)
+    assert "TP over model=2" in cell.notes and "32 ranks" in cell.notes
+    _, got = cost.trace_step(cell.step_fn, cell.abstract_args,
+                             comm=cell.comm)
+    links = got.collectives_by_link
+    assert links["nvlink"] > 0 and links["network"] > 0
+    assert links["nvlink"] + links["network"] == sum(
+        got.collectives.values())
+    # the model axis: all-reduces only; the data axis: the weights'
+    # all-gather and the gradients' reduce-scatter
+    assert links["nvlink"] <= got.collectives["all-reduce"]
+    assert got.collectives["all-gather"] > 0
+    assert got.collectives["reduce-scatter"] > 0
+    params = cell.abstract_args[0]
+    d = arch.d_model // 16
+    assert params["layers"][0]["attn"]["q"]["w"].shape == (d, 2 * arch.dh)
+    assert params["embed"].shape == (arch.vocab // 2, d)
+    assert dryrun.roofline(got)["collective_s"] == pytest.approx(
+        links["nvlink"] / dryrun.NVLINK_BW
+        + links["network"] / dryrun.NETWORK_BW)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-14b",
+                                  "nemotron-4-15b", "granite-34b"])
+def test_dense_train_cells_are_tp_replicas(arch, multi_pod):
+    """(f): each dense decoder's train_4k cell on the production mesh is
+    rank 0 of a TP replica over a node's 8 cards: its model shard's
+    heads and vocabulary rows, cut again over "data"."""
+    from repro_torch.distributed.tensor_parallel import tp_holders
+    cfg = get_arch(arch)
+    t, why = mesh_mod.model_extent(cfg, "train")
+    assert t == 8, why
+    mesh = mesh_mod.make_production_mesh(multi_pod=multi_pod, model=t)
+    assert mesh.shape["data"] == 32 and mesh.shape["model"] == 8
+    cell = specs.build_cell(cfg, "train_4k", mesh)
+    assert cell.kind == "train" and cell.comm.n == mesh.size
+    assert f"TP over model=8 (rank 0's model shard: {cfg.n_heads // 8} " \
+        f"heads" in cell.notes
+    params = cell.abstract_args[0]
+    q = params["layers"][0]["attn"]["q"]["w"]
+    assert q.shape == (cfg.d_model // 32, cfg.n_heads // 8 * cfg.dh)
+    k = params["layers"][0]["attn"]["k"]["w"]
+    assert k.shape == (cfg.d_model // 32, max(cfg.n_kv_heads // 8, 1)
+                       * cfg.dh)
+    assert params["embed"].shape == (cfg.vocab // 8, cfg.d_model // 32)
+    # rank 0 holds 1/256 of each leaf cut over both axes, 1/32 of a leaf
+    # its model shard holds whole (a norm; granite's one kv head)
+    whole = specs.abstract_params(cfg, cell.opts)
+    placed = param_pspecs(whole, mesh, mode="train",
+                          kv_heads_divide=cfg.n_kv_heads % 8 == 0)
+    want = 0
+    for path, x in leaves_with_path(whole):
+        spec = get_path(placed, path)
+        want += x.numel() // ((32 if "data" in spec else 1)
+                              * len(tp_holders(path, spec, cfg, 8)))
+    assert sum(x.numel() for _, x in leaves_with_path(params)) == want
+    assert want <= 1.03 * cfg.param_count() / 256
+
+
+def test_granite_train_cell_fits():
+    """(f): granite-34b × train_4k on ``(32, 8)`` fits the card (its
+    1-D cell needed 179.0 GiB, PERF.md §6)."""
+    rec = dryrun.run_cell("granite-34b", "train_4k", multi_pod=False,
+                          verbose=False)
+    assert rec["mesh"] == "32x8" and rec["tensor_parallel"]
+    assert rec["memory"]["fits_hbm"], rec["memory"]
+    assert "no_fit_reason" not in rec
+    links = rec["collectives"]["by_link"]
+    assert links["nvlink"] > 0 and links["network"] > 0
+    assert rec["roofline"]["collective_link"] == "nvlink+network"

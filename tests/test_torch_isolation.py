@@ -43,6 +43,7 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch.train, repro_torch.train.checkpoint\n"
         "import repro_torch.launch.train\n"
         "import repro_torch.distributed.tensor_parallel\n"
+        "import repro_torch.train.fsdp, repro_torch.launch.dryrun\n"
         "import runpy\n"
         "runpy.run_path(sys.argv[1], run_name='tune_quant')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -64,9 +65,11 @@ def test_sources_import_no_jax_or_repro():
     for name in ("models/moe.py", "core/certify.py", "models/recurrent.py",
                  "train/optimizer.py", "train/train_step.py",
                  "train/checkpoint.py", "tree.py", "launch/train.py",
-                 "data.py", "distributed/tensor_parallel.py"):
+                 "data.py", "distributed/tensor_parallel.py",
+                 "train/fsdp.py", "distributed/mesh.py"):
         assert PKG / name in files
     assert ROOT / "tools" / "tune_quant.py" in files
+    assert ROOT / "tools" / "tp_train_bf16_gap.py" in files
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
     assert not offenders, offenders
@@ -160,7 +163,7 @@ def _small():
     "sharded Datastore", "launch.join --distributed", "tools/tune_quant.py",
     "init_params moe", "init_cache moe", "init_params hybrid",
     "init_cache ssm", "launch.train", "opt_state_from_jax",
-    "launch.serve --tp"])
+    "launch.serve --tp", "launch.train --tp"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises;
     it never carries on silently on the CPU."""
@@ -249,6 +252,9 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         # its shards' devices
         "launch.serve --tp": lambda: launch_serve.main(
             ["--arch", "llama3.2-3b", "--reduced", "--tp", "2"]),
+        "launch.train --tp": lambda: launch_train.main(
+            ["--arch", "llama3.2-3b", "--reduced", "--steps", "1",
+             "--tp", "2", "--shards", "2"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -339,3 +345,20 @@ def test_kernel_wrappers_take_no_cpu_tensor():
     q = torch.zeros((1, 4, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
         kf.flash_attention_cuda(q, q, q)
+
+
+def test_train_launcher_tp_runs_on_the_cpu_when_asked():
+    """``launch.train --tp 2 --shards 2 --devices cpu,cpu,cpu,cpu`` trains
+    over a (2, 2) ``("data", "model")`` mesh on the CPU: its losses are
+    one device's within 1e-6 rel (the CPU draw of the same seed)."""
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", "llama3.2-3b", "--reduced", "--steps", "3", "--seq",
+            "32", "--batch", "4"]
+    want = launch_train.main(argv + ["--device", "cpu"])
+    got = launch_train.main(argv + ["--tp", "2", "--shards", "2",
+                                    "--devices", "cpu,cpu,cpu,cpu"])
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-6)
+    assert len(got["resident_bytes"]) == 4
+    with pytest.raises(SystemExit):
+        launch_train.main(argv + ["--tp", "2", "--shards", "2",
+                                  "--devices", "cpu,cpu"])

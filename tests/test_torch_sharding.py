@@ -217,7 +217,7 @@ def test_fsdp_step_matches_one_device(opt, n):
                                    float(w["grad_norm"]), rtol=1e-5)
     _assert_close(tr.gather(local)[0], want, f"{opt} {n} shards")
     # each shard holds 1/n of every leaf the layout splits
-    specs, whole = tr.specs, tr.gather(local, first=True)[0]
+    specs, whole = tr.specs, tr.whole(local)
     for path, x in leaves_with_path(local[0]):
         spec, full = specs, whole
         for k in path:

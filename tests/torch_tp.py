@@ -84,3 +84,59 @@ def pg_worker(rank, world, store_path, out_path):
         np.savez(f"{out_path}.{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
+
+
+# ---- the 2-D train step (tests/test_torch_tp_train.py)
+TRAIN_ARCHS = ("qwen3-14b", "granite-34b")   # q / k norms; one shared kv head
+
+
+def train_2d(cfg, mesh, steps, comm=None):
+    """``steps`` AdamW steps of ``FSDPTrainer`` over ``mesh`` (float32,
+    no remat) from seeded weights on the FSDP test's batches: (trainer,
+    local parameters, local states, metrics, each step's gradients of
+    this process's shards before the reduce, computed beside the step at
+    the parameters it starts from, and those parameters as whole
+    trees)."""
+    from repro_torch.train.fsdp import FSDPTrainer
+    from torch_fsdp import OPTS as TRAIN_OPTS
+    from torch_fsdp import batch, tcfg
+    tr = FSDPTrainer(cfg, tcfg("adamw"), TRAIN_OPTS, mesh, comm)
+    p = init_params(cfg, torch.Generator().manual_seed(0), TRAIN_OPTS,
+                    device="cpu")
+    local, states = tr.init(p)
+    ms, raws, starts = [], [], []
+    for i in range(steps):
+        starts.append(tr.whole(local))
+        raws.append([g for _, g in tr._grads(tr.gather(local),
+                                             batch(cfg, i))])
+        local, states, m = tr.step(local, states, batch(cfg, i))
+        ms.append(m)
+    return tr, local, states, ms, raws, starts
+
+
+def tp_train_worker(rank, world, store_path, out_path):
+    """One rank of a 2 × 2 ``("data", "model")`` gloo group
+    (``GroupComm`` over the world with its mesh): two steps of the 2-D
+    trainer for each of ``TRAIN_ARCHS``; its shard's first gradients,
+    parameters after two steps and losses to an npz."""
+    import torch.distributed as dist
+    from repro_torch.tree import leaves_with_path, path_str
+    torch.set_num_threads(1)
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+        out = {}
+        for arch in TRAIN_ARCHS:
+            cfg = configs.get_reduced(arch)
+            _, local, _, ms, raws, _ = train_2d(
+                cfg, mesh, 2, comm=GroupComm(device="cpu", mesh=mesh))
+            for path, x in leaves_with_path(local[0]):
+                out[f"{arch}/p/{path_str(path)}"] = x.numpy()
+            for path, x in leaves_with_path(raws[0][0]):
+                out[f"{arch}/g/{path_str(path)}"] = x.numpy()
+            out[f"{arch}/loss"] = np.array([float(m["loss"]) for m in ms])
+        np.savez(f"{out_path}.{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
