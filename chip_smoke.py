@@ -265,14 +265,33 @@ force and against each other. Phases:
    way; the dry run's granite-34b × train_4k cell on ``(32, 8)``, traced
    on the host in a subprocess beside the kernels' build (and waited for
    before phase 2, so no phase that measures runs beside it), its record
-   printed and its fit checked.
+   printed and its fit checked;
+28. serving the MoE decoders over ``"model"`` (A10c, first part), every
+   shard simulated on the one card, run right after phase 19: K-F vs its
+   plain version at the shard shapes over 8 (deepseek's absorbed MLA at
+   2 heads, d 576, v 512: the prefill, the written and the read-only
+   decode; arctic's GQA 7 / 1 at d 128: prefill and decode) with SDPA
+   beside each; phase 19's deepseek-v2-lite-16b tree, while still on the
+   card, cut into 8 model shards (experts 8 of 64 a shard, MLA's latent
+   whole) and freed, served through ``BatchedServer(comm=)`` with phase
+   19's prompts and hook, batch 8, 8 greedy tokens, counted (K-F 8 × 27
+   × 9), every retrieval exact, every shard's routing of every block
+   bitwise shard 0's, the served logits against phase 19's one device
+   within ``TP_MOE_LOGIT_REL`` while the tokens fed agree and the share
+   of routed choices whose expert differs from its printed; arctic-480b
+   at full width cut to 1 layer over 8 shards against one device (a
+   prefill and 4 decode steps at batch 4 fed one device's tokens, each
+   within ``TP_MOE_LOGIT_REL``, each served row routed as on one device
+   within ``TP_ARCTIC_LOGIT_REL``); the reduced deepseek and arctic over 2
+   shards on the card in float32 against one device on the CPU (logits
+   within 2e-5 + 2e-5·|logit|, the same routing).
 
-Each of phases 23 to 27 prints its wall time. Every time printed stands
+Each of phases 23 to 28 prints its wall time. Every time printed stands
 beside the card's name and power limit. The line before the last two is one JSON object with each kernel's launches
 (its main paths' plus phase 18's; K-F's main paths are phases 14, 19-22,
-23's serve_retrieval and train_lm, 24, 26 and 27, K-B's phases 21, 22,
+23's serve_retrieval and train_lm, 24 and 26-28, K-B's phases 21, 22,
 23's train_lm and 27; K-A's and K-G's include phase 23's examples, and
-K-G's phases 24 and 26),
+K-G's phases 24, 26 and 28),
 error, times and bound; the line before the last is the card's name and
 power limit; the last is ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before those lines, with its message on stdout and stderr
@@ -281,7 +300,8 @@ repository's ``src/``). Long reports (nvcc's ``ptxas``
 output, the profiles by kernel, phases 16–24's numbers as JSON) go
 to ``--out`` (default ``build/chip_smoke/``; phase 25's records in
 ``phase_25.json``, phase 26's numbers in ``phase_26.json``, phase 27's
-in ``phase_27.json`` and its dry-run record in ``phase_27_dryrun.json``).
+in ``phase_27.json`` and its dry-run record in ``phase_27_dryrun.json``,
+phase 28's in ``phase_28.json``).
 Needs one card, no network; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -2783,7 +2803,7 @@ def reduced_family(card, torch, arch, rng, *, cfg=None) -> dict:
     return dict(max_abs_logit_diff=diff)
 
 
-def phase_moe(card, torch, rt, launches) -> tuple:
+def phase_moe(card, torch, rt, launches, tp_serve=None) -> tuple:
     """19. The MoE family on the card: MLA on K-F and the MoE FFN. (a) K-F
     vs its plain version at MLA's shapes — absorbed decode and prefill
     (MQA, d = kv_lora + rope = 576, v = k) and the expanded prefill (d =
@@ -2797,7 +2817,10 @@ def phase_moe(card, torch, rt, launches) -> tuple:
     at full width with its depth cut to 2 layers: one prefill and 8 decode
     steps at batch 4, counted, the layer check; (d) the reduced deepseek
     and arctic on the card and on the CPU with the same weights: logits
-    within 2e-5 + 2e-5·|logit|, greedy tokens equal. Returns (K-F's cases,
+    within 2e-5 + 2e-5·|logit|, greedy tokens equal. ``tp_serve`` (phase
+    28 (b)) gets (b)'s tree in a box to take, its record (prompts, served
+    tokens and pre-hook logits, the routed experts of every block) and
+    its hook's store after (b)'s checks, before (c). Returns (K-F's cases,
     the phase's numbers)."""
     import numpy as np
     import torch.nn.functional as F
@@ -2883,20 +2906,20 @@ def phase_moe(card, torch, rt, launches) -> tuple:
                             device=DEV)
     retrieved = []
     retrieve = record_retrievals(store, retrieved)
-    prefill_ms, decode_ms = [], []
+    prefill_ms, decode_ms, served = [], [], []
     srv = BatchedServer(cfg, ServeConfig(batch=MOE_BATCH), params, opts,
                         logits_hook=make_knn_hook(store, kcfg, cfg.vocab))
-    srv.prefill_step = timed(srv.prefill_step, prefill_ms)
-    srv.decode_step = timed(srv.decode_step, decode_ms)
-    moe.drop_log = []
+    srv.prefill_step = recorded(timed(srv.prefill_step, prefill_ms), served)
+    srv.decode_step = recorded(timed(srv.decode_step, decode_ms), served)
+    moe.drop_log, moe.route_log = [], []
     try:
         t0 = time.perf_counter()
         outs = srv.generate(prompts, max_new_tokens=MOE_NEW)
         torch.cuda.synchronize()
         t_gen = time.perf_counter() - t0
-        log = moe.drop_log
+        log, routes = moe.drop_log, moe.route_log
     finally:
-        moe.drop_log = None
+        moe.drop_log = moe.route_log = None
     counts = launches["moe_serve"] = end_path(ops)
     peak = torch.cuda.max_memory_allocated()
     want_fa = cfg.n_layers * (MOE_NEW + 1)
@@ -2963,7 +2986,16 @@ def phase_moe(card, torch, rt, launches) -> tuple:
         dropped_prefill=drop_pre, dropped_decode=drop_dec,
         layer_check_worst=worst)
     store.retrieve = retrieve
-    del params, srv, store
+    del srv
+    if tp_serve is not None:
+        box = {"params": params}
+        del params
+        tp_serve(box=box, store=store, keys=keys, kcfg=kcfg, record=dict(
+            prompts=prompts, tokens=outs, logits=served, chunks=chunks,
+            experts=[e for _, e, _, _ in routes]))
+    else:
+        del params
+    del store, routes
     torch.cuda.empty_cache()
 
     # ---- (c) arctic-480b at full width, 2 layers
@@ -5225,19 +5257,20 @@ def first_wave(prompts, vocab: int):
     return pad
 
 
-def forced_steps(torch, cfg, opts, params, pad, *, comm=None, feed=None):
-    """A prefill of ``pad`` and ``TP_DECODE`` decode steps through
+def forced_steps(torch, cfg, opts, params, pad, *, comm=None, feed=None,
+                 steps: int = TP_DECODE):
+    """A prefill of ``pad`` and ``steps`` decode steps through
     ``make_serve_step`` (over a model ``comm``, if given), each fed
     ``feed[s]`` (greedy tokens without it): (each step's served logits,
     a host float32 copy; the tokens fed)."""
     from repro_torch.models import init_cache
     from repro_torch.serve import ServeConfig, make_serve_step
     prefill, decode = make_serve_step(cfg, ServeConfig(), opts, comm=comm)
-    cache = init_cache(cfg, pad.shape[0], pad.shape[1] + TP_DECODE, opts,
+    cache = init_cache(cfg, pad.shape[0], pad.shape[1] + steps, opts,
                        device=DEV, comm=comm)
     lg, cache = prefill(params, torch.as_tensor(pad, device=DEV), cache)
     out, toks = [lg.float().cpu()], []
-    for s in range(TP_DECODE):
+    for s in range(steps):
         tok = (torch.argmax(lg, -1).to(torch.int32) if feed is None
                else torch.as_tensor(feed[s], device=DEV))
         toks.append(tok)
@@ -5632,6 +5665,446 @@ def phase_tp_training(card, torch, launches, dry) -> tuple:
     return kf_cases, kb_cases, out
 
 
+# phase 28: serving the MoE decoders over "model" (A10c, first part)
+TP_MOE_NEW = 8               # deepseek over TP_SHARDS: greedy tokens a request
+TP_ARCTIC_LAYERS = 1         # arctic-480b at full width, cut to 1 layer
+TP_ARCTIC_DECODE = 4         # its decode steps, fed one device's tokens
+TP_REDUCED_SHARDS = 2        # the reduced configs on the card vs the CPU
+# the served logits over TP_SHARDS against one device's, bf16, ‖Δ‖ / ‖one‖
+# a step. tools/tp_bf16_gap.py on deepseek's geometry narrowed to 256 wide
+# at 27 layers: the replica 0.13–0.21 off one device, one device's bf16
+# 0.15–0.20 off its float32, a third of the routed choices' experts
+# differing either way (seeded routers give near-uniform gates, so any
+# two roundings flip choices, and a flipped choice moves its row's
+# logits by the scale of an expert's output). On arctic's narrowed to 448
+# wide at 1 layer 0.009–0.010 and 0.011–0.012 with 1.5 % of the choices
+# flipped away from the served rows; its reduced config at 1 layer puts a
+# step with a flipped served row at 0.30 (PERF.md §6, written before the
+# card run)
+TP_MOE_LOGIT_REL = 0.5
+# arctic at 1 layer, each served row whose own choices (experts and kept)
+# are one device's: its logits depend on no other routing (the one
+# layer's attention precedes its MoE), so bf16's gap alone, ‖Δ‖ / ‖one‖ a row
+TP_ARCTIC_LOGIT_REL = 2.0 ** -5
+
+
+class RouteCheck:
+    """A ``models.moe.route_log`` for a tensor-parallel run: each shard's
+    (experts, slots, kept) of a routed block compared with shard 0's of
+    the same block as it comes, bit for bit; shard 0's kept in order
+    (``first``) for the comparison with one device's."""
+
+    def __init__(self):
+        self.first, self.seen = [], {}
+        self.compared = self.differ = 0
+
+    def append(self, entry):
+        shard, *routing = entry
+        if shard == 0:
+            self.first.append(routing)
+            return
+        i = self.seen.get(shard, 0)
+        self.seen[shard] = i + 1
+        self.compared += 1
+        if not all(a.equal(b) for a, b in zip(routing, self.first[i])):
+            self.differ += 1
+
+    def check(self, what: str, shards: int) -> None:
+        check(self.compared == (shards - 1) * len(self.first) > 0
+              and self.differ == 0,
+              f"{what}: {self.differ} of {self.compared} shard routings "
+              f"differ from shard 0's ({len(self.first)} blocks)")
+
+
+def experts_differ(mine, theirs) -> float:
+    """The share of routed (token, choice) pairs whose expert differs
+    between two runs' blocks (each an (N, k) tensor of experts)."""
+    n = sum(x.numel() for x in theirs)
+    return sum(int((a != b.to(a.device)).sum())
+               for a, b in zip(mine, theirs)) / max(n, 1)
+
+
+def tp_moe_kf_cases(card, torch) -> list:
+    """K-F vs its plain version at a model shard's shapes over
+    ``TP_SHARDS``: deepseek's absorbed MLA at 2 heads (MQA over the
+    latent, d 576, v 512: the prefill at phase 19's b 8 × T 2,048, the
+    written decode over 2,064 keys and the read-only one), arctic's GQA 7
+    / 1 at d 128 (phase 28 (c)'s prefill of b 4 × T 512 and a decode over
+    516 keys), SDPA beside each by ``device_ms``."""
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.distributed.tensor_parallel import shard_config
+    gen = torch.Generator(device=DEV).manual_seed(28)
+    ds = configs.get_arch(MOE_ARCH)
+    c = ds.mla
+    h = shard_config(ds, TP_SHARDS).n_heads
+    lat, w = c.kv_lora_rank, c.kv_lora_rank + c.rope_head_dim
+    scale = (c.qk_nope_head_dim + c.rope_head_dim) ** -0.5
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
+
+    def sdpa(q, k, v, **kw):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **kw)
+
+    who = f"deepseek shard of {TP_SHARDS}: MLA absorbed"
+    n, b = LM_PROMPT[1], MOE_BATCH
+    nk = n + MOE_NEW
+    q, kv = rand(b, n, h, w), rand(b, n, 1, w)
+    cases = [attention_case(
+        card, torch, f"{who} prefill b={b} nq=nk={n} h={h} kvh=1 d={w}", q,
+        kv, kv, scale=scale, d_v=lat,
+        library=sdpa(q, kv, kv, is_causal=True, scale=scale))]
+    q, kv = rand(b, 1, h, w), rand(b, nk, 1, w)
+    cases.append(attention_case(
+        card, torch, f"{who} decode b={b} nq=1 nk={nk} h={h} kvh=1 d={w}",
+        q, kv, kv, scale=scale, d_v=lat,
+        library=sdpa(q, kv, kv, scale=scale)))
+    live, kn = kv[:, :nk - 1], kv[:, nk - 1:].clone()
+    cases.append(attention_case(
+        card, torch, f"{who} read-only decode b={b} nq=1 nk={nk - 1}+1 "
+        f"h={h} kvh=1 d={w}", q, live, live, scale=scale, d_v=lat,
+        causal=False, k_new=kn, v_new=kn,
+        library=sdpa(q, kv, kv, scale=scale)))
+    del q, kv, live, kn
+    ar = shard_config(configs.get_arch("arctic-480b"), TP_SHARDS)
+    h, kvh, d = ar.n_heads, ar.n_kv_heads, ar.dh
+    b, n = ARCTIC_BATCH, ARCTIC_PROMPT
+    who = f"arctic shard of {TP_SHARDS}"
+    q, k, v = rand(b, n, h, d), rand(b, n, kvh, d), rand(b, n, kvh, d)
+    cases.append(attention_case(
+        card, torch, f"{who}: prefill b={b} nq=nk={n} h={h} kvh={kvh} "
+        f"d={d}", q, k, v, library=sdpa(q, k, v, is_causal=True)))
+    nk = n + TP_ARCTIC_DECODE
+    q, k, v = rand(b, 1, h, d), rand(b, nk, kvh, d), rand(b, nk, kvh, d)
+    cases.append(attention_case(
+        card, torch, f"{who}: decode b={b} nq=1 nk={nk} h={h} kvh={kvh} "
+        f"d={d}", q, k, v, library=sdpa(q, k, v)))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return cases
+
+
+def tp_moe_serve(card, torch, launches, *, into: dict, box: dict, record,
+                 store, keys, kcfg) -> None:
+    """28 (b), run by phase 19 with its deepseek-v2-lite-16b tree in
+    ``box``: the tree cut into ``TP_SHARDS`` model shards on the card and
+    freed, served on phase 19's prompts with its hook through
+    ``BatchedServer(comm=)`` at batch 8 for ``TP_MOE_NEW`` greedy tokens,
+    counted (K-F ``TP_SHARDS`` × 27 × forwards, K-G a decode step at
+    least), every retrieval exact; every shard's routing of every block
+    bitwise shard 0's (``RouteCheck``); while the tokens fed are phase
+    19's, the served logits within ``TP_MOE_LOGIT_REL`` of its one
+    device's; past that the gap of each row fed phase 19's tokens so far
+    and the share of routed choices whose expert differs from its,
+    printed. Its numbers go to ``into["serve"]``."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import ModelOptions, moe
+    from repro_torch.serve import BatchedServer, ServeConfig, make_knn_hook
+    t_part = time.perf_counter()
+    cfg = configs.get_arch(MOE_ARCH)
+    opts = ModelOptions(dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shards, comm = tp_replica(torch, cfg, box.pop("params"))
+    at_cut = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    t_cut = time.perf_counter() - t0
+    logits, prefill_ms, decode_ms, retrieved = [], [], [], []
+    srv = BatchedServer(cfg, ServeConfig(batch=MOE_BATCH), shards, opts,
+                        logits_hook=make_knn_hook(store, kcfg, cfg.vocab),
+                        comm=comm)
+    srv.prefill_step = recorded(timed(srv.prefill_step, prefill_ms), logits)
+    srv.decode_step = recorded(timed(srv.decode_step, decode_ms), logits)
+    retrieve = record_retrievals(store, retrieved)
+    routes = RouteCheck()
+    torch.cuda.reset_peak_memory_stats()
+    begin_path(ops, "tp_deepseek")
+    moe.route_log = routes
+    try:
+        t0 = time.perf_counter()
+        outs = srv.generate(record["prompts"], max_new_tokens=TP_MOE_NEW)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+    finally:
+        moe.route_log = None
+        store.retrieve = retrieve
+    counts = launches["tp_deepseek"] = end_path(ops)
+    peak = torch.cuda.max_memory_allocated()
+    want_fa = TP_SHARDS * cfg.n_layers * (TP_MOE_NEW + 1)
+    check(counts["flash_attention"] == want_fa,
+          f"{MOE_ARCH} over {TP_SHARDS} shards: K-F launched "
+          f"{counts['flash_attention']} times, expected {TP_SHARDS} shards "
+          f"x {cfg.n_layers} layers x {TP_MOE_NEW + 1} forwards = {want_fa}")
+    check(counts["distance_topk_gather"] >= TP_MOE_NEW
+          and len(retrieved) == TP_MOE_NEW,
+          f"{MOE_ARCH} over {TP_SHARDS} shards: {len(retrieved)} "
+          f"retrievals, launches {counts}")
+    check(all(o.shape == (TP_MOE_NEW,) and ((o >= 0) & (o < cfg.vocab))
+              .all() for o in outs),
+          f"{MOE_ARCH} over {TP_SHARDS} shards: malformed generations")
+    routes.check(f"{MOE_ARCH} over {TP_SHARDS} shards", TP_SHARDS)
+    keys64 = torch.as_tensor(keys, device=DEV).double()
+    kn64 = (keys64 * keys64).sum(1)
+    for i, (qr, d, ids) in enumerate(retrieved):
+        check_retrieval(card, torch, f"{MOE_ARCH} TP decode step {i} "
+                        f"retrieval", qr, keys64, kn64, d, ids, kcfg.k)
+    del keys64, kn64
+    same = [bool(np.array_equal(np.stack([o[:s] for o in outs]),
+                                np.stack([o[:s] for o in record["tokens"]])))
+            for s in range(TP_MOE_NEW + 1)]
+    steps = same.index(False) if False in same else TP_MOE_NEW + 1
+    gaps = [logits_gap(torch, a, b)
+            for a, b in zip(logits[:steps], record["logits"][:steps])]
+    worst = max(g[0] for g in gaps)
+    # past the steps fed the same tokens, each row whose own tokens fed so
+    # far are phase 19's, printed only: the other rows' tokens differ, and
+    # share its decode steps' expert capacity (1 slot an expert at batch 8),
+    # so its input is not one device's
+    row_gaps = [logits_gap(torch, logits[s][r], record["logits"][s][r])[0]
+                for s in range(steps, TP_MOE_NEW + 1)
+                for r in range(len(outs))
+                if np.array_equal(outs[r][:s], record["tokens"][r][:s])]
+    row_worst = max(row_gaps, default=0.0)
+    n_moe = cfg.n_layers - cfg.moe.first_dense
+    blocks = n_moe * (record["chunks"] + steps - 1)
+    share = experts_differ([r[0] for r in routes.first[:blocks]],
+                           record["experts"][:blocks])
+    agree = float(np.mean([np.mean(a == b[:TP_MOE_NEW])
+                           for a, b in zip(outs, record["tokens"])]))
+    n_blocks = len(routes.first)
+    del srv, shards, routes
+    torch.cuda.empty_cache()
+    into["serve"] = dict(
+        arch=MOE_ARCH, shards=TP_SHARDS, cut_s=t_cut, peak_at_cut=at_cut,
+        after_free=after, tokens_per_s=len(outs) * TP_MOE_NEW / t_gen,
+        prefill_ms=prefill_ms, decode_ms=decode_ms, peak_bytes=peak,
+        launches=counts, steps_compared=steps,
+        logits_rel=[g[0] for g in gaps],
+        logits_max_abs=[g[1] for g in gaps], rows_compared=len(row_gaps),
+        row_rel_max=row_worst, experts_differ=share, tokens_equal=agree,
+        part_s=time.perf_counter() - t_part)
+    print(f"[{card}] {MOE_ARCH} tensor parallel over {TP_SHARDS} model "
+          f"shards simulated on the one card (phase 19's bf16 tree cut in "
+          f"{t_cut:.3f} s: {at_cut / 2 ** 30:.3f} GiB allocated at the cut, "
+          f"{after / 2 ** 30:.3f} GiB once the whole tree was freed): "
+          f"{len(outs)} requests, batch {MOE_BATCH}, {TP_MOE_NEW} greedy "
+          f"tokens in {t_gen:.3f} s with the kNN-LM hook (the shards run "
+          f"one after another: not a speed result); prefill "
+          f"{prefill_ms[0]:.3f} ms; decode ms median "
+          f"{float(np.median(decode_ms)):.3f}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; launches {counts}; every retrieval "
+          f"exact; every shard's routing of all {n_blocks} routed "
+          f"blocks bitwise shard 0's; served logits vs phase 19's one device "
+          f"over the {steps} steps fed the same tokens: rel ||d|| max "
+          f"{worst:.4e} (limit {TP_MOE_LOGIT_REL:.4e}), by step "
+          f"{[round(g[0], 6) for g in gaps]}, max |d| "
+          f"{max(g[1] for g in gaps):.4e}; past them the {len(row_gaps)} "
+          f"(step, row) pairs whose row was fed phase 19's tokens: rel "
+          f"||d|| a row max {row_worst:.4e}; routed choices whose expert "
+          f"differs from one device's {share:.4f} (over {blocks} blocks); "
+          f"tokens equal {agree:.4f}", flush=True)
+    check(worst <= TP_MOE_LOGIT_REL,
+          f"{MOE_ARCH} over {TP_SHARDS} shards: served logits {worst:.4e} "
+          f"(rel norm) off one device's, past {TP_MOE_LOGIT_REL:.4e}")
+
+
+def arctic_tp(card, torch, launches) -> dict:
+    """28 (c): arctic-480b at full width cut to ``TP_ARCTIC_LAYERS``
+    layer(s), bf16, seeded: one prefill of ``ARCTIC_BATCH`` seeded
+    prompts of ``ARCTIC_PROMPT`` tokens and ``TP_ARCTIC_DECODE`` greedy
+    decode steps on one device, then the same tokens over ``TP_SHARDS``
+    shards (``forced_steps``), counted (K-F ``TP_SHARDS`` × layers ×
+    steps): each step's logits within ``TP_MOE_LOGIT_REL``, each served
+    row whose own choices were routed as on one device within
+    ``TP_ARCTIC_LOGIT_REL``, every shard's routing bitwise shard 0's, the
+    share of choices whose expert differs from one device's printed."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import ModelOptions, init_params, moe
+    cfg = dataclasses.replace(configs.get_arch("arctic-480b"),
+                              n_layers=TP_ARCTIC_LAYERS)
+    opts = ModelOptions(dtype=torch.bfloat16)
+    pad = np.random.default_rng(28).integers(
+        0, cfg.vocab, (ARCTIC_BATCH, ARCTIC_PROMPT)).astype(np.int32)
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                         opts, device=DEV)
+    moe.route_log = []
+    try:
+        want, feed = forced_steps(torch, cfg, opts, params, pad,
+                                  steps=TP_ARCTIC_DECODE)
+        one = [(e, k) for _, e, _, k in moe.route_log]
+    finally:
+        moe.route_log = None
+    shards, comm = tp_replica(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    routes = RouteCheck()
+    begin_path(ops, "tp_arctic")
+    moe.route_log = routes
+    try:
+        got, _ = forced_steps(torch, cfg, opts, shards, pad, comm=comm,
+                              feed=feed, steps=TP_ARCTIC_DECODE)
+        torch.cuda.synchronize()
+    finally:
+        moe.route_log = None
+    counts = launches["tp_arctic"] = end_path(ops)
+    del shards
+    torch.cuda.empty_cache()
+    want_fa = TP_SHARDS * cfg.n_layers * (TP_ARCTIC_DECODE + 1)
+    check(counts["flash_attention"] == want_fa,
+          f"arctic-480b over {TP_SHARDS} shards: K-F launched "
+          f"{counts['flash_attention']} times, expected {want_fa}")
+    routes.check(f"arctic-480b over {TP_SHARDS} shards", TP_SHARDS)
+    check(len(routes.first) == len(one) == TP_ARCTIC_DECODE + 1,
+          f"arctic-480b: {len(routes.first)} / {len(one)} routed blocks")
+    share = experts_differ([r[0] for r in routes.first],
+                           [e for e, _ in one])
+    gaps = [logits_gap(torch, a, b) for a, b in zip(got, want)]
+    worst = max(g[0] for g in gaps)
+    # each served row whose own choices are one device's (one layer: its
+    # logits read no other routing), held to bf16's gap alone
+    b, n = pad.shape
+    rows, row_worst = 0, 0.0
+    for s, ((e1, k1), (e2, _, k2), a, w) in enumerate(
+            zip(one, routes.first, got, want)):
+        served = torch.arange(b) * n + n - 1 if s == 0 else torch.arange(b)
+        for r, i in enumerate(served.tolist()):
+            if e1[i].equal(e2[i]) and k1[i].equal(k2[i]):
+                rows += 1
+                row_worst = max(row_worst, logits_gap(torch, a[r], w[r])[0])
+    check(rows > 0, "arctic-480b: no served row was routed as on one "
+          "device")
+    print(f"[{card}] arctic-480b ({TP_ARCTIC_LAYERS} of 35 layers, GQA "
+          f"{cfg.n_heads} / {cfg.n_kv_heads}: 7 / 1 a shard, "
+          f"{cfg.moe.n_experts // TP_SHARDS} of {cfg.moe.n_experts} experts "
+          f"a shard beside its 1 / {TP_SHARDS} of the dense residual) "
+          f"prefill of {pad.shape[0]} x {pad.shape[1]} tokens + "
+          f"{TP_ARCTIC_DECODE} decode steps over the one device's tokens: "
+          f"logits vs one device rel ||d|| by step "
+          f"{[round(g[0], 6) for g in gaps]} (limit "
+          f"{TP_MOE_LOGIT_REL:.4e}), max |d| "
+          f"{max(g[1] for g in gaps):.4e}; the {rows} of "
+          f"{b * len(gaps)} served rows routed as on one device: rel "
+          f"||d|| a row max {row_worst:.4e} (limit "
+          f"{TP_ARCTIC_LOGIT_REL:.4e}); every shard's routing bitwise "
+          f"shard 0's; routed choices whose expert differs from one "
+          f"device's {share:.4f}; launches {counts}", flush=True)
+    check(worst <= TP_MOE_LOGIT_REL,
+          f"arctic-480b over {TP_SHARDS} shards: logits {worst:.4e} (rel "
+          f"norm) off one device's, past {TP_MOE_LOGIT_REL:.4e}")
+    check(row_worst <= TP_ARCTIC_LOGIT_REL,
+          f"arctic-480b over {TP_SHARDS} shards: a row routed as on one "
+          f"device has logits {row_worst:.4e} (rel norm) off its, past "
+          f"{TP_ARCTIC_LOGIT_REL:.4e}")
+    return dict(layers=TP_ARCTIC_LAYERS, logits_rel=[g[0] for g in gaps],
+                logits_max_abs=[g[1] for g in gaps], experts_differ=share,
+                rows_same_routing=rows, row_rel_max=row_worst,
+                launches=counts)
+
+
+def reduced_tp(card, torch, arch: str) -> dict:
+    """28 (d): the reduced ``arch`` over ``TP_REDUCED_SHARDS`` shards on
+    the card in float32 against one device on the CPU, the same seeded
+    weights: a prefill of 4 seeded rows of 64 tokens and 3 decode steps
+    fed the next seeded tokens, every step's logits within 2e-5 +
+    2e-5·|logit|, and every routed block's (experts, slots, kept) on
+    every shard equal to the CPU's."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.distributed import LocalComm, make_mesh
+    from repro_torch.distributed.tensor_parallel import (gather_vocab,
+                                                         shard_params_tp)
+    from repro_torch.models import (ModelOptions, forward, init_cache,
+                                    init_params, moe)
+    cfg = configs.get_reduced(arch)
+    opts = ModelOptions(dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(2), opts,
+                         device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(28).integers(
+        0, cfg.vocab, (4, 67)))
+    mesh = make_mesh((1, TP_REDUCED_SHARDS), ("data", "model"),
+                     devices=[DEV] * TP_REDUCED_SHARDS)
+    comm = LocalComm(mesh).axis("model")
+
+    def run(p, comm=None, dev="cpu"):
+        cache = init_cache(cfg, 4, 67, opts, device=dev, comm=comm)
+        outs = []
+        with torch.no_grad():
+            for lo, hi in ((0, 64), (64, 65), (65, 66), (66, 67)):
+                lg, cache = forward(p, cfg, toks[:, lo:hi].to(dev),
+                                    cache=cache, opts=opts,
+                                    mode="prefill" if lo == 0 else "decode",
+                                    comm=comm)
+                if comm is not None:
+                    lg = gather_vocab(comm, lg, cfg.vocab)[0]
+                outs.append(lg.cpu())
+        return outs
+
+    moe.route_log = []
+    try:
+        want = run(params)
+        one = [[x.clone() for x in r] for _, *r in moe.route_log]
+    finally:
+        moe.route_log = None
+    routes = RouteCheck()
+    moe.route_log = routes
+    try:
+        got = run(shard_params_tp(params, cfg, mesh), comm, DEV)
+    finally:
+        moe.route_log = None
+    routes.check(f"reduced {arch} over {TP_REDUCED_SHARDS} shards",
+                 TP_REDUCED_SHARDS)
+    check(len(routes.first) == len(one) and all(
+        all(a.cpu().equal(b) for a, b in zip(mine, theirs))
+        for mine, theirs in zip(routes.first, one)),
+          f"reduced {arch} over {TP_REDUCED_SHARDS} shards on the card: "
+          f"routing differs from one device's on the CPU")
+    diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(all(bool(((g - w).abs() <= 2e-5 + 2e-5 * w.abs()).all())
+              for g, w in zip(got, want)),
+          f"reduced {arch} over {TP_REDUCED_SHARDS} shards on the card: "
+          f"logits off one device's on the CPU by {diff:.3e}, past 2e-5 + "
+          f"2e-5·|logit|")
+    print(f"[{card}] reduced {arch} (fp32) over {TP_REDUCED_SHARDS} shards "
+          f"on the card vs one device on the CPU: prefill of 4 x 64 tokens "
+          f"+ 3 decode steps, max |diff| {diff:.3e} (limit 2e-5 + "
+          f"2e-5·|logit|); routing of all {len(one)} blocks equal on every "
+          f"shard", flush=True)
+    return dict(max_abs_logit_diff=diff, blocks=len(one))
+
+
+def phase_tp_moe(card, torch, launches, tp_moe: dict) -> tuple:
+    """28. Serving the MoE decoders over ``"model"`` (A10c, first part),
+    every shard simulated on the one card: (a) K-F at the shard shapes
+    (``tp_moe_kf_cases``); (b) deepseek-v2-lite-16b at full width and
+    depth over ``TP_SHARDS`` shards (``tp_moe_serve``, run inside phase
+    19 while its tree is on the card: its numbers are in ``tp_moe``);
+    (c) arctic-480b cut to ``TP_ARCTIC_LAYERS`` layer(s) over
+    ``TP_SHARDS`` shards (``arctic_tp``); (d) the reduced deepseek and
+    arctic over ``TP_REDUCED_SHARDS`` shards, card vs CPU
+    (``reduced_tp``). Returns (K-F's cases, the phase's numbers)."""
+    t_phase = time.perf_counter()
+    cases = tp_moe_kf_cases(card, torch)
+    out = dict(deepseek=tp_moe["serve"],
+               arctic=arctic_tp(card, torch, launches))
+    for arch in (MOE_ARCH, "arctic-480b"):
+        out[f"reduced_{arch}"] = reduced_tp(card, torch, arch)
+    out["phase_s"] = (time.perf_counter() - t_phase
+                      + tp_moe["serve"]["part_s"])
+    print(f"[{card}] phase 28 (the MoE decoders over 'model') "
+          f"{out['phase_s']:.3f} s ((b) {tp_moe['serve']['part_s']:.3f} s "
+          f"of it, inside phase 19)", flush=True)
+    return cases, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
@@ -5907,10 +6380,18 @@ def main(argv=None) -> int:
         check(sum(launches[p][name] for p in mesh_paths) > 0,
               f"the mesh paths never launched {name}")
 
-    # ---- 19. the MoE family: MLA on K-F, the MoE FFN, at full width
-    mla_cases, moe_run = phase_moe(card, torch, rt, launches)
+    # ---- 19. the MoE family: MLA on K-F, the MoE FFN, at full width;
+    # 28 (b) serves its deepseek tree over 8 model shards before it is freed
+    tp_moe = {}
+    mla_cases, moe_run = phase_moe(
+        card, torch, rt, launches, tp_serve=functools.partial(
+            tp_moe_serve, card, torch, launches, into=tp_moe))
     (out_dir / "phase_19.json").write_text(json.dumps(
         dict(moe_run, kf_cases=mla_cases)))
+    # ---- 28. the MoE decoders over "model": K-F, arctic, the reduced ones
+    tpm_cases, tpm_run = phase_tp_moe(card, torch, launches, tp_moe)
+    (out_dir / "phase_28.json").write_text(json.dumps(
+        dict(tpm_run, kf_cases=tpm_cases)))
 
     # ---- 20. the recurrent, hybrid, audio and VLM families at full width
     fam_cases, fam_run = phase_families(card, torch, rt, launches)
@@ -5961,8 +6442,8 @@ def main(argv=None) -> int:
                         "ex_forest_selfjoin", "ex_distributed_join",
                         "ex_serve_retrieval"),
              "distance_topk_gather": ("megastep", "ex_distributed_join",
-                                      "ex_serve_retrieval", "tp_qwen3")
-             + dense,
+                                      "ex_serve_retrieval", "tp_qwen3",
+                                      "tp_deepseek") + dense,
              "quant_coarse_gather": ("quantized",),
              "distance_topk": ("retrieval",),
              "flash_attention": ("lm_serve", "moe_serve", "moe_arctic",
@@ -5973,7 +6454,8 @@ def main(argv=None) -> int:
                                  "a6e_capped_train", "a6e_sharded_2",
                                  "a6e_sharded_4", "ex_serve_retrieval",
                                  "ex_train_lm", "ex_train_lm_restart",
-                                 "tp_qwen3", "tp_granite") + dense
+                                 "tp_qwen3", "tp_granite", "tp_deepseek",
+                                 "tp_arctic") + dense
              + TP_TRAIN_PATHS,
              "flash_attention_bwd": ("train", "a6e_capped_train",
                                      "a6e_sharded_2", "a6e_sharded_4",
@@ -5987,7 +6469,7 @@ def main(argv=None) -> int:
         if row["name"] == "flash_attention":
             row["other_shapes"] += (mla_cases + fam_cases + a6e_kf
                                     + [ex_kf] + dense_cases + tp_cases
-                                    + tpt_kf)
+                                    + tpt_kf + tpm_cases)
         # the main paths' launches, plus the mesh paths' (phase 18)
         row["launches"] = sum(launches[p][row["name"]]
                               for p in owner[row["name"]] + tuple(mesh_paths))

@@ -31,6 +31,24 @@ class MoEConfig:
     first_dense: int = 0        # leading layers that use a dense FFN instead
     first_dense_ff: int = 0
 
+    def experts_of(self, shard: int) -> range:
+        """The routed experts that model shard ``shard`` holds: all of
+        them (a whole model; :class:`ShardMoEConfig` is a shard's)."""
+        return range(self.n_experts)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardMoEConfig(MoEConfig):
+    """A tensor-parallel model shard's view of :class:`MoEConfig`
+    (``distributed.tensor_parallel.shard_config``): ``n_experts`` stays the
+    model's, which the router needs, and the routed experts are split over
+    ``expert_shards`` shards, shard m holding ``[m·E/t, (m+1)·E/t)``."""
+    expert_shards: int = 1
+
+    def experts_of(self, shard: int) -> range:
+        n = self.n_experts // self.expert_shards
+        return range(shard * n, (shard + 1) * n)
+
 
 @dataclasses.dataclass(frozen=True)
 class MLAConfig:

@@ -35,7 +35,11 @@ counts, per device:
   **by link**: a group within one node of the abstract mesh moves its
   bytes over NVLink, a group that spans nodes over the network (the 2-D
   train step: the model axis's forward and backward all-reduces within a
-  node, the data axis's gather and reduce-scatter across nodes).
+  node, the data axis's gather and reduce-scatter across nodes). A MoE
+  FFN over a model axis records one all-reduce after it, where the JAX
+  dry run records the all-to-all that GSPMD inserts for its experts:
+  the port's shards route every token on every shard
+  (``distributed.tensor_parallel``), so no token crosses.
 
 Why meta tensors and not ``FakeTensorMode``: a fake tensor is a meta
 tensor with a device attached, and its mode's Python dispatch costs

@@ -8,9 +8,11 @@ and HBM bytes, collective bytes by kind, the three roofline terms and
 the useful-flop ratio. The cells are ``SHAPES × runnable_cells``; each
 step is what the port runs (``launch.specs``): for the dense decoders,
 rank 0 of a tensor-parallel replica over ``"model"`` — FSDP × TP for
-train, the TP forward for prefill and decode; for the other archs, FSDP
-over the data axes for train and a data-parallel replica with whole
-weights for serving (``launch.mesh.model_extent`` says which, and the
+train, the TP forward for prefill and decode; for the MoE decoders the
+TP forward for prefill and decode (experts and heads split) and FSDP
+over the data axes for train; for the other archs, FSDP over the data
+axes for train and a data-parallel replica with whole weights for
+serving (``launch.mesh.model_extent`` says which, and the
 record says why), counted by ``launch.cost``. A cell that does not fit
 is a record with ``fits_hbm`` false, not a failure; a cell that raises
 is a failure. Allocates nothing and asks for no card.
@@ -61,10 +63,11 @@ def roofline(cost) -> dict:
     return r
 
 
-def no_fit_reason(cost, notes: str) -> str:
+def no_fit_reason(cost, notes: str, held_whole: int = 0) -> str:
     """Why a cell's peak passes the card: its largest part of the peak,
-    and a batch every replica serves whole where the cell replicates
-    it."""
+    a batch every replica serves whole where the cell replicates it, and
+    the ``held_whole`` bytes of weights that the JAX serve layout would
+    keep over ``"data"`` (``launch.specs.Cell.held_whole``)."""
     parts = {"arguments (weights, cache, inputs)": cost.argument_bytes,
              "temporaries": cost.temp_bytes, "outputs": cost.output_bytes}
     big = max(parts, key=parts.get)
@@ -74,6 +77,11 @@ def no_fit_reason(cost, notes: str) -> str:
     if " replicated on " in notes:
         why += ("; the batch does not split over the data replicas, so "
                 "every replica serves every row")
+    if held_whole:
+        why += (f"; {held_whole / 2 ** 30:.1f} GiB of the weights are "
+                f"leaves that the JAX serve layout keeps over 'data' past "
+                f"its 128 MiB budget, which the port's replica holds whole "
+                f"(ROADMAP A10d)")
     return why
 
 
@@ -113,7 +121,8 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
     rec["memory"]["hbm_bytes"] = HBM_BYTES
     rec["memory"]["fits_hbm"] = cost.peak_bytes <= HBM_BYTES
     if not rec["memory"]["fits_hbm"]:
-        rec["no_fit_reason"] = no_fit_reason(cost, cell.notes)
+        rec["no_fit_reason"] = no_fit_reason(cost, cell.notes,
+                                             cell.held_whole)
     rec["cost"] = {"flops": cost.flops, "bytes": cost.bytes,
                    "flops_by_op": cost.flops_by_op}
     rec["collectives"] = dict(cost.collectives)

@@ -7,16 +7,20 @@ The JAX package's production mesh is a 16 × 16 v5e pod ``("data",
 has the same device counts: 256 H100s, or 2 × 256. Its model axis
 (:func:`model_extent`):
 
-* the dense decoders' cells (train, prefill, decode) are tensor
-  parallel over ``t = tensor_parallel.tp_degree(cfg, NODE_CARDS)`` cards
-  of one node: ``(256 / t, t)`` over ``("data", "model")``, or ``(2,
-  256 / t, t)`` over ``("pod", "data", "model")`` (train: FSDP over the
-  data axes × TP, ``train.fsdp``). 8 rather than the JAX package's 16:
-  past a node every layer's all-reduce would cross the network, and the
-  port splits whole heads (24 and 40 do not split 16 ways);
-* the other archs' cells have none (their blocks are not split over
-  ``"model"`` yet: ROADMAP A10c): 256 along ``"data"``, or 2 × 256 along
-  ``("pod", "data")``.
+* the dense decoders' cells (train, prefill, decode) and the MoE
+  decoders' serving cells (prefill, decode: deepseek-v2-lite-16b's and
+  arctic-480b's experts and heads split) are tensor parallel over ``t =
+  tensor_parallel.tp_degree(cfg, NODE_CARDS, mode)`` cards of one node:
+  ``(256 / t, t)`` over ``("data", "model")``, or ``(2, 256 / t, t)``
+  over ``("pod", "data", "model")`` (train: FSDP over the data axes ×
+  TP, ``train.fsdp``). 8 rather than the JAX package's 16: past a node
+  every layer's all-reduce would cross the network, and the port splits
+  whole heads (24 and 40 do not split 16 ways);
+* the other cells have none: 256 along ``"data"``, or 2 × 256 along
+  ``("pod", "data")`` — the MoE decoders' train cells (training over
+  ``"model"`` does not split experts or MLA yet: ROADMAP A10e) and every
+  cell of the archs whose blocks are not split over ``"model"`` yet
+  (ROADMAP A10c).
 
 The devices are abstract (the dry run allocates nothing, and no card is
 asked for): nodes of ``NODE_CARDS`` cards joined by NVLink, the nodes by
@@ -31,7 +35,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..distributed.mesh import Mesh
-from ..distributed.tensor_parallel import tp_degree, unsplit_blocks
+from ..distributed.tensor_parallel import (tp_degree, unsplit_blocks,
+                                           unsplit_label)
 
 __all__ = ["NODE_CARDS", "POD_CARDS", "AbstractMesh", "model_extent",
            "make_production_mesh"]
@@ -61,19 +66,28 @@ class AbstractMesh(Mesh):
 
 
 def model_extent(arch: ArchConfig, kind: str) -> Tuple[int, str]:
-    """(the cell's model axis, why): ``tp_degree(arch, NODE_CARDS)`` for
-    a dense decoder's cells, else 1 (module docstring)."""
-    rest = unsplit_blocks(arch)
+    """(the cell's model axis, why): ``tp_degree(arch, NODE_CARDS,
+    mode)`` for a cell whose blocks ``mode`` splits over ``"model"``,
+    else 1 (module docstring)."""
+    mode = "train" if kind == "train" else "serve"
+    rest = unsplit_blocks(arch, mode)
     if rest:
         what = ("FSDP over the data axes, whole layers a replica"
                 if kind == "train" else "whole weights a replica")
         return 1, (f"{kind}: {what}; {', '.join(rest)} not split over "
-                   f"'model' yet (ROADMAP A10c)")
-    t = tp_degree(arch, NODE_CARDS)
+                   f"'model' for {mode} yet "
+                   f"({unsplit_label(arch, mode)})")
+    t = tp_degree(arch, NODE_CARDS, mode)
     how = "FSDP over the data axes × " if kind == "train" else ""
+    what = (f"heads {arch.n_heads // t}, kv heads "
+            f"{max(arch.n_kv_heads // t, 1)}")
+    if arch.mla is not None:
+        what = f"heads {arch.n_heads // t}, MLA's latent whole"
+    if arch.moe is not None:
+        what += (f", experts {arch.moe.n_experts // t} of "
+                 f"{arch.moe.n_experts} (routed on every shard)")
     return t, (f"{kind}: {how}tensor parallel over 'model' = {t} cards of "
-               f"a node (heads {arch.n_heads // t}, kv heads "
-               f"{max(arch.n_kv_heads // t, 1)} a shard)")
+               f"a node ({what} a shard)")
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -12,8 +12,10 @@ PyTorch port of the JAX package's ``launch.serve``.
 Runs on the card (bf16 at full width, float32 with ``--reduced``);
 ``--device cpu`` runs the plain PyTorch versions of the kernels.
 
-``--tp N`` serves one tensor-parallel replica of a dense decoder over N
-model shards (``distributed.tensor_parallel``): on N cards, or on the
+``--tp N`` serves one tensor-parallel replica of a dense decoder, or of
+a MoE one (deepseek-v2-lite-16b, arctic-480b: experts and MLA's heads
+split), over N model shards (``distributed.tensor_parallel``; an N that
+does not split the arch raises): on N cards, or on the
 devices ``--devices`` lists (N entries; ``cuda:0,cuda:0`` puts two
 shards on one card, ``cpu,cpu`` two on the CPU) — nothing falls back to
 one device. Its whole tree is drawn on the CPU from the same seed (the
@@ -22,6 +24,8 @@ reaches its device, so a model larger than one card starts:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
       --reduced --tp 2 --devices cpu,cpu --retrieval
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-lite-16b --reduced --tp 2 --devices cpu,cpu
 """
 from __future__ import annotations
 

@@ -20,14 +20,20 @@ the programs the port runs, not what XLA would make of the JAX package:
   ``--shards``);
 - **prefill** and **decode** (:func:`build_prefill_cell`,
   :func:`build_decode_cell`): on a mesh whose ``"model"`` axis is wider
-  than 1 (the dense decoders, ``launch.mesh.model_extent``), rank 0's
-  shard of a tensor-parallel replica (``launch/serve.py --tp t`` on each
-  card): ``models.forward`` over rank 0's cut of the weights
-  (``tensor_parallel.shard_params_tp``) and its kv heads' cache, its
-  all-reduces and the served position's logit gather recorded by a
+  than 1 (the dense and the MoE decoders, ``launch.mesh.model_extent``),
+  rank 0's shard of a tensor-parallel replica (``launch/serve.py --tp t``
+  on each card): ``models.forward`` over rank 0's cut of the weights
+  (``tensor_parallel.shard_params_tp``: its heads, FFN columns and
+  experts) and its kv heads' cache (MLA's whole latent), its all-reduces
+  (a MoE FFN's one psum, where GSPMD's layout would exchange the tokens
+  all to all) and the served position's logit gather recorded by a
   :class:`launch.cost.RecordingComm` of ``t`` ranks; else one
   data-parallel replica with whole weights, as ``launch/serve.py``
-  runs on each card.
+  runs on each card. A replica holds its model shards whole: the leaves
+  that the JAX serve layout keeps over ``"data"`` past its 128 MiB
+  budget (``param_pspecs(mode="serve")``) are not placed so
+  (``Cell.held_whole``, which a record that does not fit names: ROADMAP
+  A10d).
 
 As in the JAX package: bf16 weights, remat for train, the read-only
 cache for decode (``model_options``; its ``chunk_q`` has no counterpart:
@@ -56,10 +62,12 @@ import torch
 
 from ..configs.base import SHAPES, ArchConfig, ShapeConfig
 from ..distributed.mesh import Mesh
+from ..distributed.sharding import param_pspecs
 from ..distributed.tensor_parallel import (gather_vocab, shard_config,
                                            shard_params_tp)
 from ..models import ModelOptions, forward, init_cache, init_params
 from ..train import OptConfig, TrainConfig, make_train_step
+from ..tree import get_path, leaves_with_path
 from .cost import RecordingComm, abstract
 from .mesh import NODE_CARDS
 
@@ -85,6 +93,9 @@ class Cell:
     kind: str                    # train | prefill | decode
     comm: Optional[RecordingComm] = None
     notes: str = ""
+    # bytes of the device's weights that the JAX serve layout keeps over
+    # "data" and the port's replica holds whole (module docstring)
+    held_whole: int = 0
 
 
 META = torch.device("meta")
@@ -227,6 +238,7 @@ class _Serving:
         self.arch, self.opts = arch, opts
         self.t = mesh.shape.get("model", 1)
         params = abstract_params(arch, opts)
+        self.held_whole = 0
         if self.t == 1:
             self.params, self.comm, self.cache_cfg = params, None, arch
             self.weights = "whole weights"
@@ -235,10 +247,22 @@ class _Serving:
                                   spans_nodes=self.t > NODE_CARDS)
         self.params = shard_params_tp(params, arch, mesh, shards=[0],
                                       device=META)[0]
-        self.cache_cfg = shard_config(arch, self.t)
-        self.weights = (f"TP over model={self.t} (rank 0's shard: "
-                        f"{self.cache_cfg.n_heads} heads, "
-                        f"{self.cache_cfg.n_kv_heads} kv heads)")
+        view = self.cache_cfg = shard_config(arch, self.t)
+        what = (f"{view.n_heads} heads, "
+                + ("MLA's latent whole" if arch.mla is not None
+                   else f"{view.n_kv_heads} kv heads"))
+        if arch.moe is not None:
+            own = view.moe.experts_of(0)
+            what += (f", experts {own.start}-{own.stop - 1} of "
+                     f"{arch.moe.n_experts}")
+        self.weights = f"TP over model={self.t} (rank 0's shard: {what})"
+        specs = param_pspecs(params, mesh, mode="serve",
+                             kv_heads_divide=arch.n_kv_heads % self.t == 0,
+                             cfg=arch)
+        self.held_whole = sum(
+            x.numel() * x.element_size()
+            for path, x in leaves_with_path(self.params)
+            if "data" in get_path(specs, path))
 
     def last_logits(self, params, tokens, *, cache=None, **kw):
         """``forward``'s served position: ``(logits (B, V), cache)``."""
@@ -269,7 +293,8 @@ def build_prefill_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh
 
     return Cell(arch, shape, opts, step, (serving.params, tokens, extras),
                 "prefill", serving.comm,
-                f"{layout} T={shape.seq_len} {serving.weights}")
+                f"{layout} T={shape.seq_len} {serving.weights}",
+                serving.held_whole)
 
 
 def build_decode_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh
@@ -291,7 +316,7 @@ def build_decode_cell(arch: ArchConfig, shape: ShapeConfig, mesh: Mesh
     return Cell(arch, shape, opts, step,
                 (serving.params, token, cache, extras), "decode",
                 serving.comm, f"{layout} C={shape.cache_len} readonly "
-                f"{serving.weights}")
+                f"{serving.weights}", serving.held_whole)
 
 
 def build_cell(arch: ArchConfig, shape_name: str, mesh: Mesh) -> Cell:

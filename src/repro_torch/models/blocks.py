@@ -17,12 +17,17 @@ place and returned, a recurrent state is a new dict. With ``readonly``
 and the attention's fresh pieces come back in its place
 (``layers.attn_apply``).
 
-``block_apply_tp`` runs one dense layer (``ATTN``) over a model comm
-(tensor parallelism, ``distributed.tensor_parallel``): each shard's
-``attn_apply`` and ``mlp_apply`` on its own tree and the shards' view of
-the config; the two partial outputs (o's, down's, each rounded to the
-model's dtype by its product) are summed over the comm in shard order
-before each residual add. Under autograd the sums' backward is the
+``block_apply_tp`` runs one decoder layer (``ATTN``, or a MoE stack's
+leading ``ATTN_dense``) over a model comm (tensor parallelism,
+``distributed.tensor_parallel``): each shard's attention (``attn_apply``
+or MLA's ``mla_apply`` at its heads) and FFN (the dense MLP at its
+columns, or the MoE FFN at its experts and its columns of the shared
+and dense MLPs, ``moe_apply(shard=)``) on its own tree and the shards'
+view of the config; the two partial outputs (o's, and the FFN's: down's,
+or the routed, shared and dense partials summed on the shard, each
+rounded to the model's dtype by its product) are summed over the comm in
+shard order before each residual add — one psum after the attention, one
+after the FFN. Under autograd the sums' backward is the
 identity and each norm's output enters the shard's projections through
 a psum of their input gradients (``distributed.mesh.psum_fwd`` /
 ``psum_bwd``); outside it both are the plain psum and nothing.
@@ -63,9 +68,12 @@ def _ffn_init(gen: torch.Generator, cfg: ArchConfig, dtype, device, *,
     return {"mlp": mlp_init(gen, cfg, dense_ff or cfg.d_ff, dtype, device)}
 
 
-def _ffn_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _ffn_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
+               shard: int = 0) -> torch.Tensor:
+    """The FFN; on a tensor-parallel model shard ``shard``, its partial
+    sum."""
     if "moe" in p:
-        return moe_apply(p["moe"], x, cfg)
+        return moe_apply(p["moe"], x, cfg, shard=shard)
     return mlp_apply(p["mlp"], x, cfg.act)
 
 
@@ -147,26 +155,27 @@ def block_apply_tp(kind: str, ps: List[Params], xs: List[torch.Tensor],
                    caches: Optional[List[Params]] = None, pos: int = 0,
                    readonly: bool = False
                    ) -> Tuple[List[torch.Tensor], List[Optional[Params]]]:
-    """One ``ATTN`` layer over a model comm: ``ps``, ``xs``,
-    ``positions`` and ``caches`` hold one entry a shard of
+    """One ``ATTN`` (or ``ATTN_dense``) layer over a model comm: ``ps``,
+    ``xs``, ``positions`` and ``caches`` hold one entry a shard of
     ``comm.shards``; ``cfg`` is the shards' view
     (``tensor_parallel.shard_config``). Returns the shards' outputs and
     caches (module docstring)."""
-    if kind != ATTN or cfg.mla is not None or "mlp" not in ps[0]:
-        raise ValueError(f"tensor parallelism splits the dense decoder "
-                         f"block, not {kind!r} (ROADMAP A10c)")
+    if _base(kind) != ATTN:
+        raise ValueError(f"tensor parallelism splits the decoder block, "
+                         f"not {kind!r} (ROADMAP A10c)")
     caches = [None] * len(ps) if caches is None else caches
+    attend = mla_apply if cfg.mla is not None else attn_apply
     hs = psum_bwd(comm, [apply_norm(p["norm1"], x, cfg.norm)
                          for p, x in zip(ps, xs)])
-    outs = [attn_apply(p["attn"], h, cfg, positions=at, cache=c, pos=pos,
-                       readonly=readonly)
+    outs = [attend(p["attn"], h, cfg, positions=at, cache=c, pos=pos,
+                   readonly=readonly)
             for p, h, at, c in zip(ps, hs, positions, caches)]
     a = psum_fwd(comm, [o for o, _ in outs])
     xs = [x + y for x, y in zip(xs, a)]
     hs = psum_bwd(comm, [apply_norm(p["norm2"], x, cfg.norm)
                          for p, x in zip(ps, xs)])
-    f = psum_fwd(comm, [mlp_apply(p["mlp"], h, cfg.act)
-                        for p, h in zip(ps, hs)])
+    f = psum_fwd(comm, [_ffn_apply(p, h, cfg, shard=m)
+                        for p, h, m in zip(ps, hs, comm.shards)])
     return [x + y for x, y in zip(xs, f)], [c for _, c in outs]
 
 

@@ -24,7 +24,10 @@ a cache, prefill included, as the JAX ``absorb=True`` default: MQA over
 the compressed cache, q' = [q_nope·W_uk, q_rope] against k' = [ckv,
 k_rope], v = k' itself and the first ``kv_lora_rank`` output columns
 kept, which is probs·ckv). Both take the JAX scale (qk_nope +
-rope)^−0.5.
+rope)^−0.5. A tensor-parallel model shard runs :func:`mla_apply` at its
+heads: its columns of q, uk and uv and its rows of o
+(``distributed.tensor_parallel``), the latent projections and the latent
+cache whole; the absorbed form is then K-F's MQA at h / t heads.
 
 Local attention decodes over a ring-buffer cache (:func:`attn_apply`),
 cross-attention (whisper's decoder) runs K-F non-causal over the

@@ -25,15 +25,17 @@ the step's fresh pieces (``{"k_new", "v_new", "pos"}``; MLA
 "xv"}``) and whose ring and recurrent layers hold their new state, and
 :func:`append_readonly` writes those pieces into the cache out of band.
 
-Tensor parallelism over a model comm (``comm=``; the dense decoders,
-``distributed.tensor_parallel``): ``forward`` takes one tree a shard of
-``comm.shards`` (``shard_params_tp``'s cut) and one cache a shard
-(``init_cache(comm=)``, sized by the shard's kv heads), and returns each
+Tensor parallelism over a model comm (``comm=``; the dense decoders
+and, for serving, the MoE ones with MLA, ``distributed.tensor_parallel``):
+``forward`` takes one tree a shard of ``comm.shards`` (``shard_params_tp``'s
+cut) and one cache a shard (``init_cache(comm=)``, sized by the shard's
+kv heads; MLA's latent cache whole on every shard), and returns each
 shard's logits over its vocabulary columns, ``(B, T, V / t)``, or whole
 where ``t`` does not divide the vocabulary. Each shard looks up the ids
 in its vocabulary range, zeros the rest, and the shards' rows are
 summed; each layer sums the shards' attention and FFN outputs
-(``blocks.block_apply_tp``); the serve steps gather the served
+(``blocks.block_apply_tp``; the MoE FFN routes on every shard, each
+running its own experts); the serve steps gather the served
 position's logits (``tensor_parallel.gather_vocab``), the train step
 takes a vocab-parallel loss over them (``train.train_step``). Under
 autograd the sums are ``distributed.mesh.psum_fwd`` (identity backward)
@@ -129,7 +131,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                device: Union[str, torch.device] = "cuda", comm=None):
     """An empty decode cache at position 0. With a model ``comm`` (tensor
     parallelism), one a shard of ``comm.shards``, on the shard's device,
-    holding the shard's kv heads (``device`` is not used)."""
+    holding the shard's kv heads, or MLA's whole latent (``device`` is not
+    used)."""
     if comm is not None:
         lcfg = shard_config(cfg, comm.n)
         return [init_cache(lcfg, batch, cache_len, opts,
@@ -183,8 +186,8 @@ def forward(
     if comm is not None:
         if enc_frames is not None or enc_out is not None \
                 or vision_embeds is not None:
-            raise ValueError("tensor parallelism serves the dense "
-                             "decoders: no encoder or vision input")
+            raise ValueError("tensor parallelism serves the decoders: no "
+                             "encoder or vision input")
         return _forward_tp(params, cfg, tokens, positions=positions,
                            cache=cache, opts=opts, mode=mode, comm=comm)
     t = tokens.shape[1]

@@ -25,12 +25,26 @@ The function is the JAX package's ``moe_apply`` / ``_moe_tokens``:
   once.
 
 Shared experts and Arctic's parallel dense residual add their MLPs to
-the routed output. The router's top-k reaches no ``pallas_call`` in the
+the routed output.
+
+A tensor-parallel model shard (``shard=m`` of a config whose ``moe`` is
+a shard's view, ``distributed.tensor_parallel.shard_config``) holds the
+routed experts ``cfg.moe.experts_of(m)`` and its columns of the shared
+and dense MLPs. It routes as one device does — the whole router over
+all the tokens with the model's ``E`` and capacity, so the (expert,
+slot, kept) of every (token, choice) are one device's — and then fills
+and runs only its own experts' ``(E/t, C, D)`` buffers, and combines
+only the kept choices whose expert it holds (in float32, rounded once).
+Its output is a partial sum that the replica's psum completes
+(``models.blocks.block_apply_tp``). The router's top-k reaches no ``pallas_call`` in the
 JAX package, so nothing here is a kernel: the expert products are plain
 ``torch.bmm``, as the JAX package's are plain ``einsum``.
 
 :data:`drop_log`, when set to a list, receives ``(kept, routed)`` per
-routed block (a counter for scripts that print the dropped share).
+routed block (a counter for scripts that print the dropped share; a
+tensor-parallel replica's blocks are counted once, by shard 0), and
+:data:`route_log` ``(shard, experts, slots, kept)`` per routed block and
+shard (what a check of the shards' routing compares).
 """
 from __future__ import annotations
 
@@ -42,7 +56,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from .layers import dense, dense_init, mlp_apply, mlp_init, normal_init
 
-__all__ = ["moe_init", "moe_apply", "moe_route", "drop_log"]
+__all__ = ["moe_init", "moe_apply", "moe_route", "drop_log", "route_log"]
 
 Params = Dict[str, Any]
 
@@ -50,6 +64,8 @@ _MOE_CHUNK = 4096   # tokens per routed block (the JAX package's)
 
 # (kept, routed) (token, choice) pairs per routed block, when a list
 drop_log: Optional[List[Tuple[int, int]]] = None
+# (shard, experts, slots, kept) per routed block and shard, when a list
+route_log: Optional[list] = None
 
 
 def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype,
@@ -74,16 +90,18 @@ def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype,
     return p
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x (B, T, D) → (B, T, D)."""
+def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
+              shard: int = 0) -> torch.Tensor:
+    """x (B, T, D) → (B, T, D); on a tensor-parallel model shard
+    ``shard`` its partial sum (module docstring)."""
     b, t, d = x.shape
     n = b * t
     xf = x.reshape(n, d)
     if n > _MOE_CHUNK and n % _MOE_CHUNK == 0:
-        y = torch.cat([_moe_tokens(p, xf[lo:lo + _MOE_CHUNK], cfg)
+        y = torch.cat([_moe_tokens(p, xf[lo:lo + _MOE_CHUNK], cfg, shard)
                        for lo in range(0, n, _MOE_CHUNK)])
     else:
-        y = _moe_tokens(p, xf, cfg)
+        y = _moe_tokens(p, xf, cfg, shard)
     y = y.reshape(b, t, d)
     for sp in p.get("shared", []):
         y = y + mlp_apply(sp, x, cfg.act)
@@ -114,14 +132,24 @@ def moe_route(p: Params, xf: torch.Tensor, cfg: ArchConfig):
     return tope, slots, slots < cap, topw, cap
 
 
-def _moe_tokens(p: Params, xf: torch.Tensor, cfg: ArchConfig
-                ) -> torch.Tensor:
-    """Routed-expert compute for a flat (N, D) token block."""
+def _moe_tokens(p: Params, xf: torch.Tensor, cfg: ArchConfig,
+                shard: int = 0) -> torch.Tensor:
+    """Routed-expert compute for a flat (N, D) token block: the experts
+    of model shard ``shard`` (every expert on one device)."""
     n, d = xf.shape
-    e = cfg.moe.n_experts
+    own = cfg.moe.experts_of(shard)
+    e, lo = len(own), own.start
+    if p["up"].shape[0] != e:
+        raise ValueError(f"shard {shard} holds {p['up'].shape[0]} experts, "
+                         f"its config view {e}")
     tope, slots, kept, topw, cap = moe_route(p, xf, cfg)
-    if drop_log is not None:
+    if drop_log is not None and shard == 0:
         drop_log.append((int(kept.sum()), kept.numel()))
+    if route_log is not None:
+        route_log.append((shard, tope, slots, kept))
+    if e != cfg.moe.n_experts:        # the kept choices of own experts
+        kept = kept & (tope >= lo) & (tope < lo + e)
+        tope = torch.clamp(tope - lo, 0, e - 1)
     tok = torch.arange(n, device=xf.device)[:, None].expand_as(tope)
     xe = torch.zeros((e, cap, d), dtype=xf.dtype, device=xf.device)
     xe[tope[kept], slots[kept]] = xf[tok[kept]]

@@ -17,8 +17,8 @@ passes no ``extra``, so it serves every family but whisper (which needs
 the encoder's output: drive ``make_serve_step`` with ``enc_out=``) and
 qwen2-vl as text only, as the JAX loop does.
 
-A tensor-parallel replica (``comm=``, a model comm; the dense decoders,
-``distributed.tensor_parallel``): the steps take the shards' trees and
+A tensor-parallel replica (``comm=``, a model comm; the dense decoders
+and the MoE ones with MLA, ``distributed.tensor_parallel``): the steps take the shards' trees and
 caches (one a shard of ``comm.shards``) and return the served position's
 logits gathered across the shards (``gather_vocab``: only that position
 crosses, never ``(B, T, V)``), on the first shard's device; the server

@@ -24,7 +24,9 @@ and float32 ``master`` are the shard's parts). A step, on every shard:
    in shard order) and updates its own part.
 
 **Over a model axis** (``t`` > 1, the dense decoders that
-``tensor_parallel.tp_degree`` splits): a data replica is ``t`` model
+``tensor_parallel.tp_degree(mode="train")`` splits; MoE and MLA, which
+serving splits, raise: their gradients over ``"model"`` are ROADMAP
+A10e): a data replica is ``t`` model
 shards, each cut at head boundaries as ``tensor_parallel.shard_params_tp``
 cuts them for serving (:func:`tensor_parallel.tp_slices`), and each model
 shard's parts are cut again over the data axes on the dims the train
@@ -52,9 +54,9 @@ Adafactor's factored statistics need a leaf's full rows and columns, so
 under Adafactor the gradients are reduced in full (``psum``) on every
 shard, its state is kept whole on every shard, and each shard applies the
 update to its own part of the parameters. It runs over the data axes
-only: with a model axis wider than 1 it raises (ROADMAP A10c; the one
-arch that trains with it, arctic-480b, has experts that are not split
-over ``"model"`` yet).
+only: with a model axis wider than 1 it raises (ROADMAP A10e; the one
+arch that trains with it, arctic-480b, has experts that training does
+not split over ``"model"`` yet).
 
 The shards are ``comm.shards``: every shard in one process over a
 ``LocalComm`` (several simulated on one device, or one a card), or this
@@ -113,13 +115,14 @@ class FSDPTrainer:
             raise ValueError(tcfg.opt.name)
         self.t = mesh.shape.get("model", 1)
         if self.t > 1:
-            shard_config(cfg, self.t)     # raises unless t splits cfg
+            shard_config(cfg, self.t, "train")  # raises unless t splits
             if tcfg.opt.name == "adafactor":
                 raise ValueError(
                     f"Adafactor over a model axis of {self.t}: its factored "
                     f"state needs whole leaves, and the arch that trains "
-                    f"with it (arctic-480b) is not split over 'model' yet "
-                    f"(ROADMAP A10c); use AdamW or a model axis of 1")
+                    f"with it (arctic-480b) is not split over 'model' for "
+                    f"training yet (ROADMAP A10e); use AdamW or a model "
+                    f"axis of 1")
         self.cfg, self.tcfg, self.opts, self.mesh = cfg, tcfg, opts, mesh
         self.comm = comm_for(mesh) if comm is None else comm
         if self.comm.n != mesh.size:

@@ -404,16 +404,22 @@ def test_tensor_parallel_serving_cell(kind):
 
 
 def test_other_cells_keep_the_data_parallel_layout():
-    """A non-dense arch's serving and train cells have no model axis on
-    the production mesh, and their records say why; a dense arch's train
-    cell has one."""
-    t, why = mesh_mod.model_extent(get_reduced("deepseek-v2-lite-16b"),
+    """A MoE arch's train cells and the unsplit archs' serving and train
+    cells have no model axis on the production mesh, and their records
+    say why (A10e: training MoE / MLA over "model"; A10c: the blocks not
+    split yet); a MoE arch's serving cells and a dense arch's train cell
+    have one."""
+    t, why = mesh_mod.model_extent(get_arch("deepseek-v2-lite-16b"),
                                    "decode")
-    assert t == 1 and "A10c" in why and "MoE" in why
+    assert t == 8 and "experts 8 of 64" in why
+    t, why = mesh_mod.model_extent(get_arch("xlstm-350m"), "decode")
+    assert t == 1 and "A10c" in why and "slstm" in why
     for arch in ("deepseek-v2-lite-16b", "arctic-480b", "xlstm-350m",
                  "recurrentgemma-9b", "whisper-small", "qwen2-vl-7b"):
         t, why = mesh_mod.model_extent(get_arch(arch), "train")
-        assert t == 1 and "A10c" in why and "FSDP" in why, arch
+        label = "A10e" if arch in ("deepseek-v2-lite-16b",
+                                   "arctic-480b") else "A10c"
+        assert t == 1 and label in why and "FSDP" in why, arch
     t, why = mesh_mod.model_extent(get_reduced(ARCH), "train")
     assert t == 4 and "FSDP over the data axes × tensor parallel" in why
     assert mesh_mod.model_extent(get_arch("granite-34b"), "prefill")[0] == 8

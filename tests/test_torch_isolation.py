@@ -163,7 +163,7 @@ def _small():
     "sharded Datastore", "launch.join --distributed", "tools/tune_quant.py",
     "init_params moe", "init_cache moe", "init_params hybrid",
     "init_cache ssm", "launch.train", "opt_state_from_jax",
-    "launch.serve --tp", "launch.train --tp"])
+    "launch.serve --tp", "launch.serve --tp moe", "launch.train --tp"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises;
     it never carries on silently on the CPU."""
@@ -252,6 +252,8 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         # its shards' devices
         "launch.serve --tp": lambda: launch_serve.main(
             ["--arch", "llama3.2-3b", "--reduced", "--tp", "2"]),
+        "launch.serve --tp moe": lambda: launch_serve.main(
+            ["--arch", "deepseek-v2-lite-16b", "--reduced", "--tp", "2"]),
         "launch.train --tp": lambda: launch_train.main(
             ["--arch", "llama3.2-3b", "--reduced", "--steps", "1",
              "--tp", "2", "--shards", "2"]),

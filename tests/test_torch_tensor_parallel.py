@@ -22,7 +22,8 @@
 * A 2-process gloo ``GroupComm`` cut along ``"model"`` with
   ``GroupComm.axis`` gives ``LocalComm``'s bits.
 * ``tp_degree``: 8 for the four full configs (3, 5, 6 and 6 heads a
-  shard), raising for the MoE, MLA, recurrent, audio and vision configs;
+  shard), raising for the recurrent, audio and vision configs (the MoE
+  and MLA ones serve split: ``tests/test_torch_tp_moe.py``);
   ``shard_config`` pins ``head_dim``; ``shard_params_tp``'s cut tiles
   every split leaf and gives each shard the kv head its q heads read;
   ``comm.axis`` groups; the launcher's ``--tp 2 --devices cpu,cpu``.
@@ -36,12 +37,7 @@ of it.
 """
 import dataclasses
 import functools
-import os
-import subprocess
-import sys
-import textwrap
 import time
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -56,12 +52,12 @@ from repro_torch.distributed.tensor_parallel import (  # noqa: E402
     shard_config, shard_params_tp, tp_degree, unsplit_blocks)
 from repro_torch.serve import BatchedServer, ServeConfig  # noqa: E402
 from repro_torch.tree import leaves_with_path, path_str  # noqa: E402
-from torch_parity import params_to_jax  # noqa: E402
-from torch_tp import OPTS, pg_worker, run, tokens, weights  # noqa: E402
+from torch_tp import (OPTS, jax_serve_ref, pg_worker, run,  # noqa: E402
+                      start_jax_serve, stop, tokens, weights)
 
-ROOT = Path(__file__).resolve().parent.parent
 DENSE = ("llama3.2-3b", "qwen3-14b", "nemotron-4-15b", "granite-34b")
-OTHERS = tuple(a for a in ARCH_IDS if a not in DENSE)
+MOE = ("deepseek-v2-lite-16b", "arctic-480b")   # tests/test_torch_tp_moe.py
+OTHERS = tuple(a for a in ARCH_IDS if a not in DENSE + MOE)
 ATOL = RTOL = 1e-5
 
 
@@ -212,9 +208,9 @@ def test_tp_degree_of_the_full_configs():
 
 @pytest.mark.parametrize("arch", OTHERS)
 def test_tp_degree_refuses_unsplit_blocks(arch):
-    """MoE (arctic, deepseek), MLA (deepseek), the recurrent kinds
-    (recurrentgemma, xlstm), cross-attention (whisper) and the vision
-    merge (qwen2-vl) are not split yet (ROADMAP A10c)."""
+    """The recurrent kinds (recurrentgemma, xlstm), cross-attention
+    (whisper) and the vision merge (qwen2-vl) are not split yet (ROADMAP
+    A10c); MoE and MLA serve split (``tests/test_torch_tp_moe.py``)."""
     cfg = configs.get_reduced(arch)
     assert unsplit_blocks(cfg)
     with pytest.raises(ValueError, match="A10c"):
@@ -291,88 +287,22 @@ def test_group_comm_matches_local_comm(tmp_path):
 
 
 # ------------------------------------------------------- the JAX mesh
-_JAX_SCRIPT = """
-    import os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    import jax, jax.numpy as jnp, numpy as np
-    from jax.sharding import Mesh
-    from repro.configs import get_reduced
-    from repro.distributed.sharding import axis_rules, param_shardings
-    from repro.models import ModelOptions, forward, init_cache, init_params
-
-    t, prompt, steps, cache_len = (int(x) for x in sys.argv[3:7])
-    z = np.load(sys.argv[1])
-    opts = ModelOptions(dtype=jnp.float32, remat=False)
-    out = {}
-    for arch in sys.argv[7:]:
-        cfg = get_reduced(arch)
-        tree = jax.tree_util.tree_structure(jax.eval_shape(
-            lambda k: init_params(cfg, k, opts), jax.random.PRNGKey(0)))
-        n = tree.num_leaves
-        leaves = [jnp.asarray(z[f"{arch}/{i}"]) for i in range(n)]
-        toks = jnp.asarray(z[f"{arch}/tokens"])
-        mesh = Mesh(np.asarray(jax.devices()[:t]).reshape(1, t),
-                    ("data", "model"))
-        with mesh, axis_rules(mesh):
-            p = jax.tree_util.tree_unflatten(tree, leaves)
-            p = jax.device_put(p, param_shardings(p, mesh, mode="serve"))
-            pre = jax.jit(lambda p, x, c: forward(
-                p, cfg, x, cache=c, opts=opts, mode="prefill"))
-            dec = jax.jit(lambda p, x, c: forward(
-                p, cfg, x, cache=c, opts=opts, mode="decode"))
-            cache = init_cache(cfg, toks.shape[0], cache_len, opts)
-            lg, cache = pre(p, toks[:, :prompt], cache)
-            out[f"{arch}/{t}/0"] = np.asarray(lg)
-            for s in range(steps):
-                lg, cache = dec(p, toks[:, prompt + s:prompt + s + 1], cache)
-                out[f"{arch}/{t}/{s + 1}"] = np.asarray(lg)
-    np.savez(sys.argv[2], **out)
-    print("devices", len(jax.devices()))
-"""
-
-
 @pytest.fixture(scope="module", autouse=True)
 def jax_mesh_run(tmp_path_factory):
-    """The JAX forward on the forced meshes (``_JAX_SCRIPT``): one
+    """The JAX forward on the forced meshes (``torch_tp.JAX_SERVE``): one
     subprocess an extent, both started with the module's first test so
     that their imports and compiles overlap each other and the other
     tests; the port's weights and tokens go through a file."""
-    from torch_tp import CACHE, PROMPT, STEPS
     d = tmp_path_factory.mktemp("jax_tp")
-    arrays = {}
-    for arch in DENSE:
-        cfg = configs.get_reduced(arch)
-        for i, x in enumerate(jax.tree_util.tree_leaves(
-                params_to_jax(weights(cfg), cfg))):
-            arrays[f"{arch}/{i}"] = x
-        arrays[f"{arch}/tokens"] = tokens(cfg).numpy().astype(np.int32)
-    np.savez(d / "in.npz", **arrays)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               JAX_PLATFORMS="cpu")
-    procs = {}
-    for t in (2, 4):
-        with open(d / f"out{t}.txt", "w") as out, \
-                open(d / f"err{t}.txt", "w") as err:
-            procs[t] = subprocess.Popen(
-                [sys.executable, "-c", textwrap.dedent(_JAX_SCRIPT),
-                 str(d / "in.npz"), str(d / f"ref{t}.npz"), str(t),
-                 str(PROMPT), str(STEPS), str(CACHE), *DENSE], env=env,
-                stdout=out, stderr=err, text=True)
+    procs = start_jax_serve(d, DENSE, jax.tree_util.tree_leaves)
     yield dict(procs=procs, dir=d)
-    for proc in procs.values():
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+    stop(procs)
 
 
 @pytest.mark.parametrize("t", [2, 4])
 @pytest.mark.parametrize("arch", DENSE)
 def test_jax_mesh_matches_replica(jax_mesh_run, arch, t):
-    d = jax_mesh_run["dir"]
-    rc = jax_mesh_run["procs"][t].wait(timeout=400)
-    assert rc == 0, (d / f"err{t}.txt").read_text()[-3000:]
-    assert (d / f"out{t}.txt").read_text().split() == ["devices", "4"]
-    ref = np.load(d / f"ref{t}.npz")
+    ref = jax_serve_ref(jax_mesh_run["procs"], jax_mesh_run["dir"], t)
     cfg = configs.get_reduced(arch)
     shards, comm = _replica(cfg, weights(cfg), t)
     got = run(shards, cfg, tokens(cfg), comm=comm)

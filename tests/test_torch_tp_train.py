@@ -382,20 +382,26 @@ def test_holders_and_partial_leaves(arch, t):
 
 
 def test_refusals():
-    """Adafactor over a model axis wider than 1 names A10c; an arch whose
-    blocks are not split, and an extent that does not split the heads,
-    raise; a ``(n, 1)`` mesh runs the data-parallel step."""
+    """Adafactor over a model axis wider than 1 names A10e (training MoE
+    / MLA over "model"); an arch whose blocks training does not split
+    (deepseek's MoE and MLA: A10e; xlstm's recurrent kinds: A10c), and an
+    extent that does not split the heads, raise; a ``(n, 1)`` mesh runs
+    the data-parallel step."""
     cfg = configs.get_reduced("llama3.2-3b")
     ada = TrainConfig(opt=OptConfig(name="adafactor"))
-    with pytest.raises(ValueError, match="A10c"):
+    with pytest.raises(ValueError, match="A10e"):
         FSDPTrainer(cfg, ada, OPTS, _mesh((1, 2)))
     FSDPTrainer(cfg, ada, OPTS, _mesh((2, 1)))
-    with pytest.raises(ValueError, match="A10c"):
+    with pytest.raises(ValueError, match="A10e"):
         FSDPTrainer(configs.get_reduced("deepseek-v2-lite-16b"),
+                    tcfg("adamw"), OPTS, _mesh((1, 2)))
+    with pytest.raises(ValueError, match="A10c"):
+        FSDPTrainer(configs.get_reduced("xlstm-350m"),
                     tcfg("adamw"), OPTS, _mesh((1, 2)))
     with pytest.raises(ValueError, match="does not split"):
         FSDPTrainer(cfg, tcfg("adamw"), OPTS, _mesh((1, 3)))
-    others = [a for a in ARCH_IDS if unsplit_blocks(configs.get_arch(a))]
+    others = [a for a in ARCH_IDS
+              if unsplit_blocks(configs.get_arch(a), "train")]
     assert "arctic-480b" in others and not set(DENSE) & set(others)
 
 

@@ -3,6 +3,11 @@ and the gloo process group's workers it spawns. It imports no JAX, so
 that a spawned worker starts in the time ``torch`` and the port take to
 import."""
 import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -16,6 +21,7 @@ from repro_torch.models import (ModelOptions, append_readonly, forward,
 
 OPTS = ModelOptions(dtype=torch.float32)
 PROMPT, STEPS, CACHE = 8, 3, 16
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def tokens(cfg, seed=1):
@@ -59,6 +65,94 @@ def run(params, cfg, toks, *, comm=None, readonly=False):
                 for c, fresh in zip(cache, new):
                     append_readonly(c, fresh)
     return [x.cpu() for x in outs]
+
+
+# ---- the JAX forward on forced ("data", "model") host meshes
+# The JAX package's prefill and STEPS decode steps of each reduced arch in
+# argv[7:], jitted with param_shardings(mode="serve") on a (1, t) mesh of
+# 4 forced host devices, over the leaves in argv[1]; logits to argv[2].
+JAX_SERVE = """
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import Mesh
+    from repro.configs import get_reduced
+    from repro.distributed.sharding import axis_rules, param_shardings
+    from repro.models import ModelOptions, forward, init_cache, init_params
+
+    t, prompt, steps, cache_len = (int(x) for x in sys.argv[3:7])
+    z = np.load(sys.argv[1])
+    opts = ModelOptions(dtype=jnp.float32, remat=False)
+    out = {}
+    for arch in sys.argv[7:]:
+        cfg = get_reduced(arch)
+        tree = jax.tree_util.tree_structure(jax.eval_shape(
+            lambda k: init_params(cfg, k, opts), jax.random.PRNGKey(0)))
+        n = tree.num_leaves
+        leaves = [jnp.asarray(z[f"{arch}/{i}"]) for i in range(n)]
+        toks = jnp.asarray(z[f"{arch}/tokens"])
+        mesh = Mesh(np.asarray(jax.devices()[:t]).reshape(1, t),
+                    ("data", "model"))
+        with mesh, axis_rules(mesh):
+            p = jax.tree_util.tree_unflatten(tree, leaves)
+            p = jax.device_put(p, param_shardings(p, mesh, mode="serve"))
+            pre = jax.jit(lambda p, x, c: forward(
+                p, cfg, x, cache=c, opts=opts, mode="prefill"))
+            dec = jax.jit(lambda p, x, c: forward(
+                p, cfg, x, cache=c, opts=opts, mode="decode"))
+            cache = init_cache(cfg, toks.shape[0], cache_len, opts)
+            lg, cache = pre(p, toks[:, :prompt], cache)
+            out[f"{arch}/{t}/0"] = np.asarray(lg)
+            for s in range(steps):
+                lg, cache = dec(p, toks[:, prompt + s:prompt + s + 1], cache)
+                out[f"{arch}/{t}/{s + 1}"] = np.asarray(lg)
+    np.savez(sys.argv[2], **out)
+    print("devices", len(jax.devices()))
+"""
+
+
+def start_jax_serve(d, archs, flatten):
+    """``JAX_SERVE`` over ``archs``' reduced configs (the port's
+    ``weights`` carried across by ``torch_parity.params_to_jax`` and
+    ``flatten``, the caller's ``jax.tree_util.tree_leaves``) in one
+    subprocess an extent (2 and 4), started at once: ``{t: Popen}``,
+    writing ``d / f"ref{t}.npz"``, ``out{t}.txt`` and ``err{t}.txt``."""
+    from torch_parity import params_to_jax
+    arrays = {}
+    for arch in archs:
+        cfg = configs.get_reduced(arch)
+        for i, x in enumerate(flatten(params_to_jax(weights(cfg), cfg))):
+            arrays[f"{arch}/{i}"] = x
+        arrays[f"{arch}/tokens"] = tokens(cfg).numpy().astype(np.int32)
+    np.savez(d / "in.npz", **arrays)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu")
+    procs = {}
+    for t in (2, 4):
+        with open(d / f"out{t}.txt", "w") as out, \
+                open(d / f"err{t}.txt", "w") as err:
+            procs[t] = subprocess.Popen(
+                [sys.executable, "-c", textwrap.dedent(JAX_SERVE),
+                 str(d / "in.npz"), str(d / f"ref{t}.npz"), str(t),
+                 str(PROMPT), str(STEPS), str(CACHE), *archs], env=env,
+                stdout=out, stderr=err, text=True)
+    return procs
+
+
+def jax_serve_ref(procs, d, t):
+    """Extent ``t``'s logits from :func:`start_jax_serve`, once its
+    subprocess has ended with 4 forced devices."""
+    rc = procs[t].wait(timeout=400)
+    assert rc == 0, (d / f"err{t}.txt").read_text()[-3000:]
+    assert (d / f"out{t}.txt").read_text().split() == ["devices", "4"]
+    return np.load(d / f"ref{t}.npz")
+
+
+def stop(procs):
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def pg_worker(rank, world, store_path, out_path):
